@@ -1,0 +1,82 @@
+"""Weight bridge: the JAX package's flax variable trees -> this package's
+``state_dict``s, for the SAMS generator and the GMM.
+
+Input is ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
+arrays (``jax.device_get`` of a flax tree, or an unpacked checkpoint), so
+this module imports no JAX. It is the inverse direction of the torch -> flax
+map in tools/convert_lightning_checkpoint.py:
+
+* conv kernels HWIO -> OIHW; dense kernels (in, out) -> (out, in);
+* batch norm ``BatchNorm_0/{scale, bias, mean, var}`` -> ``weight``,
+  ``bias``, ``running_mean``, ``running_var``;
+* flax ``nn.SpectralNorm`` state ``SpectralNorm_k/<conv>/kernel/{u, sigma}``
+  -> the conv's ``u`` and ``sigma`` buffers.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Mapping, Sequence, Tuple
+
+import numpy as np
+import torch
+
+_LEAF = {
+    "kernel": "weight", "scale": "weight", "bias": "bias",
+    "mean": "running_mean", "var": "running_var", "u": "u", "sigma": "sigma",
+}
+# scope renames per network: (pattern, replacement) on whole path components
+GENERATOR_RENAMES = ((r"SyncBatchNorm_0", "norm"),)
+GMM_RENAMES = (
+    (r"Conv_(\d+)", r"convs.\1"),
+    (r"SyncBatchNorm_(\d+)", r"bns.\1"),
+    (r"Dense_0", "linear"),
+)
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:
+    for key, value in tree.items():
+        # flax names spectral-norm state with '/' inside one key
+        path = prefix + tuple(str(key).split("/"))
+        if isinstance(value, Mapping):
+            yield from _flatten(value, path)
+        else:
+            yield path, np.asarray(value)
+
+
+def _torch_name(path: Sequence[str], renames) -> str:
+    parts = []
+    for part in path[:-1]:
+        if part in ("BatchNorm_0", "kernel") or re.fullmatch(r"SpectralNorm_\d+", part):
+            continue
+        for pattern, repl in renames:
+            if re.fullmatch(pattern, part):
+                part = re.sub(pattern, repl, part)
+                break
+        parts.append(part)
+    parts.append(_LEAF[path[-1]])
+    return ".".join(parts)
+
+
+def _torch_value(path: Sequence[str], value: np.ndarray) -> torch.Tensor:
+    if path[-1] == "kernel":
+        value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+    return torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+
+
+def flax_to_state_dict(variables: Mapping, renames) -> Dict[str, torch.Tensor]:
+    """Map every leaf of ``params`` and ``batch_stats`` to a state_dict entry."""
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flatten(variables.get(collection, {})):
+            name = _torch_name(path, renames)
+            if name in out:
+                raise ValueError(f"two flax variables map to {name}")
+            out[name] = _torch_value(path, value)
+    return out
+
+
+def load_flax(module: torch.nn.Module, variables: Mapping, renames) -> None:
+    """Load converted flax variables into ``module``; every entry of the
+    module's state_dict must be covered and every variable used."""
+    module.load_state_dict(flax_to_state_dict(variables, renames), strict=True)

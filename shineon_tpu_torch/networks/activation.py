@@ -1,0 +1,42 @@
+"""Selectable activations (counterpart of shineon_tpu/networks/activation.py)."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def sine(x):
+    """SIREN activation sin(30 x)."""
+    return torch.sin(30.0 * x)
+
+
+def swish(x):
+    return x * torch.sigmoid(x)
+
+
+def leaky_relu_02(x):
+    return F.leaky_relu(x, negative_slope=0.2)
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def get_activation_fn(activation: str):
+    """relu/gelu/swish/sine switch."""
+    table = {"relu": F.relu, "gelu": _gelu, "swish": swish, "sine": sine}
+    if activation not in table:
+        raise RuntimeError(
+            f"activation must be one of relu/gelu/swish/sine; got {activation!r}"
+        )
+    return table[activation]
+
+
+def get_resblock_activation_fn(activation: str):
+    """AnySpadeResBlock maps 'relu' to LeakyReLU(0.2) (reference
+    sams/spade.py:183-192)."""
+    if activation == "relu":
+        return leaky_relu_02
+    return get_activation_fn(activation)

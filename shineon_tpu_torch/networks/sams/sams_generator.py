@@ -1,0 +1,132 @@
+"""SAMS generator, NHWC (counterpart of shineon_tpu/networks/sams/sams_generator.py).
+
+Encoder (plain-SPADE resblocks + 0.5x nearest downsample over the previous
+generated frames, conditioned on their encoder labelmaps) -> middle
+(``num_middle`` width-preserving MultiSpade blocks on the current labelmap
+dict) -> decoder (2x nearest upsample + MultiSpade blocks) -> conv to RGB
+(+ weight mask with flow warping). Widths follow ngf_base ** pow. The
+attention variants are not ported yet.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Dict, Optional, Sequence
+
+import torch
+from torch import nn
+
+from shineon_tpu_torch.datasets.channels import MASK_CHANNELS, RGB_CHANNELS, channels_for
+from shineon_tpu_torch.networks.layers import Conv2d
+from shineon_tpu_torch.networks.sams.multispade import MultiSpade
+from shineon_tpu_torch.networks.sams.spade import SPADE, AnySpadeResBlock, parse_spade_config
+
+
+def resize_nearest_scale(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """torch ``nn.Upsample(mode="nearest")`` on NHWC for the two scales the
+    generator uses: 0.5x keeps the even pixels, 2x repeats each pixel."""
+    if scale == 0.5:
+        return x[:, ::2, ::2, :]
+    if scale == 2.0:
+        return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    raise ValueError(f"unsupported nearest scale {scale}")
+
+
+class SamsGenerator(nn.Module):
+    """See module docstring; arguments mirror the JAX module's fields."""
+
+    def __init__(self, norm_G: str = "spectralspadesyncbatch3x3", ngf_base: int = 2,
+                 ngf_pow_outer: int = 6, ngf_pow_inner: int = 10, ngf_pow_step: int = 1,
+                 num_middle: int = 3, attention_middle_indices: Sequence[str] = (),
+                 attention_decoder_indices: Sequence[str] = (), activation: str = "relu",
+                 n_frames_total: int = 5, flow_warp: bool = False,
+                 encoder_input: str = "flow",
+                 inputs: Sequence[str] = ("agnostic", "cloth", "densepose", "flow"),
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if attention_middle_indices or attention_decoder_indices:
+            raise NotImplementedError("attention SAMS blocks are not ported yet")
+        self.n_frames_total, self.dtype = n_frames_total, dtype
+        self.num_prev = max(n_frames_total - 1, 1)
+        self.enc_ch = channels_for(encoder_input)
+        out_channels = RGB_CHANNELS + MASK_CHANNELS if flow_warp else RGB_CHANNELS
+        enc_label_nc = self.enc_ch * (self.num_prev if n_frames_total > 1 else 1)
+        labels = {name: channels_for(name) for name in inputs}
+        spade_config = norm_G.replace("spectral", "")
+        parse_spade_config(spade_config)
+        ngf_outer = int(ngf_base ** ngf_pow_outer)
+        ngf_inner = int(ngf_base ** ngf_pow_inner)
+
+        def enc_spade(c):
+            return SPADE(c, enc_label_nc, config_text=spade_config,
+                         activation=activation, dtype=dtype)
+
+        def cur_spade(c):
+            return MultiSpade(c, labels, config_text=spade_config,
+                              activation=activation, dtype=dtype)
+
+        block = partial(AnySpadeResBlock, norm_G=norm_G, activation=activation, dtype=dtype)
+
+        self.encode_conv_in = Conv2d(RGB_CHANNELS * self.num_prev, ngf_outer, 3,
+                                     padding=1, dtype=dtype)
+        self.encoder = []
+        out_feat = ngf_outer
+        for i, pow_ in enumerate(range(ngf_pow_outer, ngf_pow_inner, ngf_pow_step)):
+            in_feat = int(ngf_base ** pow_)
+            out_feat = int(ngf_base ** (pow_ + ngf_pow_step))
+            self.encoder.append(f"encode_{i}")
+            self.add_module(f"encode_{i}", block(in_feat, out_feat, make_spade=enc_spade))
+        if out_feat != ngf_inner:
+            self.encoder.append("encode_extra")
+            self.encode_extra = block(out_feat, ngf_inner, make_spade=enc_spade)
+
+        self.middle = []
+        for i in range(num_middle):
+            self.middle.append(f"middle_{i}")
+            self.add_module(f"middle_{i}", block(ngf_inner, ngf_inner, make_spade=cur_spade))
+
+        self.decoder = []
+        out_feat = ngf_inner
+        for i, pow_ in enumerate(range(ngf_pow_inner, ngf_pow_outer, -ngf_pow_step)):
+            in_feat = int(ngf_base ** pow_)
+            out_feat = int(ngf_base ** (pow_ - ngf_pow_step))
+            self.decoder.append(f"decode_{i}")
+            self.add_module(f"decode_{i}", block(in_feat, out_feat, make_spade=cur_spade))
+        if out_feat != ngf_outer:
+            self.decoder.append("decode_extra")
+            self.decode_extra = block(out_feat, ngf_outer, make_spade=cur_spade)
+        self.decode_conv_out = Conv2d(ngf_outer, out_channels, 3, padding=1, dtype=dtype)
+
+    def forward(self, prev_n_frames: Optional[torch.Tensor],
+                prev_n_labelmaps: Optional[torch.Tensor],
+                current_labelmap_dict: Dict[str, torch.Tensor],
+                train: bool = True, update_stats: bool = False) -> torch.Tensor:
+        """prev_n_frames (B, N-1, H, W, 3) and prev_n_labelmaps
+        (B, N-1, H, W, enc_ch), or None for one-frame clips; the current
+        frame's labelmaps {name: (B, H, W, C)}. Returns (B, H, W, out_ch):
+        f32 in training, the compute dtype at eval."""
+        reference = next(iter(current_labelmap_dict.values()))
+        B, H, W = reference.shape[0], reference.shape[-3], reference.shape[-2]
+        num_prev = self.num_prev
+        if self.n_frames_total > 1:
+            x = prev_n_frames.reshape(B, num_prev, H, W, RGB_CHANNELS)
+            x = x.movedim(1, -2).reshape(B, H, W, RGB_CHANNELS * num_prev)
+            maps = prev_n_labelmaps.reshape(B, num_prev, H, W, self.enc_ch)
+            enc_maps = maps.movedim(1, -2).reshape(B, H, W, self.enc_ch * num_prev)
+        else:
+            x = reference.new_zeros((B, H, W, RGB_CHANNELS * num_prev))
+            enc_maps = reference.new_zeros((B, H, W, self.enc_ch))
+        kw = dict(train=train, update_stats=update_stats)
+
+        x = self.encode_conv_in(x)
+        for name in self.encoder:
+            x = getattr(self, name)(x, enc_maps, **kw)
+            x = resize_nearest_scale(x, 0.5)
+        current = dict(current_labelmap_dict)
+        for name in self.middle:
+            x = getattr(self, name)(x, current, **kw)
+        for name in self.decoder:
+            x = resize_nearest_scale(x, 2.0)
+            x = getattr(self, name)(x, current, **kw)
+        x = self.decode_conv_out(x)
+        return x.float() if train else x

@@ -1,0 +1,35 @@
+"""The production options of the serving clip, a local copy of the JAX
+package's ``__graft_entry__._sams_opt`` defaults (SAMS at 256x192, 5-frame
+clips, flow warping, spectral SPADE sync-batch, widths 2^6..2^10, three
+middle blocks, bf16) and of the GMM's warp-stage overrides."""
+
+from __future__ import annotations
+
+import argparse
+
+_SAMS_DEFAULTS = dict(
+    model="sams", dataset="vvt", datamode="train", is_train=True,
+    person_inputs=["agnostic", "densepose", "flow"], cloth_inputs=["cloth"],
+    fine_height=256, fine_width=192, radius=5, cloth_mask_threshold=240,
+    visualize_flow=False, n_frames_total=5, n_frames_now=5, flow_warp=True,
+    encoder_input="flow", activation="relu", norm_G="spectralspadesyncbatch3x3",
+    ngf_base=2, ngf_pow_outer=6, ngf_pow_inner=10, ngf_pow_step=1, num_middle=3,
+    attention_middle_indices=(), attention_decoder_indices=(), batch_size=4,
+    ngf=64, precision=16, grid_size=5,
+)
+
+
+def sams_options(**overrides) -> argparse.Namespace:
+    """The SAMS generator's options; keyword arguments override defaults."""
+    unknown = set(overrides) - set(_SAMS_DEFAULTS)
+    if unknown:
+        raise ValueError(f"unknown options: {sorted(unknown)}")
+    return argparse.Namespace(**{**_SAMS_DEFAULTS, **overrides})
+
+
+def warp_options(**overrides) -> argparse.Namespace:
+    """The GMM warp stage of the serving clip: agnostic + densepose person
+    inputs, no flow warp, a 5x5 TPS grid."""
+    base = dict(model="warp", person_inputs=["agnostic", "densepose"], flow_warp=False,
+                grid_size=5)
+    return sams_options(**{**base, **overrides})

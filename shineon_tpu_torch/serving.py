@@ -1,0 +1,105 @@
+"""The serving clip: device preprocessing -> GMM TPS grid -> border
+grid-sample cloth warp -> 5-frame autoregressive SAMS generation with flow
+compositing (counterpart of bench.py::build_inference).
+
+    one_clip, warp, sams, raw, n_frames = build_inference(batch_size=4)
+    frames = one_clip(raw)  # (B, N, H, W, 3)
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from shineon_tpu_torch.models.sams_model import SamsModel
+from shineon_tpu_torch.models.warp_model import WarpModel
+from shineon_tpu_torch.ops import grid_sample
+from shineon_tpu_torch.options import sams_options, warp_options
+
+WARMUP_ROLLOUTS = 3
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on; a CUDA device that is not there raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU explicitly"
+        )
+    return device
+
+
+def synthetic_raw_batch(opt, batch: int, seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
+    """A raw batch in the VVT n-frames layout, drawn with numpy from
+    ``seed`` in the same order as the JAX package's ``_raw_batch``."""
+    rng = np.random.RandomState(seed)
+    H, W, N = opt.fine_height, opt.fine_width, opt.n_frames_total
+
+    def u8(*shape):
+        return rng.randint(0, 255, shape).astype(np.uint8)
+
+    raw = {
+        "image_u8": u8(batch, N, H, W, 3),
+        "prev_image_u8": u8(batch, N, H, W, 3),
+        "prev_image_valid": np.ones((batch, N), np.float32),
+        "cloth_u8": u8(batch, N, H, W, 3),
+        "parse_u8": rng.randint(0, 20, (batch, N, H, W)).astype(np.uint8),
+        "densepose_u8": u8(batch, N, H, W, 3),
+        "densepose_valid": np.ones((batch, N), np.float32),
+        "flow_raw": rng.randn(batch, N, H, W, 2).astype(np.float32),
+        "flow_valid": np.ones((batch, N), np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+
+
+def make_one_clip(warp: WarpModel, sams: SamsModel):
+    """The clip function: raw batch -> all generated frames (B, N, H, W, 3)."""
+
+    @torch.no_grad()
+    def one_clip(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        feats = sams.features(batch)
+        person = torch.cat([feats["agnostic"][:, -1], feats["densepose"][:, -1]], dim=-1)
+        cloth_in = feats["cloth"][:, -1]
+        grid, _ = warp.gmm(person, cloth_in, train=False)
+        warped = grid_sample(cloth_in, grid, padding_mode="border")
+        cloth = feats["cloth"].clone()
+        cloth[:, -1] = warped
+        feats = {**feats, "cloth": cloth}
+        _, _, all_frames = sams.generate_n_frames(feats, train=False)
+        return all_frames
+
+    return one_clip
+
+
+@torch.no_grad()
+def warm_up(sams: SamsModel, batch: Dict[str, torch.Tensor], rollouts: int = WARMUP_ROLLOUTS):
+    """Train-mode rollouts that update the generator's running statistics
+    and spectral ``u``: at random init the running stats are meaningless and
+    the bf16 eval clip overflows without them (bench.py:189-204). With
+    trained weights this is a no-op."""
+    feats = sams.features(batch)
+    for _ in range(rollouts):
+        sams.generate_n_frames(feats, train=True)
+
+
+def build_inference(batch_size: int, device="cuda", seed: int = 420, **overrides):
+    """Build the serving clip at the production options (``overrides``
+    replace any of them, e.g. a smaller fine size or depth).
+
+    Weights are drawn from ``torch.Generator`` seeds (``seed`` for SAMS,
+    ``seed + 1`` for the GMM) with the JAX package's init rules, then the
+    running statistics are warmed. Runs on the card unless ``device`` says
+    otherwise. Returns (one_clip, warp, sams, raw_batch, n_frames).
+    """
+    device = resolve_device(device)
+    sams_opt = sams_options(batch_size=batch_size, **overrides)
+    warp_opt = warp_options(batch_size=batch_size, **overrides)
+    sams = SamsModel(sams_opt, device)
+    warp = WarpModel(warp_opt, device)
+    sams.init_weights(torch.Generator().manual_seed(seed))
+    warp.init_weights(torch.Generator().manual_seed(seed + 1))
+    raw = synthetic_raw_batch(sams_opt, batch_size, device=device)
+    warm_up(sams, raw)
+    return make_one_clip(warp, sams), warp, sams, raw, sams_opt.n_frames_total
