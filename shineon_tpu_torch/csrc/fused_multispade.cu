@@ -13,11 +13,13 @@
 // What bounds it on this card: each pixel and label costs 2*9*128*2C FLOPs
 // of gamma/beta product against ~4 bytes a channel of x/y traffic, thousands
 // of FLOPs a byte, far above the H100's ~295 FLOP/B ridge: the kernel is bound
-// by operations. In bf16, the serving dtype, the gamma/beta product runs on
-// the tensor cores (mma.sync m16n8k16, f32 accumulation); the f32 path, kept
-// for parity checks, uses scalar FMAs. The hidden-map conv (a few percent of
-// the FLOPs) stays scalar in both. wgmma, TMA and a pipelined weight stream
-// are later work.
+// by operations. In bf16, the serving dtype, both convolutions run on the
+// tensor cores (mma.sync m16n8k16, f32 accumulation): the hidden-map conv as
+// an im2col GEMM, the gamma/beta conv as one GEMM a tap, with each tap's
+// weight slice double buffered through shared memory by cp.async so the next
+// slice loads while the current one computes. The f32 path, kept for parity
+// checks, uses scalar FMAs for both convolutions. wgmma and TMA are later
+// work.
 //
 // Design: the TPU kernel keeps the whole image's segmaps and every label's
 // gamma/beta weights (18.9 MB in bf16 at C=1024, L=4) resident in 100 MB of
@@ -27,8 +29,8 @@
 // Per label it recomputes the tile's 128-channel hidden map with a 1-pixel
 // halo into shared memory (about 9*cs*128 MACs a pixel against 9*128*128 for
 // the block's gamma/beta), then streams the label's weights one 3x3 tap (a
-// 128 x 128 slice) at a time through shared memory, accumulating gamma and
-// beta in registers. x stays in registers across labels and y is written
+// 128 x 128 slice) at a time through shared memory (two buffers in bf16),
+// accumulating gamma and beta in registers. x stays in registers across labels and y is written
 // once. Any H and W are taken (ragged tiles are masked); C must be a
 // multiple of 64.
 

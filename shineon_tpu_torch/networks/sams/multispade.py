@@ -10,9 +10,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from shineon_tpu_torch.networks.activation import get_activation_fn
-from shineon_tpu_torch.networks.layers import EvalCache, compute_dtype, conv2d_nhwc
-from shineon_tpu_torch.networks.sams.spade import SPADE, parse_spade_config, resize_nearest
-from shineon_tpu_torch.ops.fused_spade import fused_multispade_modulate, pack_weights
+from shineon_tpu_torch.networks.layers import compute_dtype, conv2d_nhwc
+from shineon_tpu_torch.networks.sams.spade import (
+    SPADE,
+    fused_chain,
+    parse_spade_config,
+    resize_nearest,
+)
 
 
 class MultiSpade(nn.Module):
@@ -36,23 +40,9 @@ class MultiSpade(nn.Module):
                 norm_nc, label_channels[key], config_text=config_text,
                 activation=activation, dtype=dtype,
             ))
-        self._packed = EvalCache()
 
     def spades(self):
         return [getattr(self, f"spade_{key}") for key in self.keys]
-
-    def _packed_weights(self, dtype):
-        spades = self.spades()
-        tensors = [p for s in spades for p in s.parameters()]
-
-        def pack():
-            gbs = [s.gb_params() for s in spades]
-            return pack_weights(
-                [s.mlp_shared.weight for s in spades], [s.mlp_shared.bias for s in spades],
-                [w for w, _ in gbs], [b for _, b in gbs], dtype,
-            )
-
-        return self._packed.get(tensors, dtype, pack)
 
     def forward(self, x, labelmaps: Dict[str, torch.Tensor], train: bool = True):
         spades = self.spades()
@@ -61,14 +51,7 @@ class MultiSpade(nn.Module):
                 for spade, key in zip(spades, self.keys):
                     x = spade.forward_fused(x, labelmaps[key])
                 return x
-            per_label = [s.fused_args(x, labelmaps[k])
-                         for s, k in zip(spades, self.keys)]
-            abs_, segs, wshs, bshs, wgbs, bgbs = zip(*per_label)
-            packed = None if torch.is_grad_enabled() else self._packed_weights(x.dtype)
-            return fused_multispade_modulate(
-                x, torch.stack(abs_, dim=1), segs, wshs, bshs, wgbs, bgbs,
-                act_name=self.activation, packed=packed,
-            )
+            return fused_chain(spades, x, [labelmaps[k] for k in self.keys])
 
         hiddens = [None] * len(spades)
         if self.ks == 3 and len(spades) > 1:

@@ -58,7 +58,8 @@ class SPADE(nn.Module):
     ``forward`` is the reference formulation, conv by conv (``hidden`` skips
     the mlp_shared conv when a parent computed it). ``fused_args`` returns
     the chain arguments ``(ab, seg, wsh, bsh, wgb, bgb)`` of this label for
-    the kernel; ``forward_fused`` runs the kernel on this label alone.
+    the kernel; ``forward_fused`` runs the kernel on this label alone (see
+    :func:`fused_chain`).
     """
 
     def __init__(self, norm_nc: int, label_nc: int, config_text: str = "spadeinstance3x3",
@@ -105,25 +106,29 @@ class SPADE(nn.Module):
         wgb, bgb = self.gb_params()
         return ab, seg, self.mlp_shared.weight, self.mlp_shared.bias, wgb, bgb
 
-    def packed_weights(self, dtype):
-        """This label's weights in the kernel's layout, kept across calls."""
-        tensors = (self.mlp_shared.weight, self.mlp_shared.bias, self.mlp_gamma.weight,
-                   self.mlp_gamma.bias, self.mlp_beta.weight, self.mlp_beta.bias)
-
-        def pack():
-            wgb, bgb = self.gb_params()
-            return pack_weights([self.mlp_shared.weight], [self.mlp_shared.bias],
-                                [wgb], [bgb], dtype)
-
-        return self._packed.get(tensors, dtype, pack)
-
     def forward_fused(self, x, segmap):
-        ab, seg, wsh, bsh, wgb, bgb = self.fused_args(x, segmap)
-        packed = None if torch.is_grad_enabled() else self.packed_weights(x.dtype)
-        return fused_multispade_modulate(
-            x, ab[:, None, :], [seg], [wsh], [bsh], [wgb], [bgb],
-            act_name=self.activation, packed=packed,
+        """Eval: this label alone, as a one-label chain."""
+        return fused_chain([self], x, [segmap])
+
+
+def fused_chain(spades, x, segmaps):
+    """Eval: the SPADEs applied to x in turn as ONE kernel call, each norm
+    folded with its running statistics (instance statistics only in a chain
+    of one: they depend on the chain's running value). Outside autograd the
+    chain's weights are packed once into the kernel's layout and kept on its
+    first SPADE until a weight changes."""
+    per_label = [s.fused_args(x, m) for s, m in zip(spades, segmaps)]
+    abs_, segs, wshs, bshs, wgbs, bgbs = zip(*per_label)
+    packed = None
+    if not torch.is_grad_enabled():
+        packed = spades[0]._packed.get(
+            [p for s in spades for p in s.parameters()], x.dtype,
+            lambda: pack_weights(wshs, bshs, wgbs, bgbs, x.dtype),
         )
+    return fused_multispade_modulate(
+        x, torch.stack(abs_, dim=1), segs, wshs, bshs, wgbs, bgbs,
+        act_name=spades[0].activation, packed=packed,
+    )
 
 
 class AnySpadeResBlock(nn.Module):

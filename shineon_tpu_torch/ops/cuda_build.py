@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -50,33 +50,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile every named source that has no current build, one ``nvcc``
-    process per source, all started together. Returns each build's ptxas
-    report (registers, shared memory, spills). Raises on any failure."""
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless a current build exists. Returns the
+    ptxas report (registers, shared memory, spills); raises on failure."""
+    out = library_path(name)
+    if out.exists():
+        return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ), tmp, out)
-    reports = {}
-    failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return reports
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed: {name} (nvcc exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -84,7 +74,7 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build([name])
+            build(name)
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

@@ -48,6 +48,24 @@ def _conv3x3(v, weight, bias, dtype):
     return out.permute(0, 2, 3, 1) + bias.to(dtype)
 
 
+# Kernel against plain version: |kernel - plain| <= tol * (|plain| + rms(plain))
+# at every element. The rms term covers elements where the chain's terms
+# cancel. The sources of difference are the accumulation order and, in bf16,
+# where each side rounds (the plain version rounds each conv output and its
+# bias sum to bf16, the kernel keeps gamma/beta in f32). On an H100 at the
+# serving clip's sites (chip_smoke.py inputs) the bf16 kernel reads up to
+# 0.087 and f32 up to 1.6e-5; a bf16 body with the hidden halo unmasked or a
+# bias dropped reads 0.27 or more.
+KERNEL_TOLERANCE = {torch.float32: 2e-4, torch.bfloat16: 0.15}
+
+
+def error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| / (|ref| + rms(ref)) over the elements, in f32."""
+    out, ref = out.float(), ref.float()
+    rms = ref.square().mean().sqrt()
+    return ((out - ref).abs() / (ref.abs() + rms)).max().item()
+
+
 def multispade_modulate_plain(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name="relu"):
     """Plain PyTorch chain, conv by conv.
 

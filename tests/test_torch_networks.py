@@ -18,7 +18,7 @@ from shineon_tpu.networks.sams.spade import AnySpadeResBlock as JResBlock
 from shineon_tpu_torch import convert
 from shineon_tpu_torch.networks.cpvton.warp import GMM
 from shineon_tpu_torch.networks.normalization import SpectralConv2d, SyncBatchNorm
-from shineon_tpu_torch.networks.sams import multispade as tmultispade
+from shineon_tpu_torch.networks.sams import spade as tspade
 from shineon_tpu_torch.networks.sams.multispade import MultiSpade
 from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator
 from shineon_tpu_torch.networks.sams.spade import SPADE, AnySpadeResBlock
@@ -158,8 +158,8 @@ def test_multispade(train, monkeypatch):
     tm = MultiSpade(32, LABELS, config_text="spadesyncbatch3x3")
     convert.load_flax(tm, variables, convert.GENERATOR_RENAMES)
     calls = []
-    real = tmultispade.fused_multispade_modulate
-    monkeypatch.setattr(tmultispade, "fused_multispade_modulate",
+    real = tspade.fused_multispade_modulate
+    monkeypatch.setattr(tspade, "fused_multispade_modulate",
                         lambda *a, **k: calls.append(len(a[2])) or real(*a, **k))
     with torch.no_grad():
         out = tm(_t(x), {k: _t(v) for k, v in seg.items()}, train=train)
