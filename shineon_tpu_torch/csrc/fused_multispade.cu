@@ -1,8 +1,8 @@
 // Fused MultiSPADE modulation chain for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel of shineon_tpu/ops/fused_spade.py:
-// _make_kernel(quant=False), launched by _fused_forward. For each label l in
-// sorted order:
+// _make_kernel, launched by _fused_forward, with quant=False (kernel 1) and
+// quant=True (kernel 2). For each label l in sorted order:
 //   hidden_l = relu(conv3x3(segmap_l, wsh_l) + bsh_l), zero outside the image,
 //              rounded to the compute dtype;
 //   [gamma_l | beta_l] = conv3x3(hidden_l, wgb_l) + bgb_l;
@@ -10,16 +10,35 @@
 // Like the TPU kernel, it reads x and writes y and nothing else of activation
 // size: the hidden maps and gamma/beta never leave the block.
 //
-// What bounds it on this card: each pixel and label costs 2*9*128*2C FLOPs
-// of gamma/beta product against ~4 bytes a channel of x/y traffic, thousands
-// of FLOPs a byte, far above the H100's ~295 FLOP/B ridge: the kernel is bound
-// by operations. In bf16, the serving dtype, both convolutions run on the
-// tensor cores (mma.sync m16n8k16, f32 accumulation): the hidden-map conv as
-// an im2col GEMM, the gamma/beta conv as one GEMM a tap, with each tap's
-// weight slice double buffered through shared memory by cp.async so the next
-// slice loads while the current one computes. The f32 path, kept for parity
-// checks, uses scalar FMAs for both convolutions. wgmma and TMA are later
-// work.
+// Quantized (kernel 2): the gamma/beta conv runs in int8 with int32 sums.
+//   s_l = absmax_l / 127 + 1e-30,  q = clip(rint(hidden_l / s_l), -127, 127),
+//   [gamma_l | beta_l] = acc * (s_l * sgb_l[c]) + bgb_l[c]
+// with int8 weights wgb_l (scale sgb_l per output channel). absmax_l is
+// max |hidden_l| over the WHOLE batch tensor (one scale a label, as the JAX
+// package's XLA int8 formulation takes it; the TPU kernel body takes one a
+// 32-row tile instead). That is a grid-wide dependency, so a pre-pass
+// (hidden_absmax_kernel) recomputes each label's hidden map with the same
+// device code the chain uses, reduces max |h| with an atomicMax on the float
+// bits (valid: the values are >= 0), and the chain reads the result. In
+// bf16 the hidden map is rounded as the plain version rounds it (the conv's
+// sum, then its sum with the bias: hidden_value), so both quantize the same
+// values. h / s_l is rounded exactly as an IEEE division (quant_level,
+// sm90_common.cuh, shared with the int8 conv), and the dequantization
+// products and bias sum are round-to-nearest (__fmul_rn, __fadd_rn), never
+// contracted.
+//
+// What bounds it on this card: each pixel and label costs 2*9*128*2C
+// operations of gamma/beta product against ~4 bytes a channel of x/y
+// traffic, thousands of operations a byte, far above the H100's ridge (~295
+// FLOP/B in bf16, ~590 op/B in int8): the kernel is bound by operations. In
+// bf16, the serving dtype, both convolutions run on the tensor cores: the
+// hidden-map conv as an im2col GEMM (mma.sync m16n8k16, f32 accumulation),
+// the gamma/beta conv as one GEMM a tap (m16n8k16 bf16 or, quantized,
+// m16n8k32 s8 with s32 accumulation), with the taps' weight slices streamed
+// through shared memory by cp.async (two buffers in bf16, a ring of four in
+// int8) so the next slices load while the current one computes. The f32 path, kept for parity checks, computes
+// the hidden map with scalar FMAs (and, unquantized, gamma/beta too). wgmma
+// and TMA are later work.
 //
 // Design: the TPU kernel keeps the whole image's segmaps and every label's
 // gamma/beta weights (18.9 MB in bf16 at C=1024, L=4) resident in 100 MB of
@@ -29,14 +48,14 @@
 // Per label it recomputes the tile's 128-channel hidden map with a 1-pixel
 // halo into shared memory (about 9*cs*128 MACs a pixel against 9*128*128 for
 // the block's gamma/beta), then streams the label's weights one 3x3 tap (a
-// 128 x 128 slice) at a time through shared memory (two buffers in bf16),
-// accumulating gamma and beta in registers. x stays in registers across labels and y is written
-// once. Any H and W are taken (ragged tiles are masked); C must be a
-// multiple of 64.
+// 128 x 128 slice: 32 KB in bf16, 16 KB in int8) at a time through shared
+// memory, accumulating gamma and beta in registers. x stays in registers
+// across labels and y is written once. Any H and W are taken (ragged tiles
+// are masked); C must be a multiple of 64.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <type_traits>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -94,12 +113,77 @@ __device__ __forceinline__ void load_segmap_tile(float* s_s, const T* __restrict
   }
 }
 
-// f32 path: hidden tile of label l into h_s ([HT*WT][HS] floats) with
-// scalar FMAs: hidden (hr, hc) is image pixel (r0-1+hr, c0-1+hc);
-// relu(conv3x3(segmap) + bias), zero outside the image (the reference
-// zero-pads the hidden map).
+// The value of a hidden position: relu(conv + bias) from the conv's f32 sum.
+// Full precision keeps that f32 value (the bf16 chain rounds it once as it
+// stores the tile). The quantized chain and its pre-pass in bf16 round as
+// the chain's plain version (and flax's bf16 conv) does: the conv's sum to
+// bf16, plus the bias in bf16, rounded again. So kernel and plain version
+// quantize the same hidden values wherever their f32 sums round alike, and
+// the pre-pass's abs-max is the one the chain divides by.
+template <bool ROUND_BF16>
+__device__ __forceinline__ float hidden_value(float acc, float bias) {
+  if (!ROUND_BF16) return fmaxf(acc + bias, 0.f);
+  const float v = __bfloat162float(__float2bfloat16_rn(acc)) +
+                  __bfloat162float(__float2bfloat16_rn(bias));
+  return fmaxf(__bfloat162float(__float2bfloat16_rn(v)), 0.f);
+}
+
+// Where the hidden conv puts its values: each policy gives the value of a
+// position (hidden) and takes it at hidden position p, channel k (put, put2).
 template <int HS>
-__device__ __forceinline__ void compute_hidden_f32(float* h_s, const float* s_s,
+struct HidStoreF32 {  // f32 chain: the f32 tile [HT*WT][HS]
+  float* h;
+  static __device__ __forceinline__ float hidden(float acc, float bias) {
+    return hidden_value<false>(acc, bias);
+  }
+  __device__ __forceinline__ void put(int p, int k, float v) { h[p * HS + k] = v; }
+};
+
+template <int HS>
+struct HidStoreBf16 {  // bf16 chain: the bf16 tile [HT*WT][HS]
+  __nv_bfloat16* h;
+  static __device__ __forceinline__ float hidden(float acc, float bias) {
+    return hidden_value<false>(acc, bias);
+  }
+  __device__ __forceinline__ void put2(int p, int k, float v0, float v1) {
+    *reinterpret_cast<__nv_bfloat162*>(h + p * HS + k) = __floats2bfloat162_rn(v0, v1);
+  }
+};
+
+template <bool BF16, int HS>
+struct HidQuant {  // quantized chain: the int8 tile [HT*WT][HS], scale s = 1 / r
+  int8_t* h;
+  float s, r;
+  static __device__ __forceinline__ float hidden(float acc, float bias) {
+    return hidden_value<BF16>(acc, bias);
+  }
+  __device__ __forceinline__ void put(int p, int k, float v) {
+    h[p * HS + k] = static_cast<int8_t>(quant_level(v, s, r));
+  }
+  __device__ __forceinline__ void put2(int p, int k, float v0, float v1) {
+    *reinterpret_cast<char2*>(h + p * HS + k) = make_char2(
+        static_cast<int8_t>(quant_level(v0, s, r)), static_cast<int8_t>(quant_level(v1, s, r)));
+  }
+};
+
+template <bool BF16>
+struct HidMax {  // pre-pass: this thread's max |v|
+  float m;
+  static __device__ __forceinline__ float hidden(float acc, float bias) {
+    return hidden_value<BF16>(acc, bias);
+  }
+  __device__ __forceinline__ void put(int, int, float v) { m = fmaxf(m, fabsf(v)); }
+  __device__ __forceinline__ void put2(int, int, float v0, float v1) {
+    m = fmaxf(m, fmaxf(fabsf(v0), fabsf(v1)));
+  }
+};
+
+// f32 path: hidden tile of label l into `out` with scalar FMAs: hidden
+// (hr, hc) is image pixel (r0-1+hr, c0-1+hc); Out::hidden of the conv's sum
+// and the bias, zero outside the image (the reference zero-pads the hidden
+// map).
+template <typename Out>
+__device__ __forceinline__ void compute_hidden_f32(Out& out, const float* s_s,
                                                    const float* __restrict__ wsh,
                                                    const float* __restrict__ bsh,
                                                    const ChainArgs& args, int l, int r0,
@@ -113,7 +197,7 @@ __device__ __forceinline__ void compute_hidden_f32(float* h_s, const float* s_s,
     const int ir = r0 - 1 + hr, ic = c0 - 1 + hc;
     float v = 0.f;
     if (ir >= 0 && ir < args.H && ic >= 0 && ic < args.W) {
-      float acc = bias;
+      float acc = 0.f;
       for (int di = 0; di < 3; ++di) {
         for (int dj = 0; dj < 3; ++dj) {
           const float* sp = s_s + ((hr + di) * SWT + (hc + dj)) * cs;
@@ -121,9 +205,9 @@ __device__ __forceinline__ void compute_hidden_f32(float* h_s, const float* s_s,
           for (int ci = 0; ci < cs; ++ci) acc = fmaf(sp[ci], __ldg(wp + ci * NHID), acc);
         }
       }
-      v = fmaxf(acc, 0.f);
+      v = Out::hidden(acc, bias);
     }
-    h_s[pos * HS + k] = v;
+    out.put(pos, k, v);
   }
 }
 
@@ -182,7 +266,8 @@ chain_kernel_f32(const float* __restrict__ x, const float* __restrict__ ab,
   for (int l = 0; l < L; ++l) {
     load_segmap_tile(s_s, seg, args, l, b, r0, c0);
     __syncthreads();
-    compute_hidden_f32<HS>(h_s, s_s, wsh, bsh, args, l, r0, c0);
+    HidStoreF32<HS> hid{h_s};
+    compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
 
     float gam[PX][CPT], bet[PX][CPT];
 #pragma unroll
@@ -272,38 +357,118 @@ constexpr int MT = TH / WARPS_M;   // m16 tiles (tile rows) a warp (2)
 constexpr int NPAIR = TC / 8 / (WARPS / WARPS_M);  // gamma/beta n-tile pairs a warp (4)
 constexpr int HID_MCHUNK = 4;      // hidden-conv m-tiles a warp holds at once
 
+// The chain bodies on the tensor cores (bf16, quantized) share one layout of
+// a thread's accumulators: element e of (m-tile mi, gamma/beta pair pi) is
+//   pixel (tile row MT*wm + mi, tile column g + 8*(e/2)),
+//   channel chw + 8*pi + e%2,  chw = ch0 + 8*NPAIR*wn + 2*t
+// (warp (wm, wn), mma group g, thread t in the group) in the block's
+// (sample b, pixel tile at r0, c0, channels ch0..ch0+TC). x is carried in
+// f32 registers of that layout across the labels.
+struct Frag {
+  int b, r0, c0, ch0, wm, wn, g, chw;
+  static __device__ __forceinline__ Frag of_thread(const ChainArgs& args) {
+    const int tiles_w = (args.W + TW - 1) / TW;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    Frag f;
+    f.b = blockIdx.z;
+    f.r0 = (blockIdx.x / tiles_w) * TH;
+    f.c0 = (blockIdx.x % tiles_w) * TW;
+    f.ch0 = blockIdx.y * TC;
+    f.wm = warp % WARPS_M;
+    f.wn = warp / WARPS_M;
+    f.g = lane / 4;
+    f.chw = f.ch0 + 8 * NPAIR * f.wn + 2 * (lane % 4);
+    return f;
+  }
+  __device__ __forceinline__ int row(int mi) const { return r0 + MT * wm + mi; }
+  __device__ __forceinline__ int col(int half) const { return c0 + g + 8 * half; }
+};
+
+template <typename T>
+__device__ __forceinline__ void load_x_frag(float (&xr)[MT][NPAIR][4], bool (&valid)[MT][2],
+                                            const T* __restrict__ x, const ChainArgs& args,
+                                            const Frag& f) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = f.row(mi), c = f.col(half);
+      valid[mi][half] = r < args.H && c < args.W;
+#pragma unroll
+      for (int pi = 0; pi < NPAIR; ++pi) {
+        float2 v = make_float2(0.f, 0.f);
+        if (valid[mi][half])
+          v = load2(x + (((size_t)f.b * args.H + r) * args.W + c) * args.C + f.chw + 8 * pi);
+        xr[mi][pi][2 * half] = v.x;
+        xr[mi][pi][2 * half + 1] = v.y;
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_y_frag(T* __restrict__ y, const float (&xr)[MT][NPAIR][4],
+                                             const bool (&valid)[MT][2], const ChainArgs& args,
+                                             const Frag& f) {
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!valid[mi][half]) continue;
+      const int r = f.row(mi), c = f.col(half);
+#pragma unroll
+      for (int pi = 0; pi < NPAIR; ++pi)
+        store2(y + (((size_t)f.b * args.H + r) * args.W + c) * args.C + f.chw + 8 * pi,
+               xr[mi][pi][2 * half], xr[mi][pi][2 * half + 1]);
+    }
+  }
+}
+
+// gamma or beta from its accumulator: an f32 sum takes its bias; an int32
+// sum is dequantized (dequant, scale s * sgb[c]).
+__device__ __forceinline__ float dequant(float acc, float, float bias) { return acc + bias; }
+
+// x <- (x * a + b) * (1 + gamma) + beta for label l on the accumulators.
+// sgb (the weight scales, (L, 2C)) and s (the label's activation scale)
+// serve the quantized chain; the bf16 chain passes sgb = nullptr.
+template <typename Acc>
+__device__ __forceinline__ void modulate_frag(float (&xr)[MT][NPAIR][4],
+                                              const Acc (&acc)[MT][2 * NPAIR][4],
+                                              const float* __restrict__ ab,
+                                              const float* __restrict__ bgb,
+                                              const float* __restrict__ sgb, float s,
+                                              const ChainArgs& args, int l, const Frag& f) {
+  const int C = args.C;
+  const size_t twoC = 2 * (size_t)C;
+  const float* abl = ab + ((size_t)f.b * args.L + l) * twoC;
+  const float* bgl = bgb + (size_t)l * twoC;
+#pragma unroll
+  for (int pi = 0; pi < NPAIR; ++pi) {
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int c = f.chw + 8 * pi + e2;
+      const float a = abl[c], bb = abl[C + c], g0 = bgl[c], b0 = bgl[C + c];
+      const float sg = sgb ? __fmul_rn(s, sgb[l * twoC + c]) : 0.f;
+      const float sb = sgb ? __fmul_rn(s, sgb[l * twoC + C + c]) : 0.f;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 2 * half + e2;
+          const float gam = dequant(acc[mi][2 * pi][e], sg, g0);
+          const float bet = dequant(acc[mi][2 * pi + 1][e], sb, b0);
+          float& v = xr[mi][pi][e];
+          v = (v * a + bb) * (1.f + gam) + bet;
+        }
+      }
+    }
+  }
+}
+
 constexpr size_t smem_bf16() {
   return sizeof(__nv_bfloat16) *
              ((size_t)HT * WT * HS_BF16 + 2 * 2 * TC * WS_BF16 + (HM + NHID) * AS_MAX) +
          sizeof(float) * (size_t)(ST * SWT * MAX_CS);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Start copying one tap's [gamma | beta] weight slice into w_buf: shared row
@@ -323,8 +488,9 @@ __device__ __forceinline__ void load_gb_slice(__nv_bfloat16* w_buf,
 
 // Hidden tile of label l on the tensor cores: im2col of the segmap tile
 // (a_s, [HM][kp+8]) times the label's hidden weights (b_s, [NHID][kp+8]),
-// then bias, relu, zero outside the image, bf16, into h_s.
-__device__ __forceinline__ void hidden_mma(__nv_bfloat16* h_s, __nv_bfloat16* a_s,
+// then Out::hidden with the bias, zero outside the image, into `out`.
+template <typename Out>
+__device__ __forceinline__ void hidden_mma(Out& out, __nv_bfloat16* a_s,
                                            __nv_bfloat16* b_s, const float* s_s,
                                            const __nv_bfloat16* __restrict__ wsh,
                                            const float* __restrict__ bsh,
@@ -387,11 +553,10 @@ __device__ __forceinline__ void hidden_mma(__nv_bfloat16* h_s, __nv_bfloat16* a_
         const bool inside = ir >= 0 && ir < args.H && ic >= 0 && ic < args.W;
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj) {
-          float v0 = fmaxf(acc[mi][nj][2 * half] + bias[nj][0], 0.f);
-          float v1 = fmaxf(acc[mi][nj][2 * half + 1] + bias[nj][1], 0.f);
+          float v0 = Out::hidden(acc[mi][nj][2 * half], bias[nj][0]);
+          float v1 = Out::hidden(acc[mi][nj][2 * half + 1], bias[nj][1]);
           if (!inside) v0 = v1 = 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(h_s + p * HS_BF16 + n0 + 8 * nj + 2 * t) =
-              __floats2bfloat162_rn(v0, v1);
+          out.put2(p, n0 + 8 * nj + 2 * t, v0, v1);
         }
       }
     }
@@ -411,41 +576,13 @@ chain_kernel_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__
   __nv_bfloat16* b_s = a_s + HM * AS_MAX;                       // [NHID][kp+8]
   float* s_s = reinterpret_cast<float*>(b_s + NHID * AS_MAX);   // [ST*SWT][cs]
 
-  const int H = args.H, W = args.W, C = args.C, L = args.L;
-  const size_t twoC = 2 * (size_t)C;
-  const int tiles_w = (W + TW - 1) / TW;
-  const int r0 = (blockIdx.x / tiles_w) * TH;
-  const int c0 = (blockIdx.x % tiles_w) * TW;
-  const int ch0 = blockIdx.y * TC;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const int g = lane / 4, t = lane % 4;  // mma group and thread in group
-  // accumulator element e of (m-tile mi, gamma/beta pair pi) is
-  //   pixel (tile row MT*wm + mi, tile column g + 8*(e/2)),
-  //   channel ch0 + 8*(NPAIR*wn + pi) + 2*t + e%2
-  const int chw = ch0 + 8 * NPAIR * wn + 2 * t;
+  const Frag frag = Frag::of_thread(args);
+  const int b = frag.b, r0 = frag.r0, c0 = frag.c0, ch0 = frag.ch0, wm = frag.wm, wn = frag.wn;
+  const int L = args.L, lane = threadIdx.x % 32;
 
   float xr[MT][NPAIR][4];
   bool valid[MT][2];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = r0 + MT * wm + mi, c = c0 + g + 8 * half;
-      valid[mi][half] = r < H && c < W;
-#pragma unroll
-      for (int pi = 0; pi < NPAIR; ++pi) {
-        float2 v = make_float2(0.f, 0.f);
-        if (valid[mi][half])
-          v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-              x + (((size_t)b * H + r) * W + c) * C + chw + 8 * pi));
-        xr[mi][pi][2 * half] = v.x;
-        xr[mi][pi][2 * half + 1] = v.y;
-      }
-    }
-  }
+  load_x_frag(xr, valid, x, args, frag);
 
   // ldmatrix row addresses of this lane
   const int a_row = (lane % 8) + 8 * ((lane / 8) % 2);  // pixel column in the m-tile
@@ -457,7 +594,8 @@ chain_kernel_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__
     load_gb_slice(w_s, wgb, args, l, 0, ch0);  // overlaps the hidden conv
     load_segmap_tile(s_s, seg, args, l, b, r0, c0);
     __syncthreads();
-    hidden_mma(h_s, a_s, b_s, s_s, wsh, bsh, args, l, r0, c0);
+    HidStoreBf16<HS_BF16> hid{h_s};
+    hidden_mma(hid, a_s, b_s, s_s, wsh, bsh, args, l, r0, c0);
 
     float acc[MT][2 * NPAIR][4];
 #pragma unroll
@@ -499,40 +637,196 @@ chain_kernel_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__
       __syncthreads();  // everyone is done with w_cur before it is refilled
     }
 
-    // ---- x <- (x * a + b) * (1 + gamma) + beta, on the accumulators
-    const float* abl = ab + ((size_t)b * L + l) * twoC;
-    const float* bgl = bgb + (size_t)l * twoC;
+    modulate_frag(xr, acc, ab, bgb, nullptr, 0.f, args, l, frag);
+  }
+  store_y_frag(y, xr, valid, args, frag);
+}
+
+// ---------------------------------------------------------- quantized path
+// The hidden tile is quantized into int8 ([HT*WT][HSQ] bytes) as it is
+// computed; the [gamma | beta] conv runs on mma.sync m16n8k32 s8 -> s32 with
+// ldmatrix fragments (an int8 k32 step is 32 bytes, laid out as a bf16 k16
+// step, so the bf16 path's fragment addressing carries over in bytes). The
+// weight slice interleaves gamma and beta n-tiles as in the bf16 path. An
+// int8 tap is half the bf16 tap's work, too short to hide one slice's load,
+// so the slices stream through a ring of NSTAGE_Q buffers, NSTAGE_Q - 1
+// (label, tap) steps ahead, across label boundaries.
+// wgb: (L, 9, 2C, NHID) int8 (hidden index contiguous); sgb: (L, 2C) f32.
+constexpr int HSQ = NHID + 16;  // 144-byte rows: 16-byte aligned, conflict-free ldmatrix
+constexpr int WSQ = NHID + 16;
+constexpr int NSTAGE_Q = 4;
+constexpr int SLICE_Q = 2 * TC * WSQ;  // bytes of one slice buffer
+
+template <typename T>
+constexpr bool is_bf16_v = std::is_same<T, __nv_bfloat16>::value;
+
+// Shared memory of the quantized chain: int8 hidden tile, the ring of int8
+// weight slices, (bf16 only) the hidden conv's im2col operands, the segmap
+// tile.
+template <typename T>
+constexpr size_t smem_q() {
+  return (size_t)HT * WT * HSQ + (size_t)NSTAGE_Q * SLICE_Q +
+         (is_bf16_v<T> ? sizeof(__nv_bfloat16) * (size_t)(HM + NHID) * AS_MAX : 0) +
+         sizeof(float) * (size_t)(ST * SWT * MAX_CS);
+}
+
+// Shared memory of the pre-pass: the hidden conv's operands only.
+template <typename T>
+constexpr size_t smem_absmax() {
+  return (is_bf16_v<T> ? sizeof(__nv_bfloat16) * (size_t)(HM + NHID) * AS_MAX : 0) +
+         sizeof(float) * (size_t)(ST * SWT * MAX_CS);
+}
+
+// int8 counterpart of load_gb_slice: the same rows, NHID bytes each.
+__device__ __forceinline__ void load_gb_slice_q(int8_t* w_buf, const int8_t* __restrict__ wgb,
+                                                const ChainArgs& args, int l, int tap,
+                                                int ch0) {
+  const size_t twoC = 2 * (size_t)args.C;
+  const int8_t* wt = wgb + ((size_t)l * 9 + tap) * twoC * NHID;
+  for (int i = threadIdx.x; i < 2 * TC * (NHID / 16); i += NTHREADS) {
+    const int n = i / (NHID / 16), chunk = i % (NHID / 16);
+    const size_t col = ((n / 8) % 2 ? (size_t)args.C : 0) + ch0 + 8 * (n / 16) + n % 8;
+    cp_async16(w_buf + n * WSQ + 16 * chunk, wt + col * NHID + 16 * chunk);
+  }
+  cp_async_commit();
+}
+
+// Pre-pass: absmax[l] = max |hidden_l| over the batch (absmax zeroed by the
+// caller). One block a (sample, pixel tile), all labels.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
+                     const float* __restrict__ bsh, float* __restrict__ absmax,
+                     const ChainArgs args) {
+  constexpr bool BF16 = is_bf16_v<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[NTHREADS / 32];
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);  // bf16 only
+  __nv_bfloat16* b_s = a_s + HM * AS_MAX;
+  float* s_s = BF16 ? reinterpret_cast<float*>(b_s + NHID * AS_MAX)
+                    : reinterpret_cast<float*>(smem);
+  const int tiles_w = (args.W + TW - 1) / TW;
+  const int r0 = (blockIdx.x / tiles_w) * TH;
+  const int c0 = (blockIdx.x % tiles_w) * TW;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  for (int l = 0; l < args.L; ++l) {
+    load_segmap_tile(s_s, seg, args, l, b, r0, c0);
+    __syncthreads();
+    HidMax<BF16> hid{0.f};
+    if constexpr (BF16)
+      hidden_mma(hid, a_s, b_s, s_s, wsh, bsh, args, l, r0, c0);
+    else
+      compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
+    float m = hid.m;
 #pragma unroll
-    for (int pi = 0; pi < NPAIR; ++pi) {
+    for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (lane == 0) red[warp] = m;
+    __syncthreads();  // also: every warp is done with s_s and the im2col operands
+    if (threadIdx.x == 0) {
+      for (int w = 1; w < NTHREADS / 32; ++w) m = fmaxf(m, red[w]);
+      // non-negative floats order as their bit patterns do
+      atomicMax(reinterpret_cast<int*>(absmax + l), __float_as_int(m));
+    }
+  }
+}
+
+// The quantized chain. x, y, seg, wsh in T (bf16: wsh (L, NHID, kp); f32:
+// per label (9, cs_l, NHID), flat). absmax: (L,) from the pre-pass.
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS, 1)
+chain_kernel_q(const T* __restrict__ x, const float* __restrict__ ab, const T* __restrict__ seg,
+               const T* __restrict__ wsh, const float* __restrict__ bsh,
+               const int8_t* __restrict__ wgb, const float* __restrict__ sgb,
+               const float* __restrict__ bgb, const float* __restrict__ absmax,
+               T* __restrict__ y, const ChainArgs args) {
+  constexpr bool BF16 = is_bf16_v<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* h_q = reinterpret_cast<int8_t*>(smem);  // [HT*WT][HSQ]
+  int8_t* w_s = h_q + HT * WT * HSQ;              // NSTAGE_Q x [2*TC][WSQ]
+  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(w_s + NSTAGE_Q * SLICE_Q);  // bf16 only
+  __nv_bfloat16* b_s = a_s + HM * AS_MAX;
+  float* s_s = BF16 ? reinterpret_cast<float*>(b_s + NHID * AS_MAX)
+                    : reinterpret_cast<float*>(a_s);
+
+  const Frag frag = Frag::of_thread(args);
+  const int b = frag.b, r0 = frag.r0, c0 = frag.c0, ch0 = frag.ch0, wm = frag.wm, wn = frag.wn;
+  const int L = args.L, lane = threadIdx.x % 32;
+
+  float xr[MT][NPAIR][4];
+  bool valid[MT][2];
+  load_x_frag(xr, valid, x, args, frag);
+
+  // ldmatrix row addresses of this lane, in bytes
+  const int a_row = (lane % 8) + 8 * ((lane / 8) % 2);
+  const int a_k = 16 * (lane / 16);
+  const int b_row = (lane % 8) + 8 * (lane / 16);
+  const int b_k = 16 * ((lane / 8) % 2);
+
+  // the ring's first NSTAGE_Q - 1 slices (they load during the first hidden conv)
+  const int nsteps = 9 * L;
 #pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        const int c = chw + 8 * pi + e2;
-        const float a = abl[c], bb = abl[C + c], g0 = bgl[c], b0 = bgl[C + c];
+  for (int i = 0; i < NSTAGE_Q - 1; ++i) {
+    if (i < nsteps)
+      load_gb_slice_q(w_s + i * SLICE_Q, wgb, args, i / 9, i % 9, ch0);
+    else
+      cp_async_commit();  // an empty group keeps the group count uniform
+  }
+
+  for (int l = 0; l < L; ++l) {
+    const float s = int8_scale(absmax[l]);
+    load_segmap_tile(s_s, seg, args, l, b, r0, c0);
+    __syncthreads();
+    HidQuant<BF16, HSQ> hid{h_q, s, __frcp_rn(s)};
+    if constexpr (BF16)
+      hidden_mma(hid, a_s, b_s, s_s, wsh, bsh, args, l, r0, c0);
+    else
+      compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
+
+    int acc[MT][2 * NPAIR][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int n = 0; n < 2 * NPAIR; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0;
+
+    for (int tap = 0; tap < 9; ++tap) {
+      const int step = 9 * l + tap, ahead = step + NSTAGE_Q - 1;
+      const int8_t* w_cur = w_s + (step % NSTAGE_Q) * SLICE_Q;
+      if (ahead < nsteps)
+        load_gb_slice_q(w_s + (ahead % NSTAGE_Q) * SLICE_Q, wgb, args, ahead / 9, ahead % 9, ch0);
+      else
+        cp_async_commit();
+      cp_async_wait<NSTAGE_Q - 1>();  // this step's slice has landed
+      __syncthreads();  // ... for every thread (and, at tap 0, the hidden tile)
+      const int di = tap / 3, dj = tap % 3;
+#pragma unroll
+      for (int ks = 0; ks < NHID / 32; ++ks) {
+        uint32_t afr[MT][4];
 #pragma unroll
         for (int mi = 0; mi < MT; ++mi) {
+          const int pos = (MT * wm + mi + di) * WT + a_row + dj;
+          ldmatrix_x4(afr[mi], h_q + pos * HSQ + 32 * ks + a_k);
+        }
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int e = 2 * half + e2;
-            float& v = xr[mi][pi][e];
-            v = (v * a + bb) * (1.f + (acc[mi][2 * pi][e] + g0)) + (acc[mi][2 * pi + 1][e] + b0);
+        for (int pi = 0; pi < NPAIR; ++pi) {
+          uint32_t bfr[4];
+          ldmatrix_x4(bfr, w_cur + (16 * (NPAIR * wn + pi) + b_row) * WSQ + 32 * ks + b_k);
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            mma_s8(acc[mi][2 * pi], afr[mi], bfr[0], bfr[1]);
+            mma_s8(acc[mi][2 * pi + 1], afr[mi], bfr[2], bfr[3]);
           }
         }
       }
+      __syncthreads();  // everyone is done with w_cur (and h_q) before refills
     }
-  }
 
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (!valid[mi][half]) continue;
-      const int r = r0 + MT * wm + mi, c = c0 + g + 8 * half;
-#pragma unroll
-      for (int pi = 0; pi < NPAIR; ++pi)
-        *reinterpret_cast<__nv_bfloat162*>(y + (((size_t)b * H + r) * W + c) * C + chw + 8 * pi) =
-            __floats2bfloat162_rn(xr[mi][pi][2 * half], xr[mi][pi][2 * half + 1]);
-    }
+    modulate_frag(xr, acc, ab, bgb, sgb, s, args, l, frag);
   }
+  store_y_frag(y, xr, valid, args, frag);
 }
 
 template <typename T, typename WshT, typename Kernel>
@@ -550,20 +844,10 @@ cudaError_t launch(Kernel kernel, size_t smem, const void* x, const void* ab, co
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// Launches the chain on `stream`; returns a cudaError_t (0 on success).
-// is_bf16 selects bf16 (1) or f32 (0) for x, y, seg and wgb. cs holds the L
-// labels' segmap channel counts (host memory).
-int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const void* seg,
-                             const void* wsh, const void* bsh, const void* wgb,
-                             const void* bgb, void* y, int B, int H, int W, int C, int L,
-                             const int* cs, void* stream) {
+// The chain's shape arguments; false if the kernel does not take them.
+bool fill_args(ChainArgs& args, int B, int H, int W, int C, int L, const int* cs) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < TC || C % TC != 0 || L < 1 || L > MAX_L)
-    return (int)cudaErrorInvalidValue;
-  ChainArgs args;
+    return false;
   args.H = H;
   args.W = W;
   args.C = C;
@@ -575,20 +859,105 @@ int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const v
   }
   int max_cs = 0;
   for (int l = 0; l < L; ++l) {
-    if (cs[l] < 1 || cs[l] > MAX_CS) return (int)cudaErrorInvalidValue;
+    if (cs[l] < 1 || cs[l] > MAX_CS) return false;
     args.cs[l] = cs[l];
     args.cs_off[l] = off;
     off += cs[l];
     max_cs = cs[l] > max_cs ? cs[l] : max_cs;
   }
   args.cs_tot = off;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   args.kp = (9 * max_cs + 15) / 16 * 16;
+  return true;
+}
+
+dim3 chain_grid(int B, const ChainArgs& args, int channel_tiles) {
+  return dim3(((args.H + TH - 1) / TH) * ((args.W + TW - 1) / TW), channel_tiles, B);
+}
+
+template <typename T>
+cudaError_t launch_absmax(const void* seg, const void* wsh, const void* bsh, void* absmax,
+                          int B, const ChainArgs& args, cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(absmax, 0, sizeof(float) * args.L, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = smem_absmax<T>();
+  err = cudaFuncSetAttribute(hidden_absmax_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  hidden_absmax_kernel<T><<<chain_grid(B, args, 1), NTHREADS, smem, stream>>>(
+      static_cast<const T*>(seg), static_cast<const T*>(wsh), static_cast<const float*>(bsh),
+      static_cast<float*>(absmax), args);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_q(const void* x, const void* ab, const void* seg, const void* wsh,
+                     const void* bsh, const void* wgb, const void* sgb, const void* bgb,
+                     const void* absmax, void* y, int B, const ChainArgs& args,
+                     cudaStream_t stream) {
+  const size_t smem = smem_q<T>();
+  cudaError_t err = cudaFuncSetAttribute(chain_kernel_q<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  chain_kernel_q<T><<<chain_grid(B, args, args.C / TC), NTHREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ab), static_cast<const T*>(seg),
+      static_cast<const T*>(wsh), static_cast<const float*>(bsh),
+      static_cast<const int8_t*>(wgb), static_cast<const float*>(sgb),
+      static_cast<const float*>(bgb), static_cast<const float*>(absmax), static_cast<T*>(y),
+      args);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the chain on `stream`; returns a cudaError_t (0 on success).
+// is_bf16 selects bf16 (1) or f32 (0) for x, y, seg and wgb. cs holds the L
+// labels' segmap channel counts (host memory).
+int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const void* seg,
+                             const void* wsh, const void* bsh, const void* wgb,
+                             const void* bgb, void* y, int B, int H, int W, int C, int L,
+                             const int* cs, void* stream) {
+  ChainArgs args;
+  if (!fill_args(args, B, H, W, C, L, cs)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(chain_kernel_bf16, smem_bf16(), x, ab, seg,
                                                      wsh, bsh, wgb, bgb, y, B, args, s)
               : launch<float, float>(chain_kernel_f32, smem_f32(), x, ab, seg, wsh, bsh, wgb,
                                      bgb, y, B, args, s);
+  return (int)err;
+}
+
+// Pre-pass of the quantized chain: zeroes absmax (L f32, device) and fills
+// it with max |hidden_l| over the batch. is_bf16 selects seg's and wsh's
+// dtype (and the hidden conv) as for the chain.
+int multispade_hidden_absmax(int is_bf16, const void* seg, const void* wsh, const void* bsh,
+                             void* absmax, int B, int H, int W, int L, const int* cs,
+                             void* stream) {
+  ChainArgs args;
+  if (!fill_args(args, B, H, W, TC, L, cs)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_absmax<__nv_bfloat16>(seg, wsh, bsh, absmax, B, args, s)
+              : launch_absmax<float>(seg, wsh, bsh, absmax, B, args, s);
+  return (int)err;
+}
+
+// The quantized chain: as multispade_chain_forward, with wgb int8 (L, 9,
+// 2C, NHID), sgb (L, 2C) f32 weight scales and absmax from the pre-pass.
+int multispade_chain_forward_int8(int is_bf16, const void* x, const void* ab, const void* seg,
+                                  const void* wsh, const void* bsh, const void* wgb,
+                                  const void* sgb, const void* bgb, const void* absmax,
+                                  void* y, int B, int H, int W, int C, int L, const int* cs,
+                                  void* stream) {
+  ChainArgs args;
+  if (!fill_args(args, B, H, W, C, L, cs)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_q<__nv_bfloat16>(x, ab, seg, wsh, bsh, wgb, sgb, bgb, absmax, y, B,
+                                        args, s)
+              : launch_q<float>(x, ab, seg, wsh, bsh, wgb, sgb, bgb, absmax, y, B, args, s);
   return (int)err;
 }
 

@@ -1,0 +1,86 @@
+// Device helpers shared by the hand-written Hopper (sm_90a) kernels of this
+// directory: tensor-core and cp.async wrappers, two-element loads and
+// stores, and the symmetric-int8 quantizer both int8 kernels use.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Two consecutive values as f32, and back (8- or 4-byte aligned).
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// clip(rint(v / s), -127, 127) with v / s an IEEE division, given r =
+// __frcp_rn(s): v * r lies within a few ulps of v / s, so both round to the
+// same integer unless v * r is within that of a half-integer; there (about
+// one value in 10^4) the quotient is taken with __fdiv_rn. (Up to |y| = 128,
+// beyond which both clip to +-127, those ulps are under 4e-5, so the test
+// takes 1e-4.)
+__device__ __forceinline__ int quant_level(float v, float s, float r) {
+  const float y = v * r;
+  float q = rintf(y);
+  if (fabsf(fabsf(y - q) - 0.5f) < 1e-4f) q = rintf(__fdiv_rn(v, s));
+  return static_cast<int>(fminf(fmaxf(q, -127.f), 127.f));
+}
+
+// The per-tensor scale s = absmax / 127 + 1e-30, with an IEEE division.
+__device__ __forceinline__ float int8_scale(float absmax) {
+  return __fadd_rn(__fdiv_rn(absmax, 127.f), 1e-30f);
+}
+
+// acc * scale + bias, the dequantization of an int32 sum, never contracted.
+__device__ __forceinline__ float dequant(int acc, float scale, float bias) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), bias);
+}
+
+}  // namespace

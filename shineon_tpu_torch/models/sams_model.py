@@ -44,6 +44,7 @@ class SamsModel:
             activation=opt.activation or "relu", n_frames_total=self.n_frames_total,
             flow_warp=opt.flow_warp, encoder_input=opt.encoder_input,
             inputs=tuple(self.inputs), dtype=self.compute_dtype,
+            int8=opt.int8_spade, int8_min_channels=opt.int8_min_channels,
         ).to(device)
 
     @torch.no_grad()

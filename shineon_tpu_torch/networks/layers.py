@@ -1,6 +1,9 @@
 """NHWC convolution and dense layers with flax ``nn.Conv``/``nn.Dense``
 semantics: parameters stay f32 and are cast, with the input, to the compute
-dtype (``dtype``; None means f32) at every call."""
+dtype (``dtype``; None means f32) at every call. A conv built with
+``int8=True`` runs the symmetric-int8 3x3 conv (``ops/int8_conv.py``, the
+JAX package's ``Int8Conv``) when called with ``quantize=True`` (int8
+serving); its parameters are the same, so its state_dict is unchanged."""
 
 from __future__ import annotations
 
@@ -9,6 +12,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from shineon_tpu_torch.ops.int8_conv import conv3x3_int8, quantize_weight
 
 
 def compute_dtype(dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -26,19 +31,28 @@ def conv2d_nhwc(x, weight, bias, dtype, stride=1, padding=0):
 
 
 class Conv2d(nn.Module):
-    """``nn.Conv`` over NHWC with explicit symmetric padding."""
+    """``nn.Conv`` over NHWC with explicit symmetric padding. With ``int8``
+    (a 3x3 SAME conv only) ``forward(x, quantize=True)`` runs the int8 conv
+    on the weight quantized from f32, cached while the weight is unchanged."""
 
     def __init__(self, cin: int, cout: int, ksize: int, stride: int = 1,
                  padding: int = 0, bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False):
         super().__init__()
-        self.stride, self.padding, self.dtype = stride, padding, dtype
+        if int8 and (ksize, stride, padding) != (3, 1, 1):
+            raise ValueError("int8 takes 3x3 SAME convolutions only")
+        self.stride, self.padding, self.dtype, self.int8 = stride, padding, dtype, int8
         self.weight = nn.Parameter(torch.empty(cout, cin, ksize, ksize))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self._int8_cache = EvalCache()
 
-    def forward(self, x):
-        return conv2d_nhwc(x, self.weight, self.bias, compute_dtype(self.dtype),
-                           self.stride, self.padding)
+    def forward(self, x, quantize: bool = False):
+        cd = compute_dtype(self.dtype)
+        if quantize and self.int8:
+            qw = self._int8_cache.get((self.weight,), "int8",
+                                      lambda: quantize_weight(self.weight))
+            return conv3x3_int8(x, qw, self.bias, cd)
+        return conv2d_nhwc(x, self.weight, self.bias, cd, self.stride, self.padding)
 
 
 class Dense(nn.Module):

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from shineon_tpu_torch.networks.layers import EvalCache, compute_dtype, conv2d_nhwc
+from shineon_tpu_torch.ops.int8_conv import conv3x3_int8, quantize_weight
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, return_affine: bool = False,
@@ -79,13 +80,18 @@ class SpectralConv2d(nn.Module):
     one power step from the stored ``u`` at EVERY call (eval too), eps 1e-12,
     and ``u``/``sigma`` stored only when updating stats. At eval the step is
     deterministic, so the normalized kernel is computed once and reused
-    until the weight or ``u`` changes."""
+    until the weight or ``u`` changes. With ``int8`` (3x3 SAME only),
+    ``forward(x, quantize=True)`` runs the int8 conv on the normalized
+    kernel quantized from its f32 values, as flax ``SpectralNorm`` hands
+    ``Int8Conv`` an f32 kernel."""
 
     def __init__(self, cin: int, cout: int, ksize: int, padding: int = 0,
                  bias: bool = True, dtype: Optional[torch.dtype] = None,
-                 eps: float = 1e-12):
+                 eps: float = 1e-12, int8: bool = False):
         super().__init__()
-        self.padding, self.dtype, self.eps = padding, dtype, eps
+        if int8 and (ksize, padding) != (3, 1):
+            raise ValueError("int8 takes 3x3 SAME convolutions only")
+        self.padding, self.dtype, self.eps, self.int8 = padding, dtype, eps, int8
         self.weight = nn.Parameter(torch.empty(cout, cin, ksize, ksize))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.register_buffer("u", torch.empty(1, cout))
@@ -105,8 +111,17 @@ class SpectralConv2d(nn.Module):
                 self.sigma.copy_(sigma)
         return self.weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
-    def forward(self, x: torch.Tensor, update_stats: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                quantize: bool = False) -> torch.Tensor:
         cd = compute_dtype(self.dtype)
+        if quantize and self.int8:
+            if update_stats:
+                raise ValueError("the int8 conv serves eval only: no update_stats")
+            qw = self._eval_cache.get(
+                (self.weight, self.u), "int8",
+                lambda: quantize_weight(self.normalized_weight(False)),
+            )
+            return conv3x3_int8(x, qw, self.bias, cd)
         if update_stats or torch.is_grad_enabled():
             w = self.normalized_weight(update_stats).to(cd)
         else:

@@ -24,13 +24,14 @@ class MultiSpade(nn.Module):
 
     At eval with running-statistics norms the whole L-label chain is ONE
     kernel launch; with instance norm (statistics of the intermediate chain
-    value) it is one launch a label. In training the labels' mlp_shared
-    convs run as one block-diagonal conv and each SPADE applies in turn.
+    value) it is one launch a label. With ``int8`` those chains are
+    quantized. In training the labels' mlp_shared convs run as one
+    block-diagonal conv and each SPADE applies in turn.
     """
 
     def __init__(self, norm_nc: int, label_channels: Dict[str, int],
                  config_text: str = "spadeinstance3x3", activation: str = "relu",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False):
         super().__init__()
         self.keys = sorted(label_channels)
         self.norm_type, self.ks = parse_spade_config(config_text)
@@ -38,7 +39,7 @@ class MultiSpade(nn.Module):
         for key in self.keys:
             self.add_module(f"spade_{key}", SPADE(
                 norm_nc, label_channels[key], config_text=config_text,
-                activation=activation, dtype=dtype,
+                activation=activation, dtype=dtype, int8=int8,
             ))
 
     def spades(self):

@@ -4,8 +4,11 @@ Encoder (plain-SPADE resblocks + 0.5x nearest downsample over the previous
 generated frames, conditioned on their encoder labelmaps) -> middle
 (``num_middle`` width-preserving MultiSpade blocks on the current labelmap
 dict) -> decoder (2x nearest upsample + MultiSpade blocks) -> conv to RGB
-(+ weight mask with flow warping). Widths follow ngf_base ** pow. The
-attention variants are not ported yet.
+(+ weight mask with flow warping). Widths follow ngf_base ** pow. With
+``int8`` the generator serves int8 at eval: quantized SPADE chains, and the
+int8 conv wherever :func:`int8_conv_profitable` admits a 3x3 conv (the
+resblock convs, and ``encode_conv_in``/``decode_conv_out`` when their
+channel counts pass). The attention variants are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ from torch import nn
 from shineon_tpu_torch.datasets.channels import MASK_CHANNELS, RGB_CHANNELS, channels_for
 from shineon_tpu_torch.networks.layers import Conv2d
 from shineon_tpu_torch.networks.sams.multispade import MultiSpade
-from shineon_tpu_torch.networks.sams.spade import SPADE, AnySpadeResBlock, parse_spade_config
+from shineon_tpu_torch.networks.sams.spade import (
+    SPADE,
+    AnySpadeResBlock,
+    int8_conv_profitable,
+    parse_spade_config,
+)
 
 
 def resize_nearest_scale(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -42,7 +50,8 @@ class SamsGenerator(nn.Module):
                  n_frames_total: int = 5, flow_warp: bool = False,
                  encoder_input: str = "flow",
                  inputs: Sequence[str] = ("agnostic", "cloth", "densepose", "flow"),
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_min_channels: int = 64):
         super().__init__()
         if attention_middle_indices or attention_decoder_indices:
             raise NotImplementedError("attention SAMS blocks are not ported yet")
@@ -59,16 +68,20 @@ class SamsGenerator(nn.Module):
 
         def enc_spade(c):
             return SPADE(c, enc_label_nc, config_text=spade_config,
-                         activation=activation, dtype=dtype)
+                         activation=activation, dtype=dtype, int8=int8)
 
         def cur_spade(c):
             return MultiSpade(c, labels, config_text=spade_config,
-                              activation=activation, dtype=dtype)
+                              activation=activation, dtype=dtype, int8=int8)
 
-        block = partial(AnySpadeResBlock, norm_G=norm_G, activation=activation, dtype=dtype)
+        block = partial(AnySpadeResBlock, norm_G=norm_G, activation=activation, dtype=dtype,
+                        int8=int8, int8_min_channels=int8_min_channels)
 
-        self.encode_conv_in = Conv2d(RGB_CHANNELS * self.num_prev, ngf_outer, 3,
-                                     padding=1, dtype=dtype)
+        def conv3x3(cin, cout):
+            q = int8 and int8_conv_profitable(3, cin, cout, int8_min_channels)
+            return Conv2d(cin, cout, 3, padding=1, dtype=dtype, int8=q)
+
+        self.encode_conv_in = conv3x3(RGB_CHANNELS * self.num_prev, ngf_outer)
         self.encoder = []
         out_feat = ngf_outer
         for i, pow_ in enumerate(range(ngf_pow_outer, ngf_pow_inner, ngf_pow_step)):
@@ -95,7 +108,7 @@ class SamsGenerator(nn.Module):
         if out_feat != ngf_outer:
             self.decoder.append("decode_extra")
             self.decode_extra = block(out_feat, ngf_outer, make_spade=cur_spade)
-        self.decode_conv_out = Conv2d(ngf_outer, out_channels, 3, padding=1, dtype=dtype)
+        self.decode_conv_out = conv3x3(ngf_outer, out_channels)
 
     def forward(self, prev_n_frames: Optional[torch.Tensor],
                 prev_n_labelmaps: Optional[torch.Tensor],
@@ -118,7 +131,7 @@ class SamsGenerator(nn.Module):
             enc_maps = reference.new_zeros((B, H, W, self.enc_ch))
         kw = dict(train=train, update_stats=update_stats)
 
-        x = self.encode_conv_in(x)
+        x = self.encode_conv_in(x, quantize=not train)
         for name in self.encoder:
             x = getattr(self, name)(x, enc_maps, **kw)
             x = resize_nearest_scale(x, 0.5)
@@ -128,5 +141,5 @@ class SamsGenerator(nn.Module):
         for name in self.decoder:
             x = resize_nearest_scale(x, 2.0)
             x = getattr(self, name)(x, current, **kw)
-        x = self.decode_conv_out(x)
+        x = self.decode_conv_out(x, quantize=not train)
         return x.float() if train else x

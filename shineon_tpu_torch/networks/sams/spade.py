@@ -3,7 +3,10 @@ shineon_tpu/networks/sams/spade.py).
 
 At eval every 3x3 SPADE site runs through the fused chain kernel
 (:func:`shineon_tpu_torch.ops.fused_spade.fused_multispade_modulate`); in
-training the reference formulation runs conv by conv.
+training the reference formulation runs conv by conv. Modules built with
+``int8=True`` serve int8 at eval (the JAX package's ``SHINEON_INT8_SPADE``
+mode): every fused chain is quantized, and every resblock conv that
+:func:`int8_conv_profitable` admits runs the int8 conv.
 """
 
 from __future__ import annotations
@@ -25,6 +28,13 @@ from shineon_tpu_torch.networks.normalization import (
     instance_norm,
 )
 from shineon_tpu_torch.ops.fused_spade import fused_multispade_modulate, pack_weights
+
+
+def int8_conv_profitable(ks: int, cin: int, cout: int, min_channels: int = 64) -> bool:
+    """The JAX package's int8 serving gate: a kernel of at least 3x3 and both
+    channel counts >= ``min_channels`` (its ``SHINEON_INT8_MIN_CH``, default
+    64; its spatial gate is off by default and not kept)."""
+    return ks >= 3 and min(cin, cout) >= min_channels
 
 
 def parse_spade_config(config_text: str) -> tuple[str, int]:
@@ -59,15 +69,15 @@ class SPADE(nn.Module):
     the mlp_shared conv when a parent computed it). ``fused_args`` returns
     the chain arguments ``(ab, seg, wsh, bsh, wgb, bgb)`` of this label for
     the kernel; ``forward_fused`` runs the kernel on this label alone (see
-    :func:`fused_chain`).
+    :func:`fused_chain`), quantized when built with ``int8``.
     """
 
     def __init__(self, norm_nc: int, label_nc: int, config_text: str = "spadeinstance3x3",
                  activation: str = "relu", nhidden: int = 128,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False):
         super().__init__()
         self.norm_type, ks = parse_spade_config(config_text)
-        self.ks, self.activation, self.dtype = ks, activation, dtype
+        self.ks, self.activation, self.dtype, self.int8 = ks, activation, dtype, int8
         if self.norm_type != "instance":
             self.norm = SyncBatchNorm(norm_nc, affine=False, dtype=dtype)
         pad = ks // 2
@@ -114,20 +124,22 @@ class SPADE(nn.Module):
 def fused_chain(spades, x, segmaps):
     """Eval: the SPADEs applied to x in turn as ONE kernel call, each norm
     folded with its running statistics (instance statistics only in a chain
-    of one: they depend on the chain's running value). Outside autograd the
-    chain's weights are packed once into the kernel's layout and kept on its
-    first SPADE until a weight changes."""
+    of one: they depend on the chain's running value), quantized if the
+    SPADEs were built with ``int8``. Outside autograd the chain's weights
+    are packed once into the kernel's layout and kept on its first SPADE
+    until a weight changes."""
     per_label = [s.fused_args(x, m) for s, m in zip(spades, segmaps)]
     abs_, segs, wshs, bshs, wgbs, bgbs = zip(*per_label)
+    quantized = spades[0].int8
     packed = None
     if not torch.is_grad_enabled():
         packed = spades[0]._packed.get(
-            [p for s in spades for p in s.parameters()], x.dtype,
-            lambda: pack_weights(wshs, bshs, wgbs, bgbs, x.dtype),
+            [p for s in spades for p in s.parameters()], (x.dtype, quantized),
+            lambda: pack_weights(wshs, bshs, wgbs, bgbs, x.dtype, quantized),
         )
     return fused_multispade_modulate(
         x, torch.stack(abs_, dim=1), segs, wshs, bshs, wgbs, bgbs,
-        act_name=spades[0].activation, packed=packed,
+        act_name=spades[0].activation, packed=packed, quantized=quantized,
     )
 
 
@@ -135,10 +147,12 @@ class AnySpadeResBlock(nn.Module):
     """SPADE ResNet block (reference spade.py:106-192). ``make_spade(channels)``
     builds each normalization sub-module (SPADE or MultiSpade);
     spectral norm wraps the convs when "spectral" is in ``norm_G``. At eval a
-    plain SPADE runs fused; a MultiSpade fuses its own chain."""
+    plain SPADE runs fused; a MultiSpade fuses its own chain. With ``int8``
+    the convs that :func:`int8_conv_profitable` admits run int8 at eval."""
 
     def __init__(self, fin: int, fout: int, norm_G: str, make_spade,
-                 activation: str = "relu", dtype: Optional[torch.dtype] = None):
+                 activation: str = "relu", dtype: Optional[torch.dtype] = None,
+                 int8: bool = False, int8_min_channels: int = 64):
         super().__init__()
         self.learned_shortcut = fin != fout
         fmiddle = min(fin, fout)
@@ -147,7 +161,8 @@ class AnySpadeResBlock(nn.Module):
 
         def conv(cin, cout, ksize, bias):
             cls = SpectralConv2d if spectral else Conv2d
-            return cls(cin, cout, ksize, padding=ksize // 2, bias=bias, dtype=dtype)
+            q = int8 and int8_conv_profitable(ksize, cin, cout, int8_min_channels)
+            return cls(cin, cout, ksize, padding=ksize // 2, bias=bias, dtype=dtype, int8=q)
 
         if self.learned_shortcut:
             self.norm_s = make_spade(fin)
@@ -158,10 +173,10 @@ class AnySpadeResBlock(nn.Module):
         self.conv_1 = conv(fmiddle, fout, 3, True)
 
     @staticmethod
-    def _conv(layer, h, update_stats):
+    def _conv(layer, h, train, update_stats):
         if isinstance(layer, SpectralConv2d):
-            return layer(h, update_stats=update_stats)
-        return layer(h)
+            return layer(h, update_stats=update_stats, quantize=not train)
+        return layer(h, quantize=not train)
 
     @staticmethod
     def _spade(module, h, seg, train):
@@ -171,12 +186,13 @@ class AnySpadeResBlock(nn.Module):
 
     def forward(self, x, seg, train: bool = True, update_stats: bool = False):
         if self.learned_shortcut:
-            x_s = self._conv(self.conv_s, self._spade(self.norm_s, x, seg, train), update_stats)
+            x_s = self._conv(self.conv_s, self._spade(self.norm_s, x, seg, train), train,
+                             update_stats)
         else:
             x_s = x
         dx = self._spade(self.spade_0, x, seg, train)
-        dx = self._conv(self.conv_0, self.actvn(dx), update_stats)
+        dx = self._conv(self.conv_0, self.actvn(dx), train, update_stats)
         dx = self._spade(self.spade_1, dx, seg, train)
-        dx = self._conv(self.conv_1, self.actvn(dx), update_stats)
+        dx = self._conv(self.conv_1, self.actvn(dx), train, update_stats)
         return x_s + dx
 

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library under
 ``shineon_tpu_torch/_build/`` (listed in .gitignore) the first time it is
 needed, and loaded with ``ctypes``. The library's file name carries a hash
-of its source, so an edited source is rebuilt and a stale build is never
-loaded. Nothing here runs at import time.
+of its source and of the shared headers (``csrc/*.cuh``), so an edited
+source is rebuilt and a stale build is never loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -45,9 +45,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The build of ``csrc/<name>.cu``, named by a hash of the source and of
+    the headers of ``csrc`` it may include."""
+    digest = hashlib.sha1()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> str:

@@ -9,12 +9,20 @@ where (a_l, b_l) is the label's norm folded to per-channel coefficients.
 
 * :func:`multispade_modulate_plain` is the plain PyTorch version, step for
   step the JAX package's ``multispade_modulate_reference``.
+* :func:`multispade_modulate_plain_int8` is the plain version of the
+  quantized chain (``quantized=True``), step for step the JAX package's
+  ``multispade_modulate_reference_int8``: each label's hidden map is
+  quantized to int8 with ONE scale over the whole batch tensor, the
+  [gamma | beta] conv sums int8 products exactly and is dequantized with the
+  per-output-channel weight scales (see ops/int8_conv.py).
 * :func:`fused_multispade_modulate` is the wrapper. On a CUDA tensor it
-  launches the hand-written kernel ``csrc/fused_multispade.cu`` or raises;
-  on a CPU tensor it computes the plain version. Each kernel launch adds one
-  to ``fused_multispade_modulate.launches``.
+  launches the hand-written kernels of ``csrc/fused_multispade.cu`` or
+  raises; on a CPU tensor it computes the plain version. Each launch adds
+  one to a count on the wrapper: ``launches`` (the full-precision chain),
+  ``int8_launches`` (the quantized chain) and ``absmax_launches`` (the
+  quantized chain's pre-pass, which takes each label's hidden abs-max).
 * Gradients go through :class:`FusedMultiSpade`, whose backward recomputes
-  through the plain version (serving never needs it).
+  through the full-precision plain version (serving never needs it).
 
 Weights use the port's layout: OIHW ``wsh`` (128, cs, 3, 3) and ``wgb``
 (2C, 128, 3, 3) with gamma's C output channels first.
@@ -23,10 +31,13 @@ Weights use the port's layout: OIHW ``wsh`` (128, cs, 3, 3) and ``wgb``
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from shineon_tpu_torch.ops.int8_conv import conv3x3_int8_plain, quantize_weight
 
 NHID = 128  # hidden width of the SPADE MLP (reference spade.py:68)
 CHANNEL_TILE = 64  # the kernel takes C in multiples of this
@@ -54,9 +65,34 @@ def _conv3x3(v, weight, bias, dtype):
 # where each side rounds (the plain version rounds each conv output and its
 # bias sum to bf16, the kernel keeps gamma/beta in f32). On an H100 at the
 # serving clip's sites (chip_smoke.py inputs) the bf16 kernel reads up to
-# 0.087 and f32 up to 1.6e-5; a bf16 body with the hidden halo unmasked or a
+# 0.087 and f32 up to 2.0e-5; a bf16 body with the hidden halo unmasked or a
 # bias dropped reads 0.27 or more.
-KERNEL_TOLERANCE = {torch.float32: 2e-4, torch.bfloat16: 0.15}
+#
+# The quantized chain, keyed (dtype, "int8"), is held to two limits: this
+# elementwise one and INT8_RMS_TOLERANCE on rms(kernel - plain) / rms(plain).
+# Both sides round the hidden map alike (in bf16: the conv's sum, then its
+# sum with the bias), sum the same int8 products exactly and keep
+# gamma/beta in f32, so they differ only where a hidden value, its f32 sum
+# taken in another order, rounds the other way and lands on the other side
+# of a quantization step. One such flip moves gamma/beta by at most
+# s_l * max|w| at the 9 pixels around it: a few elements read up to the
+# elementwise limit, and the rms barely moves. A fault in the int8 stage
+# moves every element a little: the rms limit is the one that tells it from
+# flips. On an H100 at the serving clip's sites (chip_smoke.py inputs) the
+# kernel reads up to 0.0081 elementwise and rms 6.6e-5 in bf16 (f32: 2.0e-6,
+# 1.0e-7); its controls, the fp chain and gamma/beta weights quantized from
+# their bf16 cast, read rms 0.0050 or more; faults planted in the bf16-only
+# code (hidden map rounded once, pre-pass abs-max unrounded, hidden channel
+# pairs swapped) read 0.0034 or more. On the CPU
+# (tests/test_torch_int8.py, emulated kernel) one scale a sample in place of
+# one a tensor reads rms 0.0086 or more.
+KERNEL_TOLERANCE = {
+    torch.float32: 2e-4,
+    torch.bfloat16: 0.15,
+    (torch.float32, "int8"): 0.0225,
+    (torch.bfloat16, "int8"): 0.0225,
+}
+INT8_RMS_TOLERANCE = 1e-3
 
 
 def error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -64,6 +100,21 @@ def error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
     out, ref = out.float(), ref.float()
     rms = ref.square().mean().sqrt()
     return ((out - ref).abs() / (ref.abs() + rms)).max().item()
+
+
+def rms_error_ratio(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """rms(out - ref) / rms(ref), in f32."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
+
+
+def int8_chain_agrees(out: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(ok, elementwise ratio, rms ratio) of a quantized chain's output
+    against its plain version, under the int8 limits of ``ref.dtype``."""
+    ratio, rms = error_ratio(out, ref), rms_error_ratio(out, ref)
+    ok = (bool(torch.isfinite(out.float()).all())
+          and ratio <= KERNEL_TOLERANCE[(ref.dtype, "int8")] and rms <= INT8_RMS_TOLERANCE)
+    return ok, ratio, rms
 
 
 def multispade_modulate_plain(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name="relu"):
@@ -87,6 +138,26 @@ def multispade_modulate_plain(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name="rel
     return out.to(x.dtype)
 
 
+def multispade_modulate_plain_int8(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name="relu"):
+    """Plain PyTorch quantized chain; arguments as
+    :func:`multispade_modulate_plain`. The hidden map is computed and
+    rounded to the compute dtype as there, then the [gamma | beta] conv is
+    the int8 conv of ops/int8_conv.py (per-tensor activation scale, weights
+    quantized from f32), dequantized in f32."""
+    act = _act(act_name)
+    C = x.shape[-1]
+    cd = x.dtype
+    out = x.float()
+    for l in range(len(segs)):
+        h = act(_conv3x3(segs[l], wshs[l], bshs[l], cd).float()).to(cd)
+        gb = conv3x3_int8_plain(h, quantize_weight(wgbs[l]), bgbs[l], torch.float32)
+        gamma, beta = gb[..., :C], gb[..., C:]
+        a = ab[:, l, :C].float()[:, None, None, :]
+        b = ab[:, l, C:].float()[:, None, None, :]
+        out = (out * a + b) * (1.0 + gamma) + beta
+    return out.to(x.dtype)
+
+
 class PackedWeights(NamedTuple):
     """The kernel's weight operands for one chain and compute dtype.
 
@@ -95,6 +166,8 @@ class PackedWeights(NamedTuple):
       max(cs) rounded up to 16; wgb (L, 9, 2C, 128).
     f32: wsh per label (9, cs_l, 128), labels concatenated, flat;
       wgb (L, 9, 128, 2C).
+    quantized (either dtype): wgb (L, 9, 2C, 128) int8, quantized from the
+      f32 weights, and sgb (L, 2C) f32 its per-output-channel scales.
     """
 
     cs: tuple  # segmap channels per label
@@ -102,32 +175,45 @@ class PackedWeights(NamedTuple):
     bsh: torch.Tensor  # (L, 128) f32
     wgb: torch.Tensor
     bgb: torch.Tensor  # (L, 2C) f32
+    sgb: Optional[torch.Tensor] = None  # quantized only
 
 
 def _hidden_depth(cs) -> int:
     return (9 * max(cs) + 15) // 16 * 16
 
 
-def _packed_shapes(dtype, cs, C):
+def _packed_shapes(dtype, cs, C, quantized=False):
     L = len(cs)
     if dtype == torch.bfloat16:
-        return (L, NHID, _hidden_depth(cs)), (L, 9, 2 * C, NHID)
-    return (9 * sum(cs) * NHID,), (L, 9, NHID, 2 * C)
+        wsh = (L, NHID, _hidden_depth(cs))
+        wgb = (L, 9, 2 * C, NHID)
+    else:
+        wsh = (9 * sum(cs) * NHID,)
+        wgb = (L, 9, 2 * C, NHID) if quantized else (L, 9, NHID, 2 * C)
+    return wsh, wgb
 
 
-def pack_weights(wshs, bshs, wgbs, bgbs, dtype) -> PackedWeights:
-    """Rearrange per-label OIHW weights into the kernel's layout."""
+def pack_weights(wshs, bshs, wgbs, bgbs, dtype, quantized=False) -> PackedWeights:
+    """Rearrange per-label OIHW weights into the kernel's layout; with
+    ``quantized`` the [gamma | beta] weights become int8 with their scales."""
     cs = tuple(int(w.shape[1]) for w in wshs)
+    sgb = None
     if dtype == torch.bfloat16:
         kp = _hidden_depth(cs)
         wsh = torch.stack([
             F.pad(w.to(dtype).permute(0, 2, 3, 1).reshape(NHID, -1), (0, kp - 9 * w.shape[1]))
             for w in wshs
         ])
+    else:
+        wsh = torch.cat([w.to(dtype).permute(2, 3, 1, 0).reshape(-1) for w in wshs])
+    if quantized:
+        qws = [quantize_weight(w) for w in wgbs]  # from the f32 weights
+        wgb = torch.stack([q.wq for q in qws])
+        sgb = torch.stack([q.scale for q in qws]).contiguous()
+    elif dtype == torch.bfloat16:
         wgb = torch.stack([w.to(dtype).permute(2, 3, 0, 1).reshape(9, w.shape[0], NHID)
                            for w in wgbs])
     else:
-        wsh = torch.cat([w.to(dtype).permute(2, 3, 1, 0).reshape(-1) for w in wshs])
         wgb = torch.stack([w.to(dtype).permute(2, 3, 1, 0).reshape(9, NHID, w.shape[0])
                            for w in wgbs])
     return PackedWeights(
@@ -136,6 +222,7 @@ def pack_weights(wshs, bshs, wgbs, bgbs, dtype) -> PackedWeights:
         bsh=torch.stack([b.float() for b in bshs]).contiguous(),
         wgb=wgb.contiguous(),
         bgb=torch.stack([b.float() for b in bgbs]).contiguous(),
+        sgb=sgb,
     )
 
 
@@ -145,9 +232,9 @@ def _check(cond: bool, msg: str):
 
 
 def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
-    """Validate and launch the CUDA kernel on the current stream."""
-    from shineon_tpu_torch.ops.cuda_build import load_library
-
+    """Validate and launch the CUDA kernel (quantized: the pre-pass, then
+    the quantized chain) on the current stream."""
+    quantized = packed.sgb is not None
     _check(act_name == "relu", f"activation {act_name!r} is not ported to the kernel")
     _check(x.dim() == 4, "x must be (B, H, W, C)")
     B, H, W, C = x.shape
@@ -157,15 +244,17 @@ def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
     _check(1 <= L <= MAX_LABELS, f"{L} labels (at most {MAX_LABELS})")
     _check(all(1 <= c <= MAX_LABEL_CHANNELS for c in packed.cs),
            f"segmap channels {packed.cs} (1..{MAX_LABEL_CHANNELS} a label)")
-    wsh_shape, wgb_shape = _packed_shapes(x.dtype, packed.cs, C)
+    wsh_shape, wgb_shape = _packed_shapes(x.dtype, packed.cs, C, quantized)
     expect = {
         "ab": (ab, (B, L, 2 * C), torch.float32),
         "seg": (seg, (B, H, W, sum(packed.cs)), x.dtype),
         "wsh": (packed.wsh, wsh_shape, x.dtype),
         "bsh": (packed.bsh, (L, NHID), torch.float32),
-        "wgb": (packed.wgb, wgb_shape, x.dtype),
+        "wgb": (packed.wgb, wgb_shape, torch.int8 if quantized else x.dtype),
         "bgb": (packed.bgb, (L, 2 * C), torch.float32),
     }
+    if quantized:
+        expect["sgb"] = (packed.sgb, (L, 2 * C), torch.float32)
     tensors = {"x": x}
     for name, (t, shape, dtype) in expect.items():
         _check(tuple(t.shape) == shape, f"{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -175,48 +264,93 @@ def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
         _check(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
 
-    lib = load_library(KERNEL_SOURCE)
-    fn = lib.multispade_chain_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p,
-    ]
-    lib.multispade_chain_error_string.restype = ctypes.c_char_p
-    lib.multispade_chain_error_string.argtypes = [ctypes.c_int]
-
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), ab.data_ptr(), seg.data_ptr(),
-            packed.wsh.data_ptr(), packed.bsh.data_ptr(), packed.wgb.data_ptr(),
-            packed.bgb.data_ptr(), y.data_ptr(), B, H, W, C, L,
-            (ctypes.c_int * L)(*packed.cs), stream,
-        )
-    if err != 0:
-        msg = lib.multispade_chain_error_string(err).decode()
-        raise RuntimeError(f"fused_multispade kernel launch failed: {msg} ({err})")
-    fused_multispade_modulate.launches += 1
+    lib, call = _library()
+    cs = (ctypes.c_int * L)(*packed.cs)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    if not quantized:
+        call(lib.multispade_chain_forward, "fused_multispade", x.device, is_bf16, x.data_ptr(),
+             ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(), packed.bsh.data_ptr(),
+             packed.wgb.data_ptr(), packed.bgb.data_ptr(), y.data_ptr(), B, H, W, C, L, cs)
+        fused_multispade_modulate.launches += 1
+        return y
+    absmax = hidden_absmax(seg, packed)
+    call(lib.multispade_chain_forward_int8, "fused_multispade_int8", x.device, is_bf16,
+         x.data_ptr(), ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(),
+         packed.bsh.data_ptr(), packed.wgb.data_ptr(), packed.sgb.data_ptr(),
+         packed.bgb.data_ptr(), absmax.data_ptr(), y.data_ptr(), B, H, W, C, L, cs)
+    fused_multispade_modulate.int8_launches += 1
     return y
 
 
-class FusedMultiSpade(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
-    recompute through the plain version, like the JAX package's
-    ``_fused_bwd``.
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The chain's shared library with its argument types (set once), and a
+    caller that launches one of its functions on the current stream of a
+    device and raises on a launch error."""
+    from shineon_tpu_torch.ops.cuda_build import load_library
 
-    Inputs are flattened: ``apply(act_name, packed, L, x, ab, *segs, *wshs,
-    *bshs, *wgbs, *bgbs)``; ``packed`` may be None (packed on the fly)."""
+    lib = load_library(KERNEL_SOURCE)
+    cs_arg = [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+    lib.multispade_chain_forward.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + cs_arg)
+    lib.multispade_hidden_absmax.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + cs_arg)
+    lib.multispade_chain_forward_int8.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + cs_arg)
+    for fn in (lib.multispade_chain_forward, lib.multispade_hidden_absmax,
+               lib.multispade_chain_forward_int8):
+        fn.restype = ctypes.c_int
+    lib.multispade_chain_error_string.restype = ctypes.c_char_p
+    lib.multispade_chain_error_string.argtypes = [ctypes.c_int]
+
+    def call(fn, what, device, *args):
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            msg = lib.multispade_chain_error_string(err).decode()
+            raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+    return lib, call
+
+
+def hidden_absmax(seg: torch.Tensor, packed: PackedWeights) -> torch.Tensor:
+    """The quantized chain's pre-pass on the card: (L,) f32 max |hidden_l|
+    over the batch, each label's hidden map computed by the chain's own
+    device code. ``seg`` (B, H, W, sum(cs)) in the compute dtype; ``packed``
+    as for the chain. Adds one to ``fused_multispade_modulate.absmax_launches``."""
+    B, H, W, _ = seg.shape
+    L = len(packed.cs)
+    lib, call = _library()
+    absmax = torch.empty(L, dtype=torch.float32, device=seg.device)
+    call(lib.multispade_hidden_absmax, "multispade_hidden_absmax", seg.device,
+         int(seg.dtype == torch.bfloat16), seg.data_ptr(), packed.wsh.data_ptr(),
+         packed.bsh.data_ptr(), absmax.data_ptr(), B, H, W, L, (ctypes.c_int * L)(*packed.cs))
+    fused_multispade_modulate.absmax_launches += 1
+    return absmax
+
+
+class FusedMultiSpade(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU), quantized or
+    not. Backward: recompute through the full-precision plain version, like
+    the JAX package's ``_fused_bwd``.
+
+    Inputs are flattened: ``apply(act_name, quantized, packed, L, x, ab,
+    *segs, *wshs, *bshs, *wgbs, *bgbs)``; ``packed`` may be None (packed on
+    the fly)."""
 
     @staticmethod
-    def forward(ctx, act_name, packed, L, x, ab, *flat):
+    def forward(ctx, act_name, quantized, packed, L, x, ab, *flat):
         segs, wshs, bshs, wgbs, bgbs = (list(flat[i * L:(i + 1) * L]) for i in range(5))
         ctx.act_name, ctx.L = act_name, L
         ctx.save_for_backward(x, ab, *flat)
         if x.device.type == "cpu":
-            return multispade_modulate_plain(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name)
+            plain = multispade_modulate_plain_int8 if quantized else multispade_modulate_plain
+            return plain(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name)
         if packed is None:
-            packed = pack_weights(wshs, bshs, wgbs, bgbs, x.dtype)
+            packed = pack_weights(wshs, bshs, wgbs, bgbs, x.dtype, quantized)
+        if (packed.sgb is not None) != quantized:
+            raise ValueError("fused_multispade_modulate: packed weights do not match quantized")
         seg = torch.cat([s.to(x.dtype) for s in segs], dim=-1).contiguous()
         return _launch(x.contiguous(), ab.float().contiguous(), seg, packed, act_name)
 
@@ -229,10 +363,10 @@ class FusedMultiSpade(torch.autograd.Function):
             x_, ab_, *rest = inputs
             groups = [rest[i * L:(i + 1) * L] for i in range(5)]
             out = multispade_modulate_plain(x_, ab_, *groups, act_name=ctx.act_name)
-        wanted = [t for t, need in zip(inputs, ctx.needs_input_grad[3:]) if need]
+        wanted = [t for t, need in zip(inputs, ctx.needs_input_grad[4:]) if need]
         grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
-        return (None, None, None) + tuple(
-            next(grads) if need else None for need in ctx.needs_input_grad[3:]
+        return (None, None, None, None) + tuple(
+            next(grads) if need else None for need in ctx.needs_input_grad[4:]
         )
 
 
@@ -246,17 +380,22 @@ def fused_multispade_modulate(
     bgbs: Sequence[torch.Tensor],
     act_name: str = "relu",
     packed: PackedWeights | None = None,
+    quantized: bool = False,
 ) -> torch.Tensor:
     """Apply the sequential multi-label SPADE modulation chain, fused.
 
     Arguments as :func:`multispade_modulate_plain`; ``packed`` optionally
     carries the weights already in the kernel's layout (see
-    :func:`pack_weights`) so a caller serving many frames packs once.
+    :func:`pack_weights`, with the same ``quantized``) so a caller serving
+    many frames packs once. ``quantized`` runs the [gamma | beta] conv in
+    int8 (:func:`multispade_modulate_plain_int8`), the int8 serving mode.
     """
     L = len(segs)
     return FusedMultiSpade.apply(
-        act_name, packed, L, x, ab, *segs, *wshs, *bshs, *wgbs, *bgbs
+        act_name, quantized, packed, L, x, ab, *segs, *wshs, *bshs, *wgbs, *bgbs
     )
 
 
 fused_multispade_modulate.launches = 0
+fused_multispade_modulate.int8_launches = 0
+fused_multispade_modulate.absmax_launches = 0

@@ -1,7 +1,8 @@
 """The production options of the serving clip, a local copy of the JAX
 package's ``__graft_entry__._sams_opt`` defaults (SAMS at 256x192, 5-frame
 clips, flow warping, spectral SPADE sync-batch, widths 2^6..2^10, three
-middle blocks, bf16) and of the GMM's warp-stage overrides."""
+middle blocks, bf16) and of the GMM's warp-stage overrides. int8 serving is
+an option (``int8_spade``) rather than an environment variable."""
 
 from __future__ import annotations
 
@@ -16,6 +17,10 @@ _SAMS_DEFAULTS = dict(
     ngf_base=2, ngf_pow_outer=6, ngf_pow_inner=10, ngf_pow_step=1, num_middle=3,
     attention_middle_indices=(), attention_decoder_indices=(), batch_size=4,
     ngf=64, precision=16, grid_size=5,
+    # int8 serving (the JAX package's --int8_spade / SHINEON_INT8_SPADE=1,
+    # which bench.py turns on for its timed clip) and its conv gate's
+    # channel floor (SHINEON_INT8_MIN_CH); eval only, off here
+    int8_spade=False, int8_min_channels=64,
 )
 
 

@@ -4,6 +4,11 @@ compositing (counterpart of bench.py::build_inference).
 
     one_clip, warp, sams, raw, n_frames = build_inference(batch_size=4)
     frames = one_clip(raw)  # (B, N, H, W, 3)
+
+``build_inference(4, int8_spade=True)`` serves the int8 clip, as
+bench.py's clip runs under ``SHINEON_INT8_SPADE=1``: quantized SPADE chains
+and int8 resblock convs at eval (the warm-up rollouts train in full
+precision).
 """
 
 from __future__ import annotations
@@ -86,7 +91,8 @@ def warm_up(sams: SamsModel, batch: Dict[str, torch.Tensor], rollouts: int = WAR
 
 def build_inference(batch_size: int, device="cuda", seed: int = 420, **overrides):
     """Build the serving clip at the production options (``overrides``
-    replace any of them, e.g. a smaller fine size or depth).
+    replace any of them, e.g. a smaller fine size or depth, or
+    ``int8_spade=True``).
 
     Weights are drawn from ``torch.Generator`` seeds (``seed`` for SAMS,
     ``seed + 1`` for the GMM) with the JAX package's init rules, then the

@@ -1,5 +1,6 @@
-"""Card-only tests of the port's serving path. They import neither JAX nor
-the JAX package, so they also run where only PyTorch is installed:
+"""Card-only tests of the port's serving path, bf16 and int8. They import
+neither JAX nor the JAX package, so they also run where only PyTorch is
+installed:
 
     python -m pytest tests/test_torch_fused_spade.py tests/test_torch_cuda.py -m gpu -q
 
@@ -31,3 +32,95 @@ def test_build_inference_cuda_launches_kernel_per_spade_site():
     assert frames.shape == (2, n_frames, 128, 96, 3)
     assert torch.isfinite(frames.float()).all()
     assert fused_multispade_modulate.launches - before == n_frames * SITES_PER_FRAME
+
+
+# the same clip in int8 serving: every SPADE site runs the quantized chain
+# and its pre-pass; the 3x3 resblock convs run the int8 conv (64->64,
+# 64->128 in the encoder block, 128->128 x2 in the middle block, 128->64,
+# 64->64 in the decoder block: 6 a frame)
+INT8_CONVS_PER_FRAME = 6
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+def test_build_inference_cuda_int8_launches_every_kernel():
+    """On the card a small int8 clip launches the quantized chain and its
+    pre-pass once per SPADE site, the int8 conv once per gated 3x3 conv, and
+    the full-precision chain never."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops.fused_spade import fused_multispade_modulate as fmm
+    from shineon_tpu_torch.ops.int8_conv import conv3x3_int8
+    from shineon_tpu_torch.serving import build_inference
+
+    one_clip, warp, sams, raw, n_frames = build_inference(2, int8_spade=True, **SMALL)
+    counts = lambda: (fmm.launches, fmm.int8_launches, fmm.absmax_launches,  # noqa: E731
+                      conv3x3_int8.launches)
+    before = counts()
+    frames = one_clip(raw)
+    torch.cuda.synchronize()
+    assert frames.shape == (2, n_frames, 128, 96, 3)
+    assert torch.isfinite(frames.float()).all()
+    launched = [a - b for a, b in zip(counts(), before)]
+    assert launched == [0, n_frames * SITES_PER_FRAME, n_frames * SITES_PER_FRAME,
+                        n_frames * INT8_CONVS_PER_FRAME]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantized_chain_matches_plain(dtype):
+    """The quantized chain kernel (pre-pass + chain) against its plain
+    version at a ragged L=4 site, element by element and in rms within the
+    int8 limits (fused_spade.int8_chain_agrees)."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import fused_spade as fs
+
+    g = torch.Generator().manual_seed(5)
+    rn = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).cuda()  # noqa: E731
+    B, H, W, C, cs_list = 2, 20, 13, 64, (4, 3, 3, 2)
+    x = rn(B, H, W, C, scale=0.5).to(dtype)
+    ab = torch.cat([1.0 + rn(B, 4, C, scale=0.1), rn(B, 4, C, scale=0.1)], -1)
+    segs = [rn(B, H, W, c).to(dtype) for c in cs_list]
+    wshs = [rn(128, c, 3, 3, scale=(9 * c) ** -0.5) for c in cs_list]
+    bshs = [rn(128, scale=0.1) for _ in cs_list]
+    wgbs = [rn(2 * C, 128, 3, 3, scale=(9 * 128) ** -0.5) for _ in cs_list]
+    bgbs = [rn(2 * C, scale=0.05) for _ in cs_list]
+    args = (x, ab, segs, wshs, bshs, wgbs, bgbs)
+    before = (fs.fused_multispade_modulate.int8_launches,
+              fs.fused_multispade_modulate.absmax_launches)
+    out = fs.fused_multispade_modulate(*args, quantized=True)
+    ref = fs.multispade_modulate_plain_int8(*args)
+    torch.cuda.synchronize()
+    assert (fs.fused_multispade_modulate.int8_launches,
+            fs.fused_multispade_modulate.absmax_launches) == (before[0] + 1, before[1] + 1)
+    ok, ratio, rms = fs.int8_chain_agrees(out, ref)
+    assert ok, (ratio, rms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_conv_matches_plain(dtype):
+    """The int8 3x3 conv kernel against its plain version at a ragged
+    64 -> 128 shape, element by element within INT8_CONV_TOLERANCE."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import fused_spade as fs
+    from shineon_tpu_torch.ops import int8_conv as ic
+
+    g = torch.Generator().manual_seed(6)
+    # leaky_relu(0.2) output, as the clip feeds the conv: both signs
+    x = torch.nn.functional.leaky_relu(torch.randn(4, 20, 13, 64, generator=g), 0.2)
+    x = x.cuda().to(dtype)
+    qw = ic.quantize_weight((torch.randn(128, 64, 3, 3, generator=g) / 24).cuda())
+    b = (0.1 * torch.randn(128, generator=g)).cuda()
+    before = ic.conv3x3_int8.launches
+    out = ic.conv3x3_int8(x, qw, b, dtype)
+    ref = ic.conv3x3_int8_plain(x, qw, b, dtype)
+    torch.cuda.synchronize()
+    assert ic.conv3x3_int8.launches == before + 1
+    assert out.dtype == dtype
+    assert fs.error_ratio(out, ref) <= ic.INT8_CONV_TOLERANCE[dtype]
