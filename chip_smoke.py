@@ -9,25 +9,31 @@ Phases, each fatal on failure:
   2. build the hand-written kernels from csrc/ (one nvcc a source, all at
      once) and print their ptxas reports;
   3. hold each kernel against its plain PyTorch version at every shape the
-     serving clip gives it (the clip's batch), in bf16 and f32, plus a
+     serving clips give it (the clips' batch), in bf16 and f32, plus a
      ragged tile, element by element, and time kernel and plain version on
-     the same bf16 operands: the full-precision chain (3a), the quantized
-     chain with its pre-pass (3b, also held in rms, with two controls that
+     the same bf16 operands: the full-precision chain (3a, at the sites of
+     the clips with and without attention), the quantized chain with its
+     pre-pass (3b, the same sites, also held in rms, with two controls that
      must fail its limits, and timed against the full-precision chain on
-     the same operands) and the int8 3x3 conv (3c, on inputs of both signs,
+     the same operands), the int8 3x3 conv (3c, on inputs of both signs,
      also timed against cuDNN's bf16 conv of the same shape, the conv it
-     replaces);
+     replaces) and SAGAN attention (3d, at flat and peaked score rows, with
+     two controls that must fail at the peaked ones, also timed against
+     scaled_dot_product_attention with scale 1);
   4. check the whole clip on a small input: the kernel path on the card
      against the plain path on the CPU, same weights, f32; then the same
      with int8 serving, printing the int8 clip's distance from the fp one;
+     then the same with attention blocks, every gamma nonzero;
   5. build the serving clip at full width (256x192, 5 frames, widths
      2^6..2^10, batch 4, bf16, random weights from a seed, warmed running
      statistics), run it once with every launch counter at 0, check the
      frames and that every kernel of the path was launched as often as the
      model has sites; then the same for the int8 serving clip
      (int8_spade=True), whose path runs the quantized chain, its pre-pass
-     and the int8 conv; then time the two clips in turns (median of 5 each
-     after a warm-up call).
+     and the int8 conv, and for both clips with attention in the last
+     middle block and decoder block 1 (options.ATTENTION_PLACEMENT), every
+     gamma drawn nonzero before the warm-up; then time the four clips in
+     turns (median of 5 each after a warm-up call).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, and prints no
@@ -45,18 +51,38 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 BATCH = 4  # serving batch of the clip
+FRAME = (256, 192)  # the clip's frame size (H, W)
+DEVICE = "cuda"
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
-SEG_CHANNELS = {1: (8,), 4: (4, 3, 3, 2)}  # encoder / current-frame labels
-# (H, W, C, labels, launches a frame) of every SPADE site of the clip
+ENC, CUR = (8,), (4, 3, 3, 2)  # segmap channels of the encoder / current-frame labels
+# (H, W, C, segmap channels of the site's labels, launches a frame in the
+# clip without attention, in the attention clip) of every SPADE chain site.
+# The attention clip's AttentiveMultiSpade blocks (middle_2 at 16x12,
+# decode_1 at 64x48) run one one-label chain a current-frame label:
+# agnostic (4 channels), cloth and densepose (3), flow (2).
 SITES = (
-    (256, 192, 64, 1, 3), (128, 96, 128, 1, 3), (64, 48, 256, 1, 3), (32, 24, 512, 1, 3),
-    (16, 12, 1024, 4, 6),
-    (32, 24, 1024, 4, 2), (32, 24, 512, 4, 1), (64, 48, 512, 4, 2), (64, 48, 256, 4, 1),
-    (128, 96, 256, 4, 2), (128, 96, 128, 4, 1), (256, 192, 128, 4, 2), (256, 192, 64, 4, 1),
+    (256, 192, 64, ENC, 3, 3), (128, 96, 128, ENC, 3, 3), (64, 48, 256, ENC, 3, 3),
+    (32, 24, 512, ENC, 3, 3),
+    (16, 12, 1024, CUR, 6, 4),
+    (32, 24, 1024, CUR, 2, 2), (32, 24, 512, CUR, 1, 1), (64, 48, 512, CUR, 2, 0),
+    (64, 48, 256, CUR, 1, 0),
+    (128, 96, 256, CUR, 2, 2), (128, 96, 128, CUR, 1, 1), (256, 192, 128, CUR, 2, 2),
+    (256, 192, 64, CUR, 1, 1),
+    (16, 12, 1024, (4,), 0, 2), (16, 12, 1024, (3,), 0, 4), (16, 12, 1024, (2,), 0, 2),
+    (64, 48, 512, (4,), 0, 2), (64, 48, 512, (3,), 0, 4), (64, 48, 512, (2,), 0, 2),
+    (64, 48, 256, (4,), 0, 1), (64, 48, 256, (3,), 0, 2), (64, 48, 256, (2,), 0, 1),
 )
-RAGGED = (20, 13, 64, 4, 0)
+RAGGED = (20, 13, 64, CUR, 0, 0)
+# (N tokens, d, dv, launches a frame of the attention clip) of every SAGAN
+# attention shape: middle_2 (16x12, 4 labels x 1024 channels) twice, decode_1
+# norm_s and spade_0 (64x48, 4 x 512), decode_1 spade_1 (64x48, 4 x 256);
+# then a ragged shape and a tiny one
+ATTENTION_SHAPES = ((192, 512, 4096, 2), (3072, 256, 2048, 2), (3072, 128, 1024, 1),
+                    (260, 64, 512, 0), (12, 16, 64, 0))
+SCORE_STDS = {"flat": 0.3, "peaked": 8.0}  # std of the raw scores q.k
+GAMMA_MEAN, GAMMA_STD = 0.5, 0.1  # the attention gammas the clips are run with
 # (H, W, Cin, Cout, launches a frame) of every int8 3x3 conv of the int8 clip
 CONVS = (
     (256, 192, 64, 64, 2), (256, 192, 64, 128, 1), (256, 192, 128, 64, 1),
@@ -80,9 +106,10 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def chain_inputs(torch, B, H, W, C, L, dtype, seed):
+def chain_inputs(torch, B, H, W, C, seg, dtype, seed):
     """Random chain operands at a site, made on the CPU from a seed."""
     g = torch.Generator().manual_seed(seed)
+    L = len(seg)
 
     def rn(*shape, scale=1.0):
         return torch.randn(shape, generator=g) * scale
@@ -90,7 +117,7 @@ def chain_inputs(torch, B, H, W, C, L, dtype, seed):
     x = rn(B, H, W, C, scale=0.5)
     ab = torch.cat([1.0 + rn(B, L, C, scale=0.1), rn(B, L, C, scale=0.1)], dim=-1)
     segs, wshs, bshs, wgbs, bgbs = [], [], [], [], []
-    for cs in SEG_CHANNELS[L]:
+    for cs in seg:
         segs.append(rn(B, H, W, cs).to(dtype))
         wshs.append(rn(128, cs, 3, 3, scale=(9 * cs) ** -0.5))
         bshs.append(rn(128, scale=0.1))
@@ -106,10 +133,10 @@ def to_device(args, device):
     return out
 
 
-def site_cost(B, H, W, C, L, itemsize):
+def site_cost(B, H, W, C, seg, itemsize):
     """(FLOPs, bytes) the chain needs at a site: both 3x3 convs of every
     label, x read once, y written once, segmaps and weights read once."""
-    cs = sum(SEG_CHANNELS[L])
+    cs, L = sum(seg), len(seg)
     px = B * H * W
     flops = 2 * 9 * px * (cs * 128 + L * 128 * 2 * C)
     nbytes = (2 * px * C + px * cs + 9 * cs * 128 + L * 9 * 128 * 2 * C) * itemsize + 4 * (
@@ -124,12 +151,12 @@ def bound(ops_s, nbytes):
     return 1e3 * max(ops_s, byte_s), "operations" if ops_s >= byte_s else "bytes"
 
 
-def int8_site_bound(B, H, W, C, L):
+def int8_site_bound(B, H, W, C, seg):
     """The quantized chain with its pre-pass at a site, bf16: the hidden conv
     twice (pre-pass and chain) at the bf16 rate, the gamma/beta conv at the
     int8 rate; x, y, segmaps and hidden weights in bf16, gamma/beta weights
     in int8, each moved once."""
-    cs = sum(SEG_CHANNELS[L])
+    cs, L = sum(seg), len(seg)
     px = B * H * W
     hid_flops = 2 * (2 * 9 * px * cs * 128)
     gb_ops = 2 * 9 * px * L * 128 * 2 * C
@@ -161,21 +188,26 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def seg_name(seg):
+    return "enc" if seg == ENC else "cur" if seg == CUR else f"seg{seg[0]}"
+
+
 def time_site(torch, fs, args, site):
     """Kernel and plain version on the same bf16 operands, with the bound."""
-    H, W, C, L, per_frame = site
+    H, W, C, seg, per_frame, per_frame_att = site
     packed = fs.pack_weights(args[3], args[4], args[5], args[6], torch.bfloat16)
     with torch.no_grad():
         k_ms = cuda_ms(torch, lambda: fs.fused_multispade_modulate(*args, packed=packed), 5)
         p_ms = cuda_ms(torch, lambda: fs.multispade_modulate_plain(*args), 5)
-    flops, nbytes = site_cost(BATCH, H, W, C, L, 2)
+    flops, nbytes = site_cost(BATCH, H, W, C, seg, 2)
     bound_ms = 1e3 * max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
     by = "operations" if flops / H100_BF16_FLOPS >= nbytes / H100_BYTES_PER_S else "bytes"
-    log(f"time bf16 B={BATCH} H={H} W={W} C={C} L={L} x{per_frame}/frame: "
+    log(f"time bf16 B={BATCH} H={H} W={W} C={C} {seg_name(seg)} "
+        f"x{per_frame}/{per_frame_att}/frame: "
         f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bound_ms:.4f} ms ({by}) "
         f"kernel {flops / k_ms / 1e9:.2f} TFLOP/s")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
-                per_frame=per_frame, flops=flops)
+                per_frame=per_frame, per_frame_att=per_frame_att, flops=flops)
 
 
 def check_chain_kernel(torch, fs):
@@ -185,9 +217,9 @@ def check_chain_kernel(torch, fs):
     Every case is checked and printed before a failure ends the run."""
     errors, timings, failed = {}, {}, []
     for i, site in enumerate(SITES + (RAGGED,)):
-        H, W, C, L, per_frame = site
+        H, W, C, seg, per_frame, per_frame_att = site
         for dtype in (torch.bfloat16, torch.float32):
-            args = to_device(chain_inputs(torch, BATCH, H, W, C, L, dtype, seed=i), "cuda")
+            args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, dtype, seed=i), DEVICE)
             out = fs.fused_multispade_modulate(*args)
             ref = fs.multispade_modulate_plain(*args)
             torch.cuda.synchronize()
@@ -196,14 +228,14 @@ def check_chain_kernel(torch, fs):
             tol = fs.KERNEL_TOLERANCE[dtype]
             name = str(dtype).split(".")[-1]
             ok = bool(torch.isfinite(out.float()).all()) and ratio <= tol
-            log(f"check {name:8s} B={BATCH} H={H} W={W} C={C} L={L}: "
+            log(f"check {name:8s} B={BATCH} H={H} W={W} C={C} {seg_name(seg)}: "
                 f"max_abs_err={err:.4g} max_ref={ref.float().abs().max().item():.4g} "
                 f"max|d|/(|ref|+rms)={ratio:.3g} (limit {tol:g}) {'ok' if ok else 'FAIL'}")
-            errors[(H, W, C, L, name)] = err
+            errors[(H, W, C, seg, name)] = err
             if not ok:
-                failed.append(f"{(H, W, C, L)} {name}")
-            elif dtype == torch.bfloat16 and per_frame:
-                timings[(H, W, C, L)] = time_site(torch, fs, args, site)
+                failed.append(f"{(H, W, C, seg)} {name}")
+            elif dtype == torch.bfloat16 and (per_frame or per_frame_att):
+                timings[(H, W, C, seg)] = time_site(torch, fs, args, site)
             del args, out, ref
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version at {', '.join(failed)}")
@@ -214,24 +246,25 @@ def int8_timings(torch, fs, args, site):
     """The quantized chain (pre-pass + chain, as the wrapper runs them), its
     pre-pass alone, its plain version and the full-precision chain kernel on
     the same bf16 operands, with the bound."""
-    H, W, C, L, per_frame = site
+    H, W, C, seg, per_frame, per_frame_att = site
     x, ab, segs, wshs, bshs, wgbs, bgbs = args
     packed_q = fs.pack_weights(wshs, bshs, wgbs, bgbs, torch.bfloat16, quantized=True)
     packed = fs.pack_weights(wshs, bshs, wgbs, bgbs, torch.bfloat16)
-    seg = torch.cat(segs, dim=-1).contiguous()
+    seg_cat = torch.cat(segs, dim=-1).contiguous()
     with torch.no_grad():
         k_ms = cuda_ms(torch, lambda: fs.fused_multispade_modulate(
             *args, packed=packed_q, quantized=True), 5)
-        pre_ms = cuda_ms(torch, lambda: fs.hidden_absmax(seg, packed_q), 5)
+        pre_ms = cuda_ms(torch, lambda: fs.hidden_absmax(seg_cat, packed_q), 5)
         p_ms = cuda_ms(torch, lambda: fs.multispade_modulate_plain_int8(*args), 3)
         fp_ms = cuda_ms(torch, lambda: fs.fused_multispade_modulate(*args, packed=packed), 5)
-    bound_ms, by, ops = int8_site_bound(BATCH, H, W, C, L)
-    log(f"time int8 bf16 B={BATCH} H={H} W={W} C={C} L={L} x{per_frame}/frame: "
+    bound_ms, by, ops = int8_site_bound(BATCH, H, W, C, seg)
+    log(f"time int8 bf16 B={BATCH} H={H} W={W} C={C} {seg_name(seg)} "
+        f"x{per_frame}/{per_frame_att}/frame: "
         f"kernel {k_ms:.4f} ms (pre-pass {pre_ms:.4f}) plain {p_ms:.4f} ms "
         f"bound {bound_ms:.4f} ms ({by}) bf16 chain {fp_ms:.4f} ms "
         f"kernel {ops / k_ms / 1e9:.2f} Tops/s")
     return dict(ms=k_ms, prepass_ms=pre_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
-                bf16_chain_ms=fp_ms, per_frame=per_frame, ops=ops)
+                bf16_chain_ms=fp_ms, per_frame=per_frame, per_frame_att=per_frame_att, ops=ops)
 
 
 def check_int8_chain(torch, fs):
@@ -244,9 +277,10 @@ def check_int8_chain(torch, fs):
     their bf16 cast (a planted fault of the int8 stage)."""
     errors, timings, failed = {}, {}, []
     for i, site in enumerate(SITES + (RAGGED,)):
-        H, W, C, L, per_frame = site
+        H, W, C, seg, per_frame, per_frame_att = site
         for dtype in (torch.bfloat16, torch.float32):
-            args = to_device(chain_inputs(torch, BATCH, H, W, C, L, dtype, seed=100 + i), "cuda")
+            args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, dtype, seed=100 + i),
+                             DEVICE)
             x, ab, segs, wshs, bshs, wgbs, bgbs = args
             out = fs.fused_multispade_modulate(*args, quantized=True)
             ref = fs.multispade_modulate_plain_int8(*args)
@@ -261,16 +295,16 @@ def check_int8_chain(torch, fs):
             pl_ok, pl_ratio, pl_rms = fs.int8_chain_agrees(planted, ref)
             name = str(dtype).split(".")[-1]
             good = ok and not fp_ok and not pl_ok
-            log(f"check int8 {name:8s} B={BATCH} H={H} W={W} C={C} L={L}: "
+            log(f"check int8 {name:8s} B={BATCH} H={H} W={W} C={C} {seg_name(seg)}: "
                 f"max_abs_err={err:.4g} max|d|/(|ref|+rms)={ratio:.3g} rms(d)/rms(ref)={rms:.3g} "
                 f"(limits {fs.KERNEL_TOLERANCE[(dtype, 'int8')]:g}, "
                 f"{fs.INT8_RMS_TOLERANCE:g}); must fail: fp chain {fp_ratio:.3g}/{fp_rms:.3g}, "
                 f"bf16-cast weights {pl_ratio:.3g}/{pl_rms:.3g} {'ok' if good else 'FAIL'}")
-            errors[(H, W, C, L, name)] = (err, ratio, rms)
+            errors[(H, W, C, seg, name)] = (err, ratio, rms)
             if not good:
-                failed.append(f"{(H, W, C, L)} {name}")
-            elif dtype == torch.bfloat16 and per_frame:
-                timings[(H, W, C, L)] = int8_timings(torch, fs, args, site)
+                failed.append(f"{(H, W, C, seg)} {name}")
+            elif dtype == torch.bfloat16 and (per_frame or per_frame_att):
+                timings[(H, W, C, seg)] = int8_timings(torch, fs, args, site)
             del args, out, ref, fp, planted
     if failed:
         raise SystemExit(f"quantized chain disagrees with its plain version (or a control "
@@ -289,9 +323,10 @@ def check_int8_conv(torch, ic, fs):
         H, W, cin, cout, per_frame = shape
         g = torch.Generator().manual_seed(200 + i)
         # the clip feeds the conv leaky_relu(0.2) output: both signs
-        x0 = torch.nn.functional.leaky_relu(torch.randn(BATCH, H, W, cin, generator=g), 0.2).cuda()
-        w = (torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5).cuda()
-        b = (0.1 * torch.randn(cout, generator=g)).cuda()
+        x0 = torch.nn.functional.leaky_relu(torch.randn(BATCH, H, W, cin, generator=g), 0.2)
+        x0 = x0.to(DEVICE)
+        w = (torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5).to(DEVICE)
+        b = (0.1 * torch.randn(cout, generator=g)).to(DEVICE)
         qw = ic.quantize_weight(w)
         for dtype in (torch.bfloat16, torch.float32):
             x = x0.to(dtype)
@@ -328,6 +363,118 @@ def check_int8_conv(torch, ic, fs):
     return errors, timings
 
 
+def attention_inputs(torch, N, d, dv, dtype, score_std, seed):
+    """q, k (BATCH, N, d) and v (BATCH, N, dv) on the card from a seed, with
+    raw scores q.k of std about ``score_std``."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    sigma = (score_std / d ** 0.5) ** 0.5
+    rn = lambda *shape: torch.randn(shape, generator=g, device=DEVICE)  # noqa: E731
+    return (sigma * rn(BATCH, N, d)).to(dtype), (sigma * rn(BATCH, N, d)).to(dtype), \
+        rn(BATCH, N, dv).to(dtype)
+
+
+def attention_over_queries(torch, q, k, v):
+    """A control: the plain version with its softmax over the query axis."""
+    attn = torch.softmax(torch.bmm(q.float(), k.float().transpose(1, 2)), dim=1).to(q.dtype)
+    return torch.bmm(attn.float(), v.float()).to(q.dtype)
+
+
+def attention_work(N, d, dv, chunk):
+    """(the operations the function needs, the operations the kernel does:
+    QK^T once per dv chunk) at the clips' batch."""
+    need = 2 * BATCH * N * N * (d + dv)
+    done = 2 * BATCH * N * N * (d * (dv // chunk) + dv)
+    return need, done
+
+
+def check_attention(torch, fa, fs):
+    """Phase 3d: the attention kernel against its plain version at every
+    shape of the attention clip, a ragged one and a tiny one, at the clips'
+    batch, bf16 and f32, at flat and at peaked score rows, element by
+    element (fa.ATTENTION_TOLERANCE). At every peaked case two controls must
+    FAIL the limit, or it could not tell a fault from rounding: the kernel
+    on 1/sqrt(d)-scaled scores (q / sqrt(d), a library's default scale) and
+    the plain version's softmax over the query axis. Each bf16 clip shape
+    is timed against its plain version, its bound and
+    scaled_dot_product_attention with scale 1 (heads a unit dimension)."""
+    F = torch.nn.functional
+    errors, timings, failed = {}, {}, []
+    for i, (N, d, dv, per_frame) in enumerate(ATTENTION_SHAPES):
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            tol = fa.ATTENTION_TOLERANCE[dtype]
+            for rows, std in SCORE_STDS.items():
+                q, k, v = attention_inputs(torch, N, d, dv, dtype, std, seed=300 + i)
+                out = fa.sagan_attention(q, k, v)
+                ref = fa.attention_plain(q, k, v)
+                controls = {}
+                if rows == "peaked":
+                    scaled = fa.sagan_attention((q.float() / d ** 0.5).to(dtype), k, v)
+                    controls = {"1/sqrt(d) scores": fs.error_ratio(scaled, ref),
+                                "query-axis softmax": fs.error_ratio(
+                                    attention_over_queries(torch, q, k, v), ref)}
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                ratio = fs.error_ratio(out, ref)
+                ok = (bool(torch.isfinite(out.float()).all()) and ratio <= tol
+                      and all(c > tol for c in controls.values()))
+                must_fail = ", ".join(f"{c} {r:.3g}" for c, r in controls.items())
+                log(f"check attention {name:8s} B={BATCH} N={N} d={d} dv={dv} {rows}: "
+                    f"max_abs_err={err:.4g} max|d|/(|ref|+rms)={ratio:.3g} (limit {tol:g})"
+                    f"{'; must fail: ' + must_fail if must_fail else ''} "
+                    f"{'ok' if ok else 'FAIL'}")
+                errors[(N, d, dv, name, rows)] = (err, ratio, controls)
+                if not ok:
+                    failed.append(f"{(N, d, dv)} {name} {rows}")
+                elif dtype == torch.bfloat16 and per_frame and rows == "flat":
+                    timings[(N, d, dv)] = time_attention(torch, fa, F, q, k, v, per_frame)
+                del q, k, v, out, ref
+    if failed:
+        raise SystemExit(f"attention kernel disagrees with its plain version (or a control "
+                         f"passes) at {', '.join(failed)}")
+    return errors, timings
+
+
+def time_attention(torch, fa, F, q, k, v, per_frame):
+    """Kernel, plain version and SDPA (scale 1) on the same bf16 operands,
+    with the bound: the operations at the bf16 peak against q, k, v and o
+    moved once."""
+    _, N, d = q.shape
+    dv = v.shape[-1]
+    with torch.no_grad():
+        k_ms = cuda_ms(torch, lambda: fa.sagan_attention(q, k, v), 10)
+        p_ms = cuda_ms(torch, lambda: fa.attention_plain(q, k, v), 3)
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None], scale=1.0), 10)
+    need, done = attention_work(N, d, dv, fa.value_chunk(d, dv))
+    bound_ms, by = bound(need / H100_BF16_FLOPS, BATCH * N * (2 * d + 2 * dv) * 2)
+    log(f"time attention bf16 B={BATCH} N={N} d={d} dv={dv} x{per_frame}/frame: "
+        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms SDPA {lib_ms:.4f} ms "
+        f"bound {bound_ms:.4f} ms ({by}) kernel {need / k_ms / 1e9:.2f} TFLOP/s "
+        f"({done / k_ms / 1e9:.2f} TFLOP/s of the {done / need:.2f}x work it does)")
+    return dict(ms=k_ms, plain_ms=p_ms, sdpa_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                per_frame=per_frame, per_frame_att=per_frame, flops=need, work=done / need)
+
+
+def build_attention_clip(torch, batch, device, seed, **overrides):
+    """build_inference's steps for the attention clip, with one cut: every
+    attention gamma is drawn from N(GAMMA_MEAN, GAMMA_STD) (seeded) before
+    the warm-up rollouts. At its init value 0 an attention block is the
+    identity whatever the kernel computes, so the clip would check nothing."""
+    from shineon_tpu_torch.networks.attention import SelfAttention
+    from shineon_tpu_torch.options import ATTENTION_PLACEMENT
+    from shineon_tpu_torch.serving import build_models, make_one_clip, warm_up
+
+    warp, sams, raw = build_models(batch, device, seed, **{**ATTENTION_PLACEMENT, **overrides})
+    g = torch.Generator().manual_seed(seed + 2)
+    gammas = [m.gamma for m in sams.generator.modules() if isinstance(m, SelfAttention)]
+    with torch.no_grad():
+        for gamma in gammas:
+            gamma.copy_(GAMMA_MEAN + GAMMA_STD * torch.randn(gamma.shape, generator=g))
+    warm_up(sams, raw)
+    return make_one_clip(warp, sams), warp, sams, raw, sams.n_frames_total
+
+
 def check_small_clip(torch):
     """Phase 4: a small f32 clip through the kernels on the card against
     the same weights and batch through the plain versions on the CPU; then
@@ -339,9 +486,16 @@ def check_small_clip(torch):
     sums cascade through the int8 convs and the frames fed back: at these
     random weights a 1e-6 change of one weight tensor moves the whole int8
     clip by a third of its int8-vs-fp distance at this floor, by all of it
-    at the default floor of 64, and its first frame by 0.07 of it here.)"""
+    at the default floor of 64, and its first frame by 0.07 of it here.)
+    Last, the fp clip with attention in the middle block (32x24, 768
+    tokens) and decoder block 0 (64x48, 3072 tokens), every gamma nonzero:
+    its first frame within the fp clip's limit, every frame printed. Its
+    later frames are chaotic at these random weights (peaked attention rows,
+    frames fed back): beside them the CPU clip's own change under a 1e-6
+    relative change of one conv weight (encode_conv_in) is printed."""
     from shineon_tpu_torch.models.sams_model import SamsModel
     from shineon_tpu_torch.models.warp_model import WarpModel
+    from shineon_tpu_torch.ops.fused_attention import sagan_attention
     from shineon_tpu_torch.ops.fused_spade import fused_multispade_modulate as fmm
     from shineon_tpu_torch.ops.int8_conv import conv3x3_int8
     from shineon_tpu_torch.serving import build_inference, make_one_clip
@@ -352,11 +506,14 @@ def check_small_clip(torch):
     small = dict(fine_height=128, fine_width=96, n_frames_total=3, n_frames_now=3,
                  ngf_pow_outer=6, ngf_pow_inner=8, num_middle=1, precision=32)
     refs = {}
-    for int8 in (False, True):
-        opts = dict(int8_spade=True, int8_min_channels=256) if int8 else {}
-        one_clip, warp, sams, raw, _ = build_inference(2, device="cuda", seed=7, **small, **opts)
+    variants = {"fp": {}, "int8": dict(int8_spade=True, int8_min_channels=256),
+                "attention": dict(attention_decoder_indices=("0",))}
+    for variant, opts in variants.items():
+        build = build_attention_clip if variant == "attention" else (
+            lambda torch, *a, **kw: build_inference(*a, **kw))
+        one_clip, warp, sams, raw, _ = build(torch, 2, device=DEVICE, seed=7, **small, **opts)
         count = lambda: (fmm.launches, fmm.int8_launches, fmm.absmax_launches,  # noqa: E731
-                         conv3x3_int8.launches)
+                         conv3x3_int8.launches, sagan_attention.launches)
         before = count()
         out = one_clip(raw).cpu()
         launched = [a - b for a, b in zip(count(), before)]
@@ -364,17 +521,29 @@ def check_small_clip(torch):
         cpu_sams.generator.load_state_dict(sams.generator.state_dict())
         cpu_warp.gmm.load_state_dict(warp.gmm.state_dict())
         ref = make_one_clip(cpu_warp, cpu_sams)({k: v.cpu() for k, v in raw.items()})
-        refs[int8] = ref
+        refs[variant] = ref
         err = rel(out, ref)
         finite = bool(torch.isfinite(out).all())
-        if not int8:
-            ok = launched[0] > 0 and finite and err <= 1e-3
-            log(f"small clip f32 (2, 3, 128, 96): card vs CPU plain max rel err {err:.3g}, "
-                f"{launched[0]} kernel launches {'ok' if ok else 'FAIL'}")
+        if variant != "int8":
+            frames = [rel(out[:, i], ref[:, i]) for i in range(out.shape[1])]
+            held = frames[0] if variant == "attention" else err
+            ok = launched[0] > 0 and finite and held <= 1e-3
+            ok = ok and (launched[4] > 0) == (variant == "attention")
+            shifts = ""
+            if variant == "attention":
+                with torch.no_grad():
+                    cpu_sams.generator.encode_conv_in.weight.mul_(1 + 1e-6)
+                moved = make_one_clip(cpu_warp, cpu_sams)({k: v.cpu() for k, v in raw.items()})
+                shifts = (", CPU clip moved by a 1e-6 weight change: frames " + ", ".join(
+                    f"{rel(moved[:, i], ref[:, i]):.3g}" for i in range(ref.shape[1])))
+            log(f"small clip f32 {variant} (2, 3, 128, 96): card vs CPU plain max rel err "
+                f"{err:.3g} (frames {', '.join(f'{e:.3g}' for e in frames)}{shifts}), "
+                f"{launched[0]} chain and {launched[4]} attention launches "
+                f"{'ok' if ok else 'FAIL'}")
         else:
-            gap, err1 = rel(refs[True], refs[False]), rel(out[:, 0], ref[:, 0])
-            gap1 = rel(refs[True][:, 0], refs[False][:, 0])
-            ok = (launched[0] == 0 and min(launched[1:]) > 0 and finite
+            gap, err1 = rel(refs["int8"], refs["fp"]), rel(out[:, 0], ref[:, 0])
+            gap1 = rel(refs["int8"][:, 0], refs["fp"][:, 0])
+            ok = (launched[0] == 0 and min(launched[1:4]) > 0 and launched[4] == 0 and finite
                   and err1 < 0.25 * gap1)
             log(f"small clip f32 int8 (2, 3, 128, 96): card vs CPU plain max rel err "
                 f"{err:.3g} (first frame {err1:.3g}), CPU int8 vs fp {gap:.3g} (first frame "
@@ -384,20 +553,21 @@ def check_small_clip(torch):
             raise SystemExit("small clip on the card disagrees with the CPU plain path")
 
 
-def run_clip(torch, build_inference, counters, expected, **opts):
-    """Phase 5: build the full-width clip, run it once with every launch
-    count at 0, check frames and launches. Returns the clip (a function of
-    no argument), the launches, the frames and the number of convs the
-    built generator runs in int8."""
+def run_clip(torch, label, build, counters, expected):
+    """Phase 5: build the full-width clip (``build()`` returns what
+    build_inference does), run it once with every launch count at 0, check
+    frames and launches. Returns the clip (a function of no argument), the
+    launches, the frames and the number of convs the built generator runs
+    in int8."""
     from shineon_tpu_torch.networks.layers import Conv2d
     from shineon_tpu_torch.networks.normalization import SpectralConv2d
 
     t0 = time.perf_counter()
-    one_clip, warp, sams, raw, n_frames = build_inference(batch_size=BATCH, **opts)
+    one_clip, warp, sams, raw, n_frames = build()
     int8_convs = sum(1 for m in sams.generator.modules()
                      if isinstance(m, (Conv2d, SpectralConv2d)) and m.int8)
     torch.cuda.synchronize()
-    log(f"clip {opts or ''} built and warmed (3 rollouts): {time.perf_counter() - t0:.1f} s")
+    log(f"clip {label} built and warmed (3 rollouts): {time.perf_counter() - t0:.1f} s")
     one_clip(raw)  # warm-up call
     torch.cuda.synchronize()
     for owner, attr in counters.values():
@@ -405,14 +575,14 @@ def run_clip(torch, build_inference, counters, expected, **opts):
     frames = one_clip(raw)
     torch.cuda.synchronize()
     launches = {name: getattr(owner, attr) for name, (owner, attr) in counters.items()}
-    shape = (BATCH, n_frames, 256, 192, 3)
+    shape = (BATCH, n_frames) + FRAME + (3,)
     finite = bool(torch.isfinite(frames.float()).all())
     want = {name: n_frames * per_frame for name, per_frame in expected.items()}
-    log(f"clip {opts or ''}: frames {tuple(frames.shape)} {frames.dtype} finite={finite} "
+    log(f"clip {label}: frames {tuple(frames.shape)} {frames.dtype} finite={finite} "
         f"max|frame|={frames.float().abs().max().item():.4g} launches {launches} "
         f"(expected {want})")
     if tuple(frames.shape) != shape or not finite or launches != want:
-        raise SystemExit(f"serving clip {opts or ''} failed its checks")
+        raise SystemExit(f"serving clip {label} failed its checks")
     return (lambda: one_clip(raw)), launches, n_frames, int8_convs
 
 
@@ -442,6 +612,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(repo))
     from shineon_tpu_torch.ops import cuda_build
+    from shineon_tpu_torch.ops import fused_attention as fa
     from shineon_tpu_torch.ops import fused_spade as fs
     from shineon_tpu_torch.ops import int8_conv as ic
     from shineon_tpu_torch.serving import build_inference
@@ -455,7 +626,7 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    sources = (fs.KERNEL_SOURCE, ic.KERNEL_SOURCE)
+    sources = (fs.KERNEL_SOURCE, ic.KERNEL_SOURCE, fa.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         reports = list(pool.map(cuda_build.build, sources))
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(sources)} in parallel)")
@@ -467,59 +638,81 @@ def main() -> int:
     errors, timings = check_chain_kernel(torch, fs)
     q_errors, q_timings = check_int8_chain(torch, fs)
     c_errors, c_timings = check_int8_conv(torch, ic, fs)
+    a_errors, a_timings = check_attention(torch, fa, fs)
     check_small_clip(torch)
 
-    fmm = fs.fused_multispade_modulate
+    fmm, att = fs.fused_multispade_modulate, fa.sagan_attention
     n_sites = sum(site[4] for site in SITES)
+    n_att_sites = sum(site[5] for site in SITES)
     n_convs = sum(shape[4] for shape in CONVS)
+    n_att = sum(shape[3] for shape in ATTENTION_SHAPES)
+    fp_counters = {"fused_multispade": (fmm, "launches"), "sagan_attention": (att, "launches")}
+    q_counters = {**fp_counters, "fused_multispade_int8": (fmm, "int8_launches"),
+                  "multispade_hidden_absmax": (fmm, "absmax_launches"),
+                  "int8_conv3x3": (ic.conv3x3_int8, "launches")}
+    q_expected = {"fused_multispade": 0, "fused_multispade_int8": n_sites,
+                  "multispade_hidden_absmax": n_sites, "int8_conv3x3": n_convs}
     clip, launches, n_frames, _ = run_clip(
-        torch, build_inference, {"fused_multispade": (fmm, "launches")},
-        {"fused_multispade": n_sites})
+        torch, "bf16", lambda: build_inference(BATCH), fp_counters,
+        {"fused_multispade": n_sites, "sagan_attention": 0})
     q_clip, q_launches, _, built = run_clip(
-        torch, build_inference,
-        {"fused_multispade": (fmm, "launches"), "fused_multispade_int8": (fmm, "int8_launches"),
-         "multispade_hidden_absmax": (fmm, "absmax_launches"),
-         "int8_conv3x3": (ic.conv3x3_int8, "launches")},
-        {"fused_multispade": 0, "fused_multispade_int8": n_sites,
-         "multispade_hidden_absmax": n_sites, "int8_conv3x3": n_convs},
-        int8_spade=True)
-    times = time_clips(torch, {"bf16": clip, "int8": q_clip})
+        torch, "int8", lambda: build_inference(BATCH, int8_spade=True), q_counters,
+        {**q_expected, "sagan_attention": 0})
+    a_clip, a_launches, _, _ = run_clip(
+        torch, "bf16 attention", lambda: build_attention_clip(torch, BATCH, DEVICE, 420),
+        fp_counters, {"fused_multispade": n_att_sites, "sagan_attention": n_att})
+    qa_clip, qa_launches, _, a_built = run_clip(
+        torch, "int8 attention",
+        lambda: build_attention_clip(torch, BATCH, DEVICE, 420, int8_spade=True), q_counters,
+        {**q_expected, "fused_multispade_int8": n_att_sites,
+         "multispade_hidden_absmax": n_att_sites, "sagan_attention": n_att})
+    times = time_clips(torch, {"bf16": clip, "int8": q_clip, "bf16 attention": a_clip,
+                               "int8 attention": qa_clip})
     for name, (ms, samples) in times.items():
         log(f"clip {name} time: median {ms:.1f} ms of {[round(v, 1) for v in samples]} ms, "
             f"{BATCH * n_frames / ms * 1e3:.2f} frames/s, batch {BATCH} x {n_frames} frames, "
             f"timed in turns [{card}]")
-    med, q_med = times["bf16"][0] / 1e3, times["int8"][0] / 1e3
+    med = {name: ms for name, (ms, _) in times.items()}
 
-    # the int8 model's own count of int8 convs, against the list above
-    log(f"int8 convs in the built generator: {built} (expected {n_convs} a frame)")
-    if built != n_convs:
-        raise SystemExit("the int8 generator's conv count disagrees with the conv list")
+    # the int8 models' own count of int8 convs, against the list above
+    log(f"int8 convs in the built generators: {built}, with attention {a_built} "
+        f"(expected {n_convs} a frame)")
+    if built != n_convs or a_built != n_convs:
+        raise SystemExit("an int8 generator's conv count disagrees with the conv list")
 
-    def per_clip(tim):
-        return (sum(t["ms"] * t["per_frame"] * n_frames for t in tim.values()),
-                sum(t["bound_ms"] * t["per_frame"] * n_frames for t in tim.values()))
+    def per_clip(tim, key="per_frame"):
+        return (sum(t["ms"] * t[key] * n_frames for t in tim.values()),
+                sum(t["bound_ms"] * t[key] * n_frames for t in tim.values()))
 
     for name, tim in (("fused_multispade", timings), ("fused_multispade_int8", q_timings),
                       ("int8_conv3x3", c_timings)):
         k, b = per_clip(tim)
         log(f"{name} per clip from the shape timings: {k:.1f} ms, bound {b:.2f} ms")
+    for name, tim in (("fused_multispade", timings), ("fused_multispade_int8", q_timings),
+                      ("sagan_attention", a_timings)):
+        k, b = per_clip(tim, "per_frame_att")
+        log(f"{name} per attention clip from the shape timings: {k:.1f} ms, bound {b:.2f} ms")
     cudnn_clip = sum(t["cudnn_bf16_ms"] * t["per_frame"] * n_frames for t in c_timings.values())
     log(f"cuDNN bf16 conv at the same shapes per clip: {cudnn_clip:.1f} ms")
-    log(f"clip latency bf16 {med * 1e3:.1f} ms, int8 {q_med * 1e3:.1f} ms "
-        f"({BATCH * n_frames / med:.2f} vs {BATCH * n_frames / q_med:.2f} frames/s) [{card}]")
+    sdpa_clip = sum(t["sdpa_ms"] * t["per_frame"] * n_frames for t in a_timings.values())
+    log(f"SDPA (scale 1) at the same shapes per attention clip: {sdpa_clip:.1f} ms")
+    log("clip latency " + ", ".join(f"{name} {ms:.1f} ms" for name, ms in med.items())
+        + f" [{card}]")
 
     top = max(timings, key=lambda k: timings[k]["flops"])
     q_top = max(q_timings, key=lambda k: q_timings[k]["ops"])
     c_top = max(c_timings, key=lambda k: c_timings[k]["ops"])
-    t, qt, ct = timings[top], q_timings[q_top], c_timings[c_top]
-    site = lambda k: {"B": BATCH, "H": k[0], "W": k[1], "C": k[2], "L": k[3],  # noqa: E731
-                      "dtype": "bfloat16"}
+    a_top = max(a_timings, key=lambda k: a_timings[k]["flops"])
+    t, qt, ct, at = timings[top], q_timings[q_top], c_timings[c_top], a_timings[a_top]
+    site = lambda k: {"B": BATCH, "H": k[0], "W": k[1], "C": k[2],  # noqa: E731
+                      "seg_channels": list(k[3]), "dtype": "bfloat16"}
     kernels = [{
         "name": "fused_multispade",
         "route": "cuda",
         "source": "shineon_tpu_torch/csrc/fused_multispade.cu",
         "replaces": "shineon_tpu/ops/fused_spade.py:212",
         "launches": launches["fused_multispade"],
+        "attention_clip_launches": a_launches["fused_multispade"],
         "max_abs_err": errors[top + ("bfloat16",)],
         "max_abs_err_f32": errors[top + ("float32",)],
         "ms": t["ms"],
@@ -528,7 +721,7 @@ def main() -> int:
         "bound_by": t["bound_by"],
         "library_ms": None,
         "site": site(top),
-        "clip_ms": med * 1e3,
+        "clip_ms": med["bf16"],
         "clip_kernel_ms": per_clip(timings)[0],
     }, {
         "name": "fused_multispade_int8",
@@ -537,6 +730,7 @@ def main() -> int:
         "replaces": "shineon_tpu/ops/fused_spade.py:212 (quant=True)",
         "launches": q_launches["fused_multispade_int8"],
         "prepass_launches": q_launches["multispade_hidden_absmax"],
+        "attention_clip_launches": qa_launches["fused_multispade_int8"],
         "max_abs_err": q_errors[q_top + ("bfloat16",)][0],
         "max_abs_err_f32": q_errors[q_top + ("float32",)][0],
         "ms": qt["ms"],
@@ -547,7 +741,7 @@ def main() -> int:
         "library_ms": None,
         "bf16_chain_ms": qt["bf16_chain_ms"],
         "site": site(q_top),
-        "clip_ms": q_med * 1e3,
+        "clip_ms": med["int8"],
         "clip_kernel_ms": per_clip(q_timings)[0],
     }, {
         "name": "int8_conv3x3",
@@ -555,6 +749,7 @@ def main() -> int:
         "source": "shineon_tpu_torch/csrc/int8_conv3x3.cu",
         "replaces": "tools/pallas_conv_probe.py:282",
         "launches": q_launches["int8_conv3x3"],
+        "attention_clip_launches": qa_launches["int8_conv3x3"],
         "max_abs_err": c_errors[c_top + ("bfloat16",)],
         "max_abs_err_f32": c_errors[c_top + ("float32",)],
         "ms": ct["ms"],
@@ -565,8 +760,26 @@ def main() -> int:
         "cudnn_bf16_ms": ct["cudnn_bf16_ms"],
         "site": {"B": BATCH, "H": c_top[0], "W": c_top[1], "Cin": c_top[2], "Cout": c_top[3],
                  "dtype": "bfloat16"},
-        "clip_ms": q_med * 1e3,
+        "clip_ms": med["int8"],
         "clip_kernel_ms": per_clip(c_timings)[0],
+    }, {
+        "name": "sagan_attention",
+        "route": "cuda",
+        "source": "shineon_tpu_torch/csrc/sagan_attention.cu",
+        "replaces": "shineon_tpu/ops/fused_attention.py:58",
+        "launches": a_launches["sagan_attention"],
+        "int8_clip_launches": qa_launches["sagan_attention"],
+        "max_abs_err": max(a_errors[a_top + ("bfloat16", rows)][0] for rows in SCORE_STDS),
+        "max_abs_err_f32": max(a_errors[a_top + ("float32", rows)][0] for rows in SCORE_STDS),
+        "ms": at["ms"],
+        "plain_ms": at["plain_ms"],
+        "bound_ms": at["bound_ms"],
+        "bound_by": at["bound_by"],
+        "library_ms": at["sdpa_ms"],
+        "shape": {"B": BATCH, "N": a_top[0], "d": a_top[1], "dv": a_top[2],
+                  "dtype": "bfloat16"},
+        "clip_ms": med["bf16 attention"],
+        "clip_kernel_ms": per_clip(a_timings)[0],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,7 @@ import torch
 _LEAF = {
     "kernel": "weight", "scale": "weight", "bias": "bias",
     "mean": "running_mean", "var": "running_var", "u": "u", "sigma": "sigma",
+    "gamma": "gamma",  # SelfAttention's residual weight
 }
 # scope renames per network: (pattern, replacement) on whole path components
 GENERATOR_RENAMES = ((r"SyncBatchNorm_0", "norm"),)

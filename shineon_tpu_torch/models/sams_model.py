@@ -14,7 +14,9 @@ import torch
 
 from shineon_tpu_torch.datasets.channels import RGB_CHANNELS, channels_for
 from shineon_tpu_torch.datasets.preprocess import PreprocessConfig, preprocess_batch
-from shineon_tpu_torch.networks.init import lecun_normal_
+from shineon_tpu_torch.networks.attention import INIT_STD as attention_init_std
+from shineon_tpu_torch.networks.attention import SelfAttention
+from shineon_tpu_torch.networks.init import lecun_normal_, normal_
 from shineon_tpu_torch.networks.layers import Conv2d
 from shineon_tpu_torch.networks.normalization import SpectralConv2d
 from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator
@@ -49,11 +51,22 @@ class SamsModel:
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
-        """flax's defaults: lecun-normal kernels, zero biases, spectral
-        ``u`` ~ N(0, 1). Drawn on the CPU, then copied to the device."""
-        for m in self.generator.modules():
+        """The JAX package's rules: flax's defaults (lecun-normal kernels,
+        zero biases, spectral ``u`` ~ N(0, 1)), except the attention blocks'
+        1x1 convs, N(0, 0.02), and their gamma, 0. Drawn on the CPU, then
+        copied to the device."""
+        attention_convs = set()
+        for m in self.generator.modules():  # a block comes before its convs
+            if isinstance(m, SelfAttention):
+                attention_convs.update(m.convs())
+                m.gamma.zero_()
             if isinstance(m, (Conv2d, SpectralConv2d)):
-                m.weight.copy_(lecun_normal_(torch.empty(m.weight.shape), generator))
+                w = torch.empty(m.weight.shape)
+                if m in attention_convs:
+                    normal_(w, attention_init_std, generator)
+                else:
+                    lecun_normal_(w, generator)
+                m.weight.copy_(w)
                 if m.bias is not None:
                     m.bias.zero_()
             if isinstance(m, SpectralConv2d):

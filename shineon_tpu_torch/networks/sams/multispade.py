@@ -45,6 +45,28 @@ class MultiSpade(nn.Module):
     def spades(self):
         return [getattr(self, f"spade_{key}") for key in self.keys]
 
+    def shared_hiddens(self, x, labelmaps: Dict[str, torch.Tensor]):
+        """Training: every label's hidden map from ONE block-diagonal conv
+        (they depend only on the segmaps; zero blocks add exact zeros), or
+        None a label where that does not apply."""
+        spades = self.spades()
+        if self.ks != 3 or len(spades) == 1:
+            return [None] * len(spades)
+        segs = [resize_nearest(labelmaps[k], x.shape[-3], x.shape[-2]).to(x.dtype)
+                for k in self.keys]
+        cs = [s.shape[-1] for s in segs]
+        total, off, blocks = sum(cs), 0, []
+        for s, c in zip(spades, cs):
+            blocks.append(F.pad(s.mlp_shared.weight, (0, 0, 0, 0, off, total - off - c)))
+            off += c
+        w_bd = torch.cat(blocks, dim=0)
+        b_cat = torch.cat([s.mlp_shared.bias for s in spades])
+        h_all = get_activation_fn(self.activation)(conv2d_nhwc(
+            torch.cat(segs, dim=-1), w_bd, b_cat, compute_dtype(self.dtype), padding=1,
+        ))
+        nh = spades[0].mlp_shared.weight.shape[0]
+        return [h_all[..., i * nh:(i + 1) * nh] for i in range(len(spades))]
+
     def forward(self, x, labelmaps: Dict[str, torch.Tensor], train: bool = True):
         spades = self.spades()
         if not train and self.ks == 3:
@@ -54,24 +76,6 @@ class MultiSpade(nn.Module):
                 return x
             return fused_chain(spades, x, [labelmaps[k] for k in self.keys])
 
-        hiddens = [None] * len(spades)
-        if self.ks == 3 and len(spades) > 1:
-            # the hidden maps depend only on the segmaps: one block-diagonal
-            # conv computes every label's (zero blocks add exact zeros)
-            segs = [resize_nearest(labelmaps[k], x.shape[-3], x.shape[-2]).to(x.dtype)
-                    for k in self.keys]
-            cs = [s.shape[-1] for s in segs]
-            total, off, blocks = sum(cs), 0, []
-            for s, c in zip(spades, cs):
-                blocks.append(F.pad(s.mlp_shared.weight, (0, 0, 0, 0, off, total - off - c)))
-                off += c
-            w_bd = torch.cat(blocks, dim=0)
-            b_cat = torch.cat([s.mlp_shared.bias for s in spades])
-            h_all = get_activation_fn(self.activation)(conv2d_nhwc(
-                torch.cat(segs, dim=-1), w_bd, b_cat, compute_dtype(self.dtype), padding=1,
-            ))
-            nh = spades[0].mlp_shared.weight.shape[0]
-            hiddens = [h_all[..., i * nh:(i + 1) * nh] for i in range(len(spades))]
-        for spade, key, h in zip(spades, self.keys, hiddens):
+        for spade, key, h in zip(spades, self.keys, self.shared_hiddens(x, labelmaps)):
             x = spade(x, labelmaps[key], train=train, hidden=h)
         return x

@@ -8,7 +8,10 @@ dict) -> decoder (2x nearest upsample + MultiSpade blocks) -> conv to RGB
 ``int8`` the generator serves int8 at eval: quantized SPADE chains, and the
 int8 conv wherever :func:`int8_conv_profitable` admits a 3x3 conv (the
 resblock convs, and ``encode_conv_in``/``decode_conv_out`` when their
-channel counts pass). The attention variants are not ported yet.
+channel counts pass). Blocks named by ``attention_middle_indices`` /
+``attention_decoder_indices`` (string indices, negative ones from the end)
+take AttentiveMultiSpade instead of MultiSpade, and so does
+``decode_extra`` whenever decoder indices are given.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from torch import nn
 
 from shineon_tpu_torch.datasets.channels import MASK_CHANNELS, RGB_CHANNELS, channels_for
 from shineon_tpu_torch.networks.layers import Conv2d
+from shineon_tpu_torch.networks.sams.attentive_multispade import AttentiveMultiSpade
 from shineon_tpu_torch.networks.sams.multispade import MultiSpade
 from shineon_tpu_torch.networks.sams.spade import (
     SPADE,
@@ -40,6 +44,16 @@ def resize_nearest_scale(x: torch.Tensor, scale: float) -> torch.Tensor:
     raise ValueError(f"unsupported nearest scale {scale}")
 
 
+def choose_spade(attn_indices: Sequence[str], i: int, total_layers: int):
+    """The SPADE class of block ``i`` of ``total_layers``: AttentiveMultiSpade
+    where ``attn_indices`` names it by a positive or negative string index
+    (reference sams_generator.py:311-317), else MultiSpade."""
+    indices = [str(s) for s in attn_indices]
+    if str(i) in indices or str(i - total_layers) in indices:
+        return AttentiveMultiSpade
+    return MultiSpade
+
+
 class SamsGenerator(nn.Module):
     """See module docstring; arguments mirror the JAX module's fields."""
 
@@ -53,8 +67,6 @@ class SamsGenerator(nn.Module):
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
                  int8_min_channels: int = 64):
         super().__init__()
-        if attention_middle_indices or attention_decoder_indices:
-            raise NotImplementedError("attention SAMS blocks are not ported yet")
         self.n_frames_total, self.dtype = n_frames_total, dtype
         self.num_prev = max(n_frames_total - 1, 1)
         self.enc_ch = channels_for(encoder_input)
@@ -70,9 +82,9 @@ class SamsGenerator(nn.Module):
             return SPADE(c, enc_label_nc, config_text=spade_config,
                          activation=activation, dtype=dtype, int8=int8)
 
-        def cur_spade(c):
-            return MultiSpade(c, labels, config_text=spade_config,
-                              activation=activation, dtype=dtype, int8=int8)
+        def cur_spade(cls):
+            return lambda c: cls(c, labels, config_text=spade_config,
+                                 activation=activation, dtype=dtype, int8=int8)
 
         block = partial(AnySpadeResBlock, norm_G=norm_G, activation=activation, dtype=dtype,
                         int8=int8, int8_min_channels=int8_min_channels)
@@ -95,19 +107,23 @@ class SamsGenerator(nn.Module):
 
         self.middle = []
         for i in range(num_middle):
+            cls = choose_spade(attention_middle_indices, i, num_middle)
             self.middle.append(f"middle_{i}")
-            self.add_module(f"middle_{i}", block(ngf_inner, ngf_inner, make_spade=cur_spade))
+            self.add_module(f"middle_{i}", block(ngf_inner, ngf_inner, make_spade=cur_spade(cls)))
 
         self.decoder = []
         out_feat = ngf_inner
-        for i, pow_ in enumerate(range(ngf_pow_inner, ngf_pow_outer, -ngf_pow_step)):
+        dec_pows = list(range(ngf_pow_inner, ngf_pow_outer, -ngf_pow_step))
+        for i, pow_ in enumerate(dec_pows):
             in_feat = int(ngf_base ** pow_)
             out_feat = int(ngf_base ** (pow_ - ngf_pow_step))
+            cls = choose_spade(attention_decoder_indices, i, len(dec_pows))
             self.decoder.append(f"decode_{i}")
-            self.add_module(f"decode_{i}", block(in_feat, out_feat, make_spade=cur_spade))
+            self.add_module(f"decode_{i}", block(in_feat, out_feat, make_spade=cur_spade(cls)))
         if out_feat != ngf_outer:
+            cls = AttentiveMultiSpade if attention_decoder_indices else MultiSpade
             self.decoder.append("decode_extra")
-            self.decode_extra = block(out_feat, ngf_outer, make_spade=cur_spade)
+            self.decode_extra = block(out_feat, ngf_outer, make_spade=cur_spade(cls))
         self.decode_conv_out = conv3x3(ngf_outer, out_channels)
 
     def forward(self, prev_n_frames: Optional[torch.Tensor],

@@ -24,6 +24,12 @@ _SAMS_DEFAULTS = dict(
 )
 
 
+# The attention serving clip's placement: the last middle block (16x12 at
+# the production size, the JAX package's own generator test's placement)
+# and decoder block 1 (64x48, 3072 tokens)
+ATTENTION_PLACEMENT = dict(attention_middle_indices=("-1",), attention_decoder_indices=("1",))
+
+
 def sams_options(**overrides) -> argparse.Namespace:
     """The SAMS generator's options; keyword arguments override defaults."""
     unknown = set(overrides) - set(_SAMS_DEFAULTS)

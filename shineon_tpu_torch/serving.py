@@ -89,16 +89,13 @@ def warm_up(sams: SamsModel, batch: Dict[str, torch.Tensor], rollouts: int = WAR
         sams.generate_n_frames(feats, train=True)
 
 
-def build_inference(batch_size: int, device="cuda", seed: int = 420, **overrides):
-    """Build the serving clip at the production options (``overrides``
-    replace any of them, e.g. a smaller fine size or depth, or
-    ``int8_spade=True``).
-
-    Weights are drawn from ``torch.Generator`` seeds (``seed`` for SAMS,
-    ``seed + 1`` for the GMM) with the JAX package's init rules, then the
-    running statistics are warmed. Runs on the card unless ``device`` says
-    otherwise. Returns (one_clip, warp, sams, raw_batch, n_frames).
-    """
+def build_models(batch_size: int, device="cuda", seed: int = 420, **overrides):
+    """The serving clip's models at the production options (``overrides``
+    replace any of them, e.g. a smaller fine size or depth, ``int8_spade=True``
+    or attention placements), with weights drawn from ``torch.Generator``
+    seeds (``seed`` for SAMS, ``seed + 1`` for the GMM) by the JAX package's
+    init rules, and a raw batch; not yet warmed. Runs on the card unless
+    ``device`` says otherwise. Returns (warp, sams, raw_batch)."""
     device = resolve_device(device)
     sams_opt = sams_options(batch_size=batch_size, **overrides)
     warp_opt = warp_options(batch_size=batch_size, **overrides)
@@ -106,6 +103,13 @@ def build_inference(batch_size: int, device="cuda", seed: int = 420, **overrides
     warp = WarpModel(warp_opt, device)
     sams.init_weights(torch.Generator().manual_seed(seed))
     warp.init_weights(torch.Generator().manual_seed(seed + 1))
-    raw = synthetic_raw_batch(sams_opt, batch_size, device=device)
+    return warp, sams, synthetic_raw_batch(sams_opt, batch_size, device=device)
+
+
+def build_inference(batch_size: int, device="cuda", seed: int = 420, **overrides):
+    """Build the serving clip (arguments as :func:`build_models`) and warm
+    its running statistics. Returns (one_clip, warp, sams, raw_batch,
+    n_frames)."""
+    warp, sams, raw = build_models(batch_size, device, seed, **overrides)
     warm_up(sams, raw)
-    return make_one_clip(warp, sams), warp, sams, raw, sams_opt.n_frames_total
+    return make_one_clip(warp, sams), warp, sams, raw, sams.n_frames_total

@@ -1,8 +1,8 @@
-"""Card-only tests of the port's serving path, bf16 and int8. They import
-neither JAX nor the JAX package, so they also run where only PyTorch is
-installed:
+"""Card-only tests of the port's serving path, bf16 and int8, with and
+without attention. They import neither JAX nor the JAX package, so they also
+run where only PyTorch is installed:
 
-    python -m pytest tests/test_torch_fused_spade.py tests/test_torch_cuda.py -m gpu -q
+    python -m pytest tests/test_torch_cuda.py -m gpu -q
 
 Without a CUDA device they skip."""
 
@@ -124,3 +124,69 @@ def test_cuda_int8_conv_matches_plain(dtype):
     assert ic.conv3x3_int8.launches == before + 1
     assert out.dtype == dtype
     assert fs.error_ratio(out, ref) <= ic.INT8_CONV_TOLERANCE[dtype]
+
+
+# the same small clip with attention in its middle block (64x48 tokens, 4 x
+# 128 channels) and decoder block 0 (128x96 tokens; 4 x 128 and 4 x 64):
+# 5 attention launches a frame, and one one-label chain a label at each
+# attentive site (3 encoder sites + 4 x (2 + 3) = 23 a frame)
+ATTENTION = dict(attention_middle_indices=("-1",), attention_decoder_indices=("0",))
+ATTENTION_PER_FRAME, ATTENTION_CHAINS_PER_FRAME = 5, 23
+
+
+@pytest.mark.gpu
+def test_build_inference_cuda_attention_launches_every_kernel():
+    """On the card a small bf16 attention clip launches the attention kernel
+    at every attention block and the chain kernel at every SPADE site."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops.fused_attention import sagan_attention
+    from shineon_tpu_torch.ops.fused_spade import fused_multispade_modulate as fmm
+    from shineon_tpu_torch.serving import build_inference
+
+    one_clip, warp, sams, raw, n_frames = build_inference(2, **SMALL, **ATTENTION)
+    before = (fmm.launches, sagan_attention.launches)
+    frames = one_clip(raw)
+    torch.cuda.synchronize()
+    assert frames.shape == (2, n_frames, 128, 96, 3)
+    assert torch.isfinite(frames.float()).all()
+    assert (fmm.launches - before[0], sagan_attention.launches - before[1]) == (
+        n_frames * ATTENTION_CHAINS_PER_FRAME, n_frames * ATTENTION_PER_FRAME)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_matches_plain(dtype):
+    """The attention kernel against its plain version at a ragged shape
+    (N = 260, d = 64, dv = 512) with peaked score rows, element by element
+    within ATTENTION_TOLERANCE; the kernel on 1/sqrt(d)-scaled scores fails
+    that limit."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import fused_attention as fa
+    from shineon_tpu_torch.ops import fused_spade as fs
+
+    g = torch.Generator().manual_seed(7)
+    sigma = (8.0 / 64 ** 0.5) ** 0.5  # raw scores of std about 8
+    q, k = ((sigma * torch.randn(2, 260, 64, generator=g)).cuda().to(dtype) for _ in range(2))
+    v = torch.randn(2, 260, 512, generator=g).cuda().to(dtype)
+    before = fa.sagan_attention.launches
+    out = fa.sagan_attention(q, k, v)
+    ref = fa.attention_plain(q, k, v)
+    scaled = fa.sagan_attention((q.float() / 8.0).to(dtype), k, v)
+    torch.cuda.synchronize()
+    assert fa.sagan_attention.launches == before + 2
+    assert out.dtype == dtype
+    tol = fa.ATTENTION_TOLERANCE[dtype]
+    assert fs.error_ratio(out, ref) <= tol
+    assert fs.error_ratio(scaled, ref) > tol
+
+
+@pytest.mark.gpu
+def test_cuda_attention_value_chunk():
+    """The dv chunk the attention kernel takes (each chunk recomputes the
+    scores): 256 where dv and shared memory allow, else 128, else 64."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops.fused_attention import value_chunk
+
+    assert [value_chunk(256, 2048), value_chunk(128, 1024), value_chunk(496, 4096)] == [256] * 3
+    assert value_chunk(512, 4096) == 128  # 256-wide V tiles overflow shared memory
+    assert (value_chunk(64, 384), value_chunk(16, 64)) == (128, 64)

@@ -8,6 +8,7 @@ raw batch. The JAX side takes the fused chain at every SPADE site
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from __graft_entry__ import _raw_batch, _sams_opt
@@ -19,10 +20,15 @@ from shineon_tpu_torch.models.sams_model import SamsModel
 from shineon_tpu_torch.models.warp_model import WarpModel
 from shineon_tpu_torch.options import sams_options, warp_options
 from shineon_tpu_torch.serving import make_one_clip, synthetic_raw_batch, warm_up
+from test_torch_attention import with_nonzero_gamma
 
 TINY = dict(fine_height=128, fine_width=96, n_frames_total=3, n_frames_now=3,
             ngf_pow_outer=3, ngf_pow_inner=5, num_middle=1, ngf=8, precision=32,
             batch_size=2)
+# attention in the last middle block (32x24, 768 tokens) and decoder block
+# 0 (64x48, 3072 tokens, the decoder resolution of the production clip's
+# attention)
+TINY_ATTENTION = dict(attention_middle_indices=("-1",), attention_decoder_indices=("0",))
 
 
 def _np(tree):
@@ -61,22 +67,26 @@ def test_raw_batch_matches_jax_layout():
         np.testing.assert_array_equal(out[k].numpy(), ref[k], err_msg=k)
 
 
-def test_serving_clip_matches_jax(monkeypatch):
+@pytest.mark.parametrize("attention", [False, True], ids=["plain", "attention"])
+def test_serving_clip_matches_jax(attention, monkeypatch):
     """One warm-up rollout updates the same running statistics and spectral
     u (max rel 1e-4), and the eval clip then gives the same frames
     (max |diff| <= 1e-3 * max |ref|: f32 sums in another order through
-    ~20 conv layers and 3 autoregressive frames)."""
+    ~20 conv layers and 3 autoregressive frames). With ``attention`` the
+    generator has attention blocks (TINY_ATTENTION), every gamma nonzero."""
     monkeypatch.setenv("SHINEON_FUSED_SPADE", "1")
-    jsams = JSamsModel(_sams_opt(is_train=False, **TINY))
+    tiny = {**TINY, **(TINY_ATTENTION if attention else {})}
+    jsams = JSamsModel(_sams_opt(is_train=False, **tiny))
     jwarp = JWarpModel(_sams_opt(is_train=False, model="warp", flow_warp=False, grid_size=5,
                                  person_inputs=["agnostic", "densepose"], **TINY))
     g = jsams.init_state(jax.random.PRNGKey(420), 1).nets["generator"]
     w = jwarp.init_state(jax.random.PRNGKey(7), 1).nets["gmm"]
     warp_vars = {"params": w.params, **w.stats}
+    params = with_nonzero_gamma(_np(g.params), 421) if attention else g.params
 
-    sams = SamsModel(sams_options(**TINY), device="cpu")
+    sams = SamsModel(sams_options(**tiny), device="cpu")
     warp = WarpModel(warp_options(**TINY), device="cpu")
-    convert.load_flax(sams.generator, _np({"params": g.params, **g.stats}),
+    convert.load_flax(sams.generator, _np({"params": params, **g.stats}),
                       convert.GENERATOR_RENAMES)
     convert.load_flax(warp.gmm, _np(warp_vars), convert.GMM_RENAMES)
 
@@ -88,7 +98,7 @@ def test_serving_clip_matches_jax(monkeypatch):
     feats = jax.jit(jsams.features)(jbatch)
     stats = jax.jit(
         lambda p, s, f: jsams.generate_n_frames(p, s, f, train=True)[3]
-    )(g.params, g.stats, feats)
+    )(params, g.stats, feats)
     warm_up(sams, tbatch, rollouts=1)
     ref_stats = convert.flax_to_state_dict(_np(stats), convert.GENERATOR_RENAMES)
     mine = sams.generator.state_dict()
@@ -96,7 +106,7 @@ def test_serving_clip_matches_jax(monkeypatch):
     for name, value in ref_stats.items():
         assert _max_rel(mine[name].numpy(), value.numpy()) <= 1e-4, name
 
-    ref = _jax_clip(jsams, jwarp)(warp_vars, g.params, stats, jbatch)
+    ref = _jax_clip(jsams, jwarp)(warp_vars, params, stats, jbatch)
     out = make_one_clip(warp, sams)(tbatch)
     assert out.shape == (2, 3, 128, 96, 3) and out.dtype == torch.float32
     assert torch.isfinite(out).all()
