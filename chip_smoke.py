@@ -19,7 +19,17 @@ Phases, each fatal on failure:
      also timed against cuDNN's bf16 conv of the same shape, the conv it
      replaces) and SAGAN attention (3d, at flat and peaked score rows, with
      two controls that must fail at the peaked ones, also timed against
-     scaled_dot_product_attention with scale 1);
+     scaled_dot_product_attention with scale 1); and the probe kernels
+     (3e, run last, after phase 5 has timed the clips, so that its
+     profiler sessions precede no clip timing): the 15 layout probes on
+     seeded random inputs of their own shapes and the int8-conv probe's
+     mmonly and taps9bf16 variants at its four batch-16 shapes (mmonly also
+     against the int8 conv, which must fail), each timed against its plain
+     version, its bound (from the products its function needs, not the
+     nine its kernel issues) and the one PyTorch call that computes it;
+     then the port's two probe tools as a user runs
+     them (layout_caps, and conv_probe for each of its seven variants),
+     every launch count at 0 before each run, with the launches checked;
   4. check the whole clip on a small input: the kernel path on the card
      against the plain path on the CPU, same weights, f32; then the same
      with int8 serving, printing the int8 clip's distance from the fp one;
@@ -56,6 +66,7 @@ DEVICE = "cuda"
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
 H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 ENC, CUR = (8,), (4, 3, 3, 2)  # segmap channels of the encoder / current-frame labels
 # (H, W, C, segmap channels of the site's labels, launches a frame in the
 # clip without attention, in the attention clip) of every SPADE chain site.
@@ -186,6 +197,30 @@ def cuda_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Device time of the kernels fn launches, a call: their summed device
+    time in a torch.profiler trace of reps calls after a warm-up call. At
+    the probes' sizes a call's event time above measures the host path
+    (wrapper, allocation, launch), this the kernels alone. A trace that
+    now and then comes back without device events is taken again, up to
+    three times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type.name == "CUDA")
+        if total > 0:
+            return total / 1e3 / reps
+        log(f"the profiler trace shows no device time (attempt {attempt} of 3)")
+    raise SystemExit("the profiler shows no device time")
 
 
 def seg_name(seg):
@@ -456,6 +491,210 @@ def time_attention(torch, fa, F, q, k, v, per_frame):
                 per_frame=per_frame, per_frame_att=per_frame, flops=need, work=done / need)
 
 
+def probe_library(torch, name, args):
+    """The one PyTorch call that computes a layout probe's function, timed as
+    its yardstick (the port never calls it), or None. Operands it needs in
+    f32 are converted outside the call."""
+    x = args[0]
+    if name in ("probe_a2", "probe_d", "probe_i"):
+        a, b = (t.float() for t in args)
+        if name == "probe_a2":
+            return lambda: torch.einsum("chw,cn->hwn", a, b)
+        return lambda: torch.matmul(a, b)
+    return {
+        "probe_a": lambda: torch.matmul(x, args[1]),
+        "probe_b": lambda: x + 1.0,
+        "probe_b2": lambda: x.view(8, 200, 128)[:, 4:196].contiguous(),
+        "probe_c": lambda: x.t().contiguous(),
+        "probe_c2": lambda: x.t().contiguous(),
+        "probe_e": lambda: x * args[1] + 1.0,
+        "probe_f": lambda: x.view(400, 12).clone(),
+        "probe_g": lambda: x[3:35].clone(),  # rows 3:35 of x are contiguous already
+        "probe_h": lambda: x * 2.0,
+        "probe_k": lambda: x[:, :, 3:51].contiguous(),
+        "probe_l": lambda: x.as_strided((2, 4, 16, 56), (448, 3584, 56, 1), 168).contiguous(),
+    }.get(name)
+
+
+def bytes_of(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def probe_bound(pr, name, args, out):
+    """(bound ms, what bounds it) of a layout probe on these inputs:
+    contractions and the chain at the bf16 tensor peak, movement's
+    elementwise operations at the f32 peak outside the tensor cores; bytes
+    are the output written once and what it needs read once (a gather reads
+    one input element an output element)."""
+    family = pr.SPECS[name].family
+    if family == "contraction":
+        K = args[1].shape[0]
+        return bound(2 * out.numel() * K / H100_BF16_FLOPS, bytes_of(*args, out))
+    if family == "chain":
+        G, th, w2, c2 = out.shape
+        cs, nh = args[1].shape[1:]
+        ops = 2 * G * w2 * ((th + 2) * 9 * cs * nh + th * 3 * nh * c2)
+        return bound(ops / H100_BF16_FLOPS, bytes_of(*args, out))
+    elementwise = {"probe_b": 1, "probe_e": 2, "probe_h": 1}.get(name, 0) * out.numel()
+    return bound(elementwise / H100_F32_FLOPS, 2 * bytes_of(out) + bytes_of(*args[1:]))
+
+
+def tap_products_needed(name):
+    """The int8 products a conv variant's function needs, of the nine tap
+    products (M = pixels, K = Cin, N = Cout) its kernel issues. taps9bf16
+    computes the int8 conv: all nine. mmonly's function is the centre tap
+    times the sum of the nine weight taps, one product with weights in
+    [-1143, 1143], which split exactly into two int8 parts (128 hi + lo)."""
+    return {"conv_mmonly": 2, "conv_taps9bf16": 9}[name]
+
+
+def guarded(torch, t, guard=1 << 14):
+    """t copied to the head of a buffer whose tail (guard elements) is NaN,
+    so that a kernel reading past the tensor reads NaN and fails its check:
+    whatever lies past a fresh allocation may happen to be zero."""
+    buf = torch.full((t.numel() + guard,), float("nan"), dtype=t.dtype, device=t.device)
+    head = buf[:t.numel()].view(t.shape)
+    head.copy_(t)
+    return head
+
+
+def check_probes(torch, pr, ic, card):
+    """Phase 3e: each of the 15 layout probe kernels against its plain
+    version on seeded random inputs of the probe's shapes and dtypes (exact
+    for movement and transposes; pr.TOLERANCE for contractions and the
+    chain), each input at the head of a NaN-filled buffer so that a read
+    past it shows, then timed against its plain version, its bound and the
+    one PyTorch call that computes it; the two conv variants (mmonly,
+    taps9bf16) against their plain versions at all four conv-probe shapes
+    (batch 16), with one control that must fail (mmonly against the int8
+    conv), each timed beside kernel 4 at the same shape."""
+    from shineon_tpu_torch.tools.conv_probe import SHAPES, conv_inputs
+
+    errors, timings, failed = {}, {}, []
+    for i, name in enumerate(pr.SPECS):
+        args = tuple(guarded(torch, t) for t in pr.random_inputs(name, 500 + i, DEVICE))
+        wrapper, plain = pr.WRAPPERS[name], pr.plain_version(name)
+        out, ref = wrapper(*args), plain(*args)
+        torch.cuda.synchronize()
+        ok, err, ratio = pr.agrees(name, out, ref)
+        tol = pr.TOLERANCE[name]
+        log(f"check {name} ({pr.SPECS[name].family}) {[tuple(a.shape) for a in args]}: "
+            f"max_abs_err={err:.4g} max|d|/(|ref|+rms)={ratio:.3g} "
+            f"({'exact' if tol == 0 else f'limit {tol:g}'}) {'ok' if ok else 'FAIL'}")
+        errors[name] = err
+        if not ok:
+            failed.append(name)
+            continue
+        calls = {"kernel": lambda: wrapper(*args), "plain": lambda: plain(*args),
+                 "library": probe_library(torch, name, args)}
+        with torch.no_grad():
+            ms = {k: None if fn is None else cuda_ms(torch, fn, 100) for k, fn in calls.items()}
+            dev = {k: None if fn is None else device_ms(torch, fn, 20) for k, fn in calls.items()}
+        bound_ms, by = probe_bound(pr, name, args, out)
+        log(f"time {name}: a call " + ", ".join(
+            f"{k} {'none' if v is None else f'{v:.4f} ms'}" for k, v in ms.items())
+            + "; device " + ", ".join(
+            f"{k} {'none' if v is None else f'{v:.5f} ms'}" for k, v in dev.items())
+            + f"; bound {bound_ms:.5f} ms ({by})")
+        timings[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
+                             bound_by=by, library_ms=ms["library"], device_ms=dev["kernel"],
+                             plain_device_ms=dev["plain"], library_device_ms=dev["library"],
+                             shape=[list(a.shape) for a in args] + [list(out.shape)])
+    for j, shape in enumerate(SHAPES):
+        B, H, W, cin, cout = shape
+        v, w, bias = conv_inputs(shape, DEVICE, seed=600 + j)
+        qw = ic.quantize_weight(w)
+        xp, s = pr.quantize_padded(v)
+        scale = (s * qw.scale).contiguous()
+        conv = ic.conv3x3_int8(v, qw, bias, torch.bfloat16)
+        ops = 2 * 9 * B * H * W * cin * cout
+        with torch.no_grad():
+            conv_ms = cuda_ms(torch, lambda: ic.conv3x3_int8(v, qw, bias, torch.bfloat16), 10)
+        for name in pr.CONV_VARIANTS:
+            wrapper, plain = pr.WRAPPERS[name], pr.plain_version(name)
+            out, ref = wrapper(xp, qw, scale, bias), plain(xp, qw, scale, bias)
+            torch.cuda.synchronize()
+            ok, err, ratio = pr.agrees(name, out, ref)
+            control = ""
+            if name == "conv_mmonly":
+                c_ok, _, c_ratio = pr.agrees(name, out, conv)
+                ok, control = ok and not c_ok, f"; must fail: against the int8 conv {c_ratio:.3g}"
+            log(f"check {name} {shape}: max_abs_err={err:.4g} max|d|/(|ref|+rms)={ratio:.3g} "
+                f"(limit {pr.TOLERANCE[name]:g}){control} {'ok' if ok else 'FAIL'}")
+            errors[(name, shape)] = err
+            if not ok:
+                failed.append(f"{name} {shape}")
+                continue
+            with torch.no_grad():
+                k_ms = cuda_ms(torch, lambda: wrapper(xp, qw, scale, bias), 10)
+                k_dev = device_ms(torch, lambda: wrapper(xp, qw, scale, bias), 5)
+                p_ms = cuda_ms(torch, lambda: plain(xp, qw, scale, bias), 2)
+            bound_ms, by = bound(tap_products_needed(name) * ops / 9 / H100_INT8_OPS,
+                                 bytes_of(xp, qw.wq, scale, bias, out))
+            rate = ops / k_ms / 1e9
+            log(f"time {name} {shape}: kernel {k_ms:.4f} ms (the nine products it issues at "
+                f"{rate:.1f} Tops/s; device {k_dev:.4f} ms) "
+                f"plain {p_ms:.4f} ms bound {bound_ms:.4f} ms ({by}); int8 conv kernel "
+                f"{conv_ms:.4f} ms ({ops / conv_ms / 1e9:.1f} Tops/s) [{card}]")
+            timings[(name, shape)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
+                                          library_ms=None, device_ms=k_dev, int8_conv_ms=conv_ms,
+                                          mma_rate_tops=rate,
+                                          shape=dict(zip("B H W Cin Cout".split(), shape)))
+            del out, ref
+        del v, xp, conv
+    if failed:
+        raise SystemExit(f"probe kernels disagree with their plain versions (or the control "
+                         f"passes) at {', '.join(failed)}")
+    return errors, timings
+
+
+def run_probe_tools(pr, ic):
+    """The port's two probe tools as a user runs them, every launch count at
+    0 before each run: layout_caps (each of the 15 probes once: 4
+    contraction, 10 movement and 1 chain launch) and conv_probe, check only,
+    at SHAPES[0] for each of its seven variants (one tap-product launch for
+    mmonly and taps9bf16, one kernel-4 launch for the five others). Returns
+    each probe wrapper's launches in the run that drives it."""
+    from collections import Counter
+
+    from shineon_tpu_torch.tools import conv_probe, layout_caps
+
+    counters = {**pr.WRAPPERS, "int8_conv3x3": ic.conv3x3_int8}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    reset()
+    rc = layout_caps.main()
+    got = counts()
+    families = Counter()
+    for name, spec in pr.SPECS.items():
+        families[spec.family] += got[name]
+    want = {name: int(name in pr.SPECS) for name in counters}
+    log(f"layout_caps: exit {rc}, launches by family {dict(families)} "
+        f"(expected contraction 4, movement 10, chain 1)")
+    if rc != 0 or got != want:
+        raise SystemExit(f"layout_caps failed or launched {got}, expected {want}")
+    tool_launches = {name: got[name] for name in pr.SPECS}
+    for variant in conv_probe.VARIANTS:
+        reset()
+        rc = conv_probe.main(["--variant", variant, "--only", "0", "--iters", "0"])
+        got = counts()
+        diagnostic = conv_probe.DIAGNOSTIC.get(variant)
+        kernel = "int8_conv3x3" if diagnostic is None else diagnostic.__name__
+        want = {name: int(name == kernel) for name in counters}
+        log(f"conv_probe --variant {variant}: exit {rc}, {kernel} launches {got[kernel]}")
+        if rc != 0 or got != want:
+            raise SystemExit(f"conv_probe --variant {variant} failed or launched {got}")
+        if kernel in pr.CONV_VARIANTS:
+            tool_launches[kernel] = got[kernel]
+    return tool_launches
+
+
 def build_attention_clip(torch, batch, device, seed, **overrides):
     """build_inference's steps for the attention clip, with one cut: every
     attention gamma is drawn from N(GAMMA_MEAN, GAMMA_STD) (seeded) before
@@ -615,7 +854,9 @@ def main() -> int:
     from shineon_tpu_torch.ops import fused_attention as fa
     from shineon_tpu_torch.ops import fused_spade as fs
     from shineon_tpu_torch.ops import int8_conv as ic
+    from shineon_tpu_torch.ops import probes as pr
     from shineon_tpu_torch.serving import build_inference
+    from shineon_tpu_torch.tools import conv_probe
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -626,7 +867,7 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    sources = (fs.KERNEL_SOURCE, ic.KERNEL_SOURCE, fa.KERNEL_SOURCE)
+    sources = (fs.KERNEL_SOURCE, ic.KERNEL_SOURCE, fa.KERNEL_SOURCE, pr.KERNEL_SOURCE)
     with ThreadPoolExecutor(len(sources)) as pool:
         reports = list(pool.map(cuda_build.build, sources))
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(sources)} in parallel)")
@@ -673,6 +914,12 @@ def main() -> int:
             f"{BATCH * n_frames / ms * 1e3:.2f} frames/s, batch {BATCH} x {n_frames} frames, "
             f"timed in turns [{card}]")
     med = {name: ms for name, (ms, _) in times.items()}
+
+    # phase 3e after the clips are timed: its profiler sessions stay out of them
+    t0 = time.perf_counter()
+    p_errors, p_timings = check_probes(torch, pr, ic, card)
+    p_launches = run_probe_tools(pr, ic)
+    log(f"phase 3e (probes and their tools): {time.perf_counter() - t0:.1f} s")
 
     # the int8 models' own count of int8 convs, against the list above
     log(f"int8 convs in the built generators: {built}, with attention {a_built} "
@@ -781,6 +1028,27 @@ def main() -> int:
         "clip_ms": med["bf16 attention"],
         "clip_kernel_ms": per_clip(a_timings)[0],
     }]
+    for name in (*pr.SPECS, *pr.CONV_VARIANTS):
+        key = name if name in pr.SPECS else (name, conv_probe.SHAPES[0])
+        t = p_timings[key]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "shineon_tpu_torch/csrc/probes.cu",
+            "replaces": (f"tools/proto_mosaic_caps.py:{pr.SPECS[name].line}" if name in pr.SPECS
+                         else f"tools/pallas_conv_probe.py:282 (variant={name[5:]})"),
+            "launches": p_launches[name],
+            "max_abs_err": p_errors[key],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "family": pr.SPECS[name].family if name in pr.SPECS else "tap products",
+            "shape": t["shape"],
+            **{k: t[k] for k in ("device_ms", "plain_device_ms", "library_device_ms",
+                                 "int8_conv_ms", "mma_rate_tops") if k in t},
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

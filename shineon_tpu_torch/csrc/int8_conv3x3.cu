@@ -22,41 +22,22 @@
 // the larger one for every shape.
 //
 // Design: an implicit GEMM, M = pixels, N = Cout, K = 9*Cin, on
-// mma.sync m16n8k32 s8*s8 -> s32. A block owns (sample, 8x16 pixel tile,
-// TN = 128 output channels, or 64 where Cout is not a multiple of 128). It
-// walks Cin in chunks of 64: the chunk's input tile with its 1-pixel halo
-// is read from device memory, quantized on load (so no int8 copy of the
-// activation is ever written) and kept in shared memory; then the nine taps
-// each multiply a (128 pixels) x (TN channels) slice of it by a (TN x 64)
-// weight slice. A tap is a short product, so the weight slices stream
-// through a ring of NSTAGE buffers with cp.async, NSTAGE - 1 (chunk, tap)
-// steps ahead. The quantization takes the product with the reciprocal of s
-// and falls back to the IEEE division only next to a half-integer, where
-// the two could round apart. The 8 warps split the tile 4 (pixel rows) x 2
-// (channel halves). Any H and W are taken (ragged tiles are masked); Cin
-// and Cout must be multiples of 64. wgmma and TMA are later work.
+// mma.sync m16n8k32 s8*s8 -> s32, with the tile loop of conv3x3_tile.cuh
+// (8x16-pixel tiles, 64- or 128-channel blocks, Cin in chunks of 64, the
+// weight slices through a 4-deep cp.async ring), which the conv probe's
+// tap-product kernels share. Its input stage reads the chunk's tile with
+// its halo from x and quantizes it on load, so no int8 copy of the
+// activation is ever written. The quantization takes the product with the
+// reciprocal of s and falls back to the IEEE division only next to a
+// half-integer, where the two could round apart. Any H and W are taken
+// (ragged tiles are masked); Cin and Cout must be multiples of 64. wgmma
+// and TMA are later work.
 
-#include "sm90_common.cuh"
+#include "conv3x3_tile.cuh"
 
 namespace {
 
-constexpr int TH = 8;             // pixel tile rows
-constexpr int TW = 16;            // pixel tile columns (one m16 tile a row)
-constexpr int HT = TH + 2;        // input tile rows (1-pixel halo)
-constexpr int WT = TW + 2;        // input tile columns
-constexpr int NPOS = HT * WT;     // 180 input positions
-constexpr int KC = 64;            // input channels a chunk
-constexpr int AS = KC + 16;       // 80-byte rows: 16-byte aligned, conflict-free ldmatrix
-constexpr int WS = KC + 16;
-constexpr int NSTAGE = 4;         // weight slices in flight
-constexpr int NTHREADS = 256;
-constexpr int WARPS_M = 4;                  // warps along the pixel rows
-constexpr int MT = TH / WARPS_M;            // m16 tiles (tile rows) a warp (2)
-
-template <int TN>
-constexpr size_t smem_bytes() {
-  return (size_t)NPOS * AS + (size_t)NSTAGE * TN * WS;
-}
+using namespace conv_tile;
 
 // 4 consecutive values as f32 (8- or 16-byte aligned).
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
@@ -75,18 +56,42 @@ __device__ __forceinline__ uint32_t quant_byte(float v, float s, float r) {
   return static_cast<uint32_t>(quant_level(v, s, r)) & 0xffu;
 }
 
-// Start copying the weight slice of (tap, input chunk) for this block's
-// output channels: shared row n holds wq[tap][co0 + n][ci0 .. ci0 + KC).
-template <int TN>
-__device__ __forceinline__ void load_w_slice(int8_t* w_buf, const int8_t* __restrict__ wq,
-                                             int Cin, int Cout, int tap, int ci0, int co0) {
-  for (int i = threadIdx.x; i < TN * (KC / 16); i += NTHREADS) {
-    const int n = i / (KC / 16), chunk = i % (KC / 16);
-    cp_async16(w_buf + n * WS + 16 * chunk,
-               wq + ((size_t)tap * Cout + co0 + n) * Cin + ci0 + 16 * chunk);
+// The input stage: the chunk's tile of x quantized on load, zero outside
+// the image.
+template <typename T>
+struct QuantizeOnLoad {
+  const T* __restrict__ x;
+  float s, rs;  // the scale and its reciprocal
+  int H, W, Cin;
+
+  __device__ __forceinline__ void operator()(unsigned char* a_s, int b, int r0, int c0,
+                                             int ci0) const {
+    constexpr int RS = Operand<int8_t>::RS;
+    for (int i = threadIdx.x; i < NPOS * (KC / 4); i += NTHREADS) {
+      const int pos = i / (KC / 4), j = i % (KC / 4);
+      const int r = r0 - 1 + pos / WT, c = c0 - 1 + pos % WT;
+      uint32_t packed = 0;
+      if (r >= 0 && r < H && c >= 0 && c < W) {
+        float v[4];
+        load4(x + (((size_t)b * H + r) * W + c) * Cin + ci0 + 4 * j, v);
+        packed = quant_byte(v[0], s, rs) | (quant_byte(v[1], s, rs) << 8) |
+                 (quant_byte(v[2], s, rs) << 16) | (quant_byte(v[3], s, rs) << 24);
+      }
+      *reinterpret_cast<uint32_t*>(a_s + pos * RS + 4 * j) = packed;
+    }
   }
-  cp_async_commit();
-}
+};
+
+// The epilogue's (scale, bias) of channel co: s * ksc[co] and bias[co].
+struct ConvAffine {
+  float s;
+  const float* __restrict__ ksc;
+  const float* __restrict__ bias;  // may be null
+
+  __device__ __forceinline__ float2 operator()(int co) const {
+    return make_float2(__fmul_rn(s, ksc[co]), bias ? bias[co] : 0.f);
+  }
+};
 
 // x, y: (B, H, W, Cin) and (B, H, W, Cout) in T.  absmax: one f32 (device).
 // wq: (9, Cout, Cin) int8, tap = 3*di + dj.  ksc, bias: (Cout,) f32; bias
@@ -97,122 +102,17 @@ int8_conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ absmax,
                     const int8_t* __restrict__ wq, const float* __restrict__ ksc,
                     const float* __restrict__ bias, T* __restrict__ y, int H, int W, int Cin,
                     int Cout) {
-  constexpr int NT = TN / 8 / 2;  // n8 tiles a warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* a_s = reinterpret_cast<int8_t*>(smem);  // [NPOS][AS]
-  int8_t* w_s = a_s + NPOS * AS;                   // NSTAGE x [TN][WS]
-
-  const int tiles_w = (W + TW - 1) / TW;
-  const int r0 = (blockIdx.x / tiles_w) * TH;
-  const int c0 = (blockIdx.x % tiles_w) * TW;
-  const int co0 = blockIdx.y * TN;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  const int g = lane / 4, t = lane % 4;
   const float s = int8_scale(*absmax);
-  const float rs = __frcp_rn(s);
-
-  // ldmatrix row addresses of this lane (bytes; an int8 k32 step is 32 bytes)
-  const int a_row = (lane % 8) + 8 * ((lane / 8) % 2);
-  const int a_k = 16 * (lane / 16);
-  const int b_row = (lane % 8) + 8 * (lane / 16);
-  const int b_k = 16 * ((lane / 8) % 2);
-
-  int acc[MT][NT][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0;
-
-  const int nsteps = (Cin / KC) * 9;
-#pragma unroll
-  for (int i = 0; i < NSTAGE - 1; ++i) {
-    if (i < nsteps)
-      load_w_slice<TN>(w_s + i * TN * WS, wq, Cin, Cout, i % 9, (i / 9) * KC, co0);
-    else
-      cp_async_commit();  // an empty group keeps the group count uniform
-  }
-  for (int step = 0; step < nsteps; ++step) {
-    const int tap = step % 9, ci0 = (step / 9) * KC;
-    if (tap == 0) {
-      // quantize this chunk's input tile on load; zero outside the image.
-      // (The previous step's closing barrier freed a_s.)
-      for (int i = tid; i < NPOS * (KC / 4); i += NTHREADS) {
-        const int pos = i / (KC / 4), j = i % (KC / 4);
-        const int r = r0 - 1 + pos / WT, c = c0 - 1 + pos % WT;
-        uint32_t packed = 0;
-        if (r >= 0 && r < H && c >= 0 && c < W) {
-          float v[4];
-          load4(x + (((size_t)b * H + r) * W + c) * Cin + ci0 + 4 * j, v);
-          packed = quant_byte(v[0], s, rs) | (quant_byte(v[1], s, rs) << 8) |
-                   (quant_byte(v[2], s, rs) << 16) | (quant_byte(v[3], s, rs) << 24);
-        }
-        *reinterpret_cast<uint32_t*>(a_s + pos * AS + 4 * j) = packed;
-      }
-    }
-    const int ahead = step + NSTAGE - 1;
-    if (ahead < nsteps)
-      load_w_slice<TN>(w_s + (ahead % NSTAGE) * TN * WS, wq, Cin, Cout, ahead % 9,
-                       (ahead / 9) * KC, co0);
-    else
-      cp_async_commit();
-    cp_async_wait<NSTAGE - 1>();  // this step's weight slice has landed
-    __syncthreads();  // ... for every thread (and so has the input tile)
-
-    const int8_t* w_cur = w_s + (step % NSTAGE) * TN * WS;
-    const int di = tap / 3, dj = tap % 3;
-#pragma unroll
-    for (int ks = 0; ks < KC / 32; ++ks) {
-      uint32_t afr[MT][4];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const int pos = (MT * wm + mi + di) * WT + a_row + dj;
-        ldmatrix_x4(afr[mi], a_s + pos * AS + 32 * ks + a_k);
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bfr[4];
-        ldmatrix_x4(bfr, w_cur + (8 * NT * wn + 16 * np + b_row) * WS + 32 * ks + b_k);
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          mma_s8(acc[mi][2 * np], afr[mi], bfr[0], bfr[1]);
-          mma_s8(acc[mi][2 * np + 1], afr[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();  // everyone is done with this slice (and tile) before refills
-  }
-
-  // accumulator element e of (m-tile mi, n-tile nt): pixel (tile row
-  // MT*wm + mi, tile column g + 8*(e/2)), channel co0 + 8*(NT*wn + nt) + 2t + e%2
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int co = co0 + 8 * (NT * wn + nt) + 2 * t;
-    const float sc0 = __fmul_rn(s, ksc[co]), sc1 = __fmul_rn(s, ksc[co + 1]);
-    const float b0 = bias ? bias[co] : 0.f, b1 = bias ? bias[co + 1] : 0.f;
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi) {
-      const int r = r0 + MT * wm + mi;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = c0 + g + 8 * half;
-        if (r >= H || c >= W) continue;
-        store2(y + (((size_t)b * H + r) * W + c) * Cout + co,
-               dequant(acc[mi][nt][2 * half], sc0, b0), dequant(acc[mi][nt][2 * half + 1], sc1, b1));
-      }
-    }
-  }
+  conv3x3_tile<int8_t, TN, false>(wq, y, H, W, Cin, Cout,
+                                  QuantizeOnLoad<T>{x, s, __frcp_rn(s), H, W, Cin},
+                                  ConvAffine{s, ksc, bias});
 }
 
 template <typename T, int TN>
 cudaError_t launch(const void* x, const float* absmax, const int8_t* wq, const float* ksc,
                    const float* bias, void* y, int B, int H, int W, int Cin, int Cout,
                    cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<TN>();
+  constexpr size_t smem = smem_bytes<int8_t, TN>();
   cudaError_t err = cudaFuncSetAttribute(int8_conv3x3_kernel<T, TN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

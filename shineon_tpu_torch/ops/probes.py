@@ -1,0 +1,487 @@
+"""The repo's Pallas probes as hand-written Hopper kernels (counterparts of
+tools/proto_mosaic_caps.py and the ``mmonly`` / ``taps9bf16`` variants of
+tools/pallas_conv_probe.py::pallas_conv3x3_int8).
+
+Each probe has a wrapper with the JAX probe's name (``probe_a`` ... ``probe_m``,
+``conv_mmonly``, ``conv_taps9bf16``) and a plain PyTorch version beside it
+(``<name>_plain``). A wrapper checks device, dtype, shape and contiguity; on a
+CUDA tensor it launches one of the four kernel families of ``csrc/probes.cu``
+or raises, and on a CPU tensor it computes the plain version. Each launch adds
+one to the wrapper's ``launches``; :data:`SPECS` names each layout probe's
+family (movement, contraction, chain; the conv variants are the tap-product
+family).
+
+The layout probes take the JAX probes' own shapes and dtypes: the shapes are
+what each probe tests. The conv variants take any batch, height and width,
+with Cin and Cout multiples of 64.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from shineon_tpu_torch.ops.fused_spade import error_ratio
+from shineon_tpu_torch.ops.int8_conv import (
+    CHANNEL_TILE,  # the tap-product kernels take Cin and Cout in multiples of it too
+    INT8_CONV_TOLERANCE,
+    QuantizedWeight,
+    activation_scale,
+)
+
+KERNEL_SOURCE = "probes"
+F32, BF16 = torch.float32, torch.bfloat16
+MC_TH = 8  # probe M's row tile
+
+
+class Spec(NamedTuple):
+    """A layout probe: its kernel family, its inputs' and output's (shape,
+    dtype), and the line of its ``pl.pallas_call`` in
+    tools/proto_mosaic_caps.py."""
+
+    family: str
+    inputs: tuple
+    out: tuple
+    line: int
+
+
+SPECS = {
+    "probe_a": Spec("contraction", (((16, 64, 32), BF16), ((32, 128), BF16)),
+                    ((16, 64, 128), BF16), 45),
+    "probe_a2": Spec("contraction", (((12, 20, 56), BF16), ((12, 128), BF16)),
+                     ((20, 56, 128), F32), 267),
+    "probe_b": Spec("movement", (((1600, 128), F32),), ((1600, 128), F32), 63),
+    "probe_b2": Spec("movement", (((1600, 128), F32),), ((8, 192, 128), F32), 79),
+    "probe_c": Spec("movement", (((12, 4000), BF16),), ((4000, 12), BF16), 96),
+    "probe_c2": Spec("movement", (((128, 4000), BF16),), ((4000, 128), BF16), 115),
+    "probe_d": Spec("contraction", (((4000, 12), BF16), ((12, 128), BF16)),
+                    ((4000, 128), F32), 136),
+    "probe_e": Spec("movement", (((16, 192, 64), F32), ((1, 1, 64), F32)),
+                    ((16, 192, 64), F32), 152),
+    "probe_f": Spec("movement", (((1, 4800), F32),), ((400, 12), F32), 168),
+    "probe_g": Spec("movement", (((64, 128), F32),), ((32, 128), F32), 186),
+    "probe_h": Spec("movement", (((2, 32, 192, 64), BF16),), ((2, 32, 192, 64), BF16), 212),
+    "probe_i": Spec("contraction", (((128, 12), BF16), ((12, 4000), BF16)),
+                    ((128, 4000), F32), 240),
+    "probe_k": Spec("movement", (((12, 20, 56), F32),), ((12, 20, 48), F32), 282),
+    "probe_l": Spec("movement", (((4, 64, 56), F32),), ((2, 4, 16, 56), F32), 299),
+    "probe_m": Spec("chain", (((3, 70, 56), BF16), ((9, 3, 128), BF16), ((3, 128, 128), BF16)),
+                    ((8, MC_TH, 56, 128), F32), 345),
+}
+CONV_VARIANTS = ("conv_mmonly", "conv_taps9bf16")  # call at tools/pallas_conv_probe.py:282
+
+# Kernel against plain version (and plain version against the JAX probe on
+# the CPU), element by element: |out - ref| <= tol * (|ref| + rms(ref)).
+# Movement copies values (the affine ones round a product, then a sum, on
+# both sides): exact, tol 0. Contractions sum exact bf16 products in f32 in
+# another order: a few f32 ulps of K <= 32 terms, 1e-5; probe A then rounds
+# to bf16, where one rounding flipped by such an ulp is 2^-8 of |ref|: 4e-3.
+# Probe M rounds its hidden map to bf16 after a sum of 27 products taken in
+# another order (a rare flip moves one of the 384 terms of an output by
+# 2^-8 of itself) and sums 384 products: 1e-3. The tap products are integer
+# sums, exact on both sides, dequantized with the same uncontracted f32
+# operations: the int8 conv's bf16 limit.
+def _tolerance(spec: Spec) -> float:
+    if spec.family == "movement":
+        return 0.0
+    if spec.family == "chain":
+        return 1e-3
+    return 4e-3 if spec.out[1] == BF16 else 1e-5
+
+
+TOLERANCE = {**{name: _tolerance(spec) for name, spec in SPECS.items()},
+             **{name: INT8_CONV_TOLERANCE[BF16] for name in CONV_VARIANTS}}
+
+
+def agrees(name: str, out: torch.Tensor, ref: torch.Tensor) -> tuple:
+    """(ok, max |out - ref|, error ratio) of a probe's output against its
+    plain version under TOLERANCE[name] (exact equality where it is 0)."""
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        return False, float("inf"), float("inf")
+    err = (out.float() - ref.float()).abs().max().item()
+    ratio = error_ratio(out, ref)
+    tol = TOLERANCE[name]
+    ok = torch.equal(out, ref) if tol == 0.0 else (
+        bool(torch.isfinite(out.float()).all()) and ratio <= tol)
+    return ok, err, ratio
+
+
+_INPUT_SCALES = {"probe_m": (1.0, 0.3, 0.05)}  # keeps M's hidden map and output near 1
+
+
+def random_inputs(name: str, seed: int, device="cpu") -> tuple:
+    """Seeded normal inputs of a layout probe's shapes and dtypes (random
+    values, so a wrong index map, tap or K tail shows)."""
+    g = torch.Generator().manual_seed(seed)
+    inputs = SPECS[name].inputs
+    scales = _INPUT_SCALES.get(name, (1.0,) * len(inputs))
+    return tuple((scale * torch.randn(shape, generator=g)).to(dtype).to(device)
+                 for (shape, dtype), scale in zip(inputs, scales))
+
+
+# ------------------------------------------------------------ plain versions
+
+def probe_a_plain(x, w):
+    return torch.einsum("hwc,cd->hwd", x.float(), w.float()).to(x.dtype)
+
+
+def probe_a2_plain(s, w):
+    return torch.einsum("chw,cn->hwn", s.float(), w.float())
+
+
+def probe_b_plain(x):
+    return (x.reshape(8, 200, 128) + 1.0).reshape(1600, 128)
+
+
+def probe_b2_plain(x):
+    return x.reshape(8, 200, 128)[:, 4:196].contiguous()
+
+
+def probe_c_plain(x):
+    return x.t().contiguous()
+
+
+def probe_c2_plain(x):
+    return x.t().contiguous()
+
+
+def probe_d_plain(a, b):
+    return a.float() @ b.float()
+
+
+def probe_e_plain(x, s):
+    return x * s[0, 0] + 1.0
+
+
+def probe_f_plain(x):
+    return x[0].reshape(400, 12).clone()
+
+
+def probe_g_plain(x):
+    return torch.cat([x[16 * i + 3:16 * i + 19] for i in range(2)])
+
+
+def probe_h_plain(x):
+    return x * 2.0
+
+
+def probe_i_plain(a, b):
+    return a.float() @ b.float()
+
+
+def probe_k_plain(x):
+    return x[:, :, 3:51].contiguous()
+
+
+def probe_l_plain(x):
+    """The function the JAX probe's ``ref`` states (proto_mosaic_caps.py:306-309);
+    its kernel body raises (a (4, 16, 56) value into a (1, 4, 16, 56) block)."""
+    return torch.stack([x[:, 8 * i + 3:8 * i + 19] for i in range(2)])
+
+
+def probe_m_plain(s, wsh, wgb):
+    """The JAX probe's body step for step: per grid index i the nine taps of
+    the hidden map in f32 (every dj of a row tap contracts the same segmap
+    rows: the probe folds no column shift), ReLU, one rounding to bf16, then
+    three row-tap products with wgb in f32."""
+    sf, wshf, wgbf = s.float(), wsh.float(), wgb.float()
+    outs = []
+    for i in range((s.shape[1] - 6) // MC_TH):
+        seg = sf[:, MC_TH * i:MC_TH * i + MC_TH + 6]
+        h = None
+        for di in range(3):
+            for dj in range(3):
+                tap = torch.einsum("crw,cn->rwn", seg[:, di:di + MC_TH + 4], wshf[3 * di + dj])
+                h = tap if h is None else h + tap
+        h = torch.relu(h).to(BF16).float()
+        gb = None
+        for di in range(3):
+            tap = torch.einsum("rwk,kn->rwn", h[di:di + MC_TH], wgbf[di])
+            gb = tap if gb is None else gb + tap
+        outs.append(gb)
+    return torch.stack(outs)
+
+
+def conv_mmonly_plain(xp, qw: QuantizedWeight, scale, bias):
+    """The centre tap [1:1+H, 1:1+W] of the padded int8 input times every one
+    of the nine weight taps (pallas_conv_probe.py:190-203: not a conv, a
+    measure of the int8 product rate), summed exactly in float64, then
+    ``acc * scale + bias`` in f32 and bf16 out."""
+    acc = xp[:, 1:-1, 1:-1].double() @ qw.wq.double().sum(0).t()
+    return (acc.float() * scale + bias).to(BF16)
+
+
+def conv_taps9bf16_plain(xp, qw: QuantizedWeight, scale, bias):
+    """The 3x3 conv of the padded int8 input (pallas_conv_probe.py:173-189).
+    The kernel takes the int8 values as bf16 operands with f32 sums, which
+    are exact integers while every partial sum stays below 2^24; here the
+    sums are exact in float64, then ``acc * scale + bias`` in f32, bf16 out."""
+    cout, cin = qw.wq.shape[1:]
+    w = qw.wq.reshape(3, 3, cout, cin).permute(2, 3, 0, 1).double()
+    acc = F.conv2d(xp.double().permute(0, 3, 1, 2), w).permute(0, 2, 3, 1)
+    return (acc.float() * scale + bias).to(BF16)
+
+
+def quantize_padded(v: torch.Tensor) -> tuple:
+    """The conv probe's quantization outside the kernel
+    (pallas_conv_probe.py:233-235, 252-253): ``(xp, s)`` with s the
+    per-tensor scale ``max |v| / 127 + 1e-30`` and xp (B, H+2, W+2, Cin) the
+    int8 levels ``clip(round(v / s), -127, 127)`` with a zero halo. (The TPU
+    tool also pads W to a multiple of 8 for its DMA; nothing here needs it.)"""
+    s = activation_scale(v)
+    vq = torch.clamp(torch.round(v.float() / s), -127, 127).to(torch.int8)
+    return F.pad(vq, (0, 0, 1, 1, 1, 1)), s
+
+
+# ------------------------------------------------------------ the kernels
+
+def _check(cond: bool, name: str, msg: str):
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
+    """The kernels' shared library, built if needed, argument types set once."""
+    from shineon_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library(KERNEL_SOURCE)
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    for fn, args in (
+        (lib.probe_gather, [i, p, p] + [i] * 4 + [ll] * 5 + [p, f, f, i, i, p]),
+        (lib.probe_transpose, [p, p, i, i, p]),
+        (lib.probe_gemm, [p, p, p] + [i] * 5 + [p]),
+        (lib.probe_chain, [p] * 4 + [i] * 3 + [p]),
+        (lib.probe_taps, [i] + [p] * 5 + [i] * 5 + [p]),
+    ):
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+    lib.probes_error_string.restype = ctypes.c_char_p
+    lib.probes_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _call(entry: str, *args, device):
+    """Call a C entry of the library on ``device``'s current stream; raise
+    on a non-zero cudaError_t."""
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: "
+                           f"{lib.probes_error_string(err).decode()} ({err})")
+
+
+COPY, SCALE, SCALE_ADD = 0, 1, 2  # the gather kernel's affine modes
+
+
+def _gather(x, shape, strides, base, chan=None, a=1.0, b=0.0, affine=COPY):
+    """Family 1: y (shape, contiguous) with y[i] = x[base + i . strides] (up
+    to 4 dims), then a * y (+ b) with a = chan[last index] when given. 16-byte
+    accesses where the map keeps them contiguous and aligned."""
+    pad = 4 - len(shape)
+    dims, st = (1,) * pad + tuple(shape), (0,) * pad + tuple(strides)
+    width = 16 // x.element_size()
+    vec = (st[3] == 1 and dims[3] % width == 0 and base % width == 0
+           and all(s % width == 0 for s in st[:3]) and x.data_ptr() % 16 == 0)
+    y = torch.empty(shape, dtype=x.dtype, device=x.device)
+    _call("probe_gather", int(x.dtype == BF16), x.data_ptr(), y.data_ptr(), *dims, *st, base,
+          None if chan is None else chan.data_ptr(), a, b, affine, int(vec), device=x.device)
+    return y
+
+
+def _transpose(x):
+    """Family 1, tiled path: x (R, C) bf16 -> (C, R)."""
+    R, C = x.shape
+    y = torch.empty((C, R), dtype=x.dtype, device=x.device)
+    _call("probe_transpose", x.data_ptr(), y.data_ptr(), R, C, device=x.device)
+    return y
+
+
+def _gemm(a, b, M, N, K, a_trans, out_dtype):
+    """Family 2: (M, N) = A . b with b (K, N) and a (M, K), or (K, M) when
+    ``a_trans``; bf16 operands, f32 sums, output in ``out_dtype``."""
+    y = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    _call("probe_gemm", a.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, int(a_trans),
+          int(out_dtype == BF16), device=a.device)
+    return y
+
+
+def _chain(s, wsh, wgb):
+    """Family 3: probe M's chain, (8, 8, 56, 128) f32."""
+    G = (s.shape[1] - 6) // MC_TH
+    y = torch.empty((G, MC_TH, s.shape[2], wgb.shape[2]), dtype=F32, device=s.device)
+    _call("probe_chain", s.data_ptr(), wsh.data_ptr(), wgb.data_ptr(), y.data_ptr(), G,
+          s.shape[1], s.shape[2], device=s.device)
+    return y
+
+
+def _taps(taps9bf16, xp, qw, scale, bias):
+    """Family 4: the tap products of the padded int8 input, bf16 out."""
+    B, Hp, Wp, cin = xp.shape
+    cout = qw.wq.shape[1]
+    y = torch.empty((B, Hp - 2, Wp - 2, cout), dtype=BF16, device=xp.device)
+    _call("probe_taps", int(taps9bf16), xp.data_ptr(), qw.wq.data_ptr(), scale.data_ptr(),
+          bias.data_ptr(), y.data_ptr(), B, Hp - 2, Wp - 2, cin, cout, device=xp.device)
+    return y
+
+
+def _dispatch(wrapper, plain, launch, args):
+    """The wrapper's dispatch: the plain version for CPU tensors, else the
+    kernel, counted."""
+    if args[0].device.type == "cpu":
+        return plain(*args)
+    out = launch(*args)
+    wrapper.launches += 1
+    return out
+
+
+def _probe(wrapper, launch, args):
+    """Check a layout probe's arguments against its Spec, then dispatch."""
+    name = wrapper.__name__
+    spec = SPECS[name]
+    _check(len(args) == len(spec.inputs), name, f"takes {len(spec.inputs)} tensors")
+    for k, (t, (shape, dtype)) in enumerate(zip(args, spec.inputs)):
+        _check(tuple(t.shape) == shape and t.dtype == dtype, name,
+               f"input {k} is {tuple(t.shape)} {t.dtype}, the probe takes {shape} {dtype}")
+        _check(t.device == args[0].device, name, f"input {k} is on {t.device}")
+        _check(t.is_contiguous() and t.data_ptr() % 16 == 0, name,
+               f"input {k} must be contiguous and 16-byte aligned")
+    return _dispatch(wrapper, plain_version(name), launch, args)
+
+
+# ------------------------------------------------------------ the wrappers
+
+def probe_a(x, w):
+    """Probe A: ``o[h, w, d] = sum_c x[h, w, c] w[c, d]``, f32 sums, bf16 out."""
+    return _probe(probe_a, lambda x, w: _gemm(x, w, 1024, 128, 32, False, BF16).view(16, 64, 128),
+                  (x, w))
+
+
+def probe_a2(s, w):
+    """Probe A2: ``o[h, w, n] = sum_c s[c, h, w] w[c, n]``, the contraction
+    over the major dim, f32 out."""
+    return _probe(probe_a2, lambda s, w: _gemm(s, w, 1120, 128, 12, True, F32).view(20, 56, 128),
+                  (s, w))
+
+
+def probe_b(x):
+    """Probe B: reshape (1600, 128) -> (8, 200, 128), + 1, reshape back."""
+    return _probe(probe_b, lambda x: _gather(x, (8, 200, 128), (25600, 128, 1), 0, a=1.0, b=1.0,
+                                             affine=SCALE_ADD).view(1600, 128), (x,))
+
+
+def probe_b2(x):
+    """Probe B2: reshape (1600, 128) -> (8, 200, 128), rows 4:196."""
+    return _probe(probe_b2, lambda x: _gather(x, (8, 192, 128), (25600, 128, 1), 4 * 128), (x,))
+
+
+def probe_c(x):
+    """Probe C: the 2-D transpose (12, 4000) -> (4000, 12), bf16."""
+    return _probe(probe_c, _transpose, (x,))
+
+
+def probe_c2(x):
+    """Probe C2: the 2-D transpose (128, 4000) -> (4000, 128), bf16."""
+    return _probe(probe_c2, _transpose, (x,))
+
+
+def probe_d(a, b):
+    """Probe D: (4000, 12) @ (12, 128), K = 12, f32 out."""
+    return _probe(probe_d, lambda a, b: _gemm(a, b, 4000, 128, 12, False, F32), (a, b))
+
+
+def probe_e(x, s):
+    """Probe E: ``x * s[c] + 1``, the channel broadcast."""
+    return _probe(probe_e, lambda x, s: _gather(x, (16, 192, 64), (12288, 64, 1), 0, chan=s,
+                                                b=1.0, affine=SCALE_ADD), (x, s))
+
+
+def probe_f(x):
+    """Probe F: the lane split (1, 4800) -> (400, 12)."""
+    return _probe(probe_f, lambda x: _gather(x, (400, 12), (12, 1), 0), (x,))
+
+
+def probe_g(x):
+    """Probe G: grid 2, ``o[16i:16i+16] = x[16i+3:16i+19]``."""
+    return _probe(probe_g, lambda x: _gather(x, (2, 16, 128), (2048, 128, 1), 3 * 128).view(32, 128),
+                  (x,))
+
+
+def probe_h(x):
+    """Probe H: (1, 16, 192, 64) blocks on a (2, 2) grid, each times 2."""
+    return _probe(probe_h, lambda x: _gather(x, (2, 32, 192, 64), (393216, 12288, 64, 1), 0,
+                                             a=2.0, affine=SCALE), (x,))
+
+
+def probe_i(a, b):
+    """Probe I: (128, 12) @ (12, 4000), N = 4000 the minor dim, f32 out."""
+    return _probe(probe_i, lambda a, b: _gemm(a, b, 128, 4000, 12, False, F32), (a, b))
+
+
+def probe_k(x):
+    """Probe K: the static unaligned lane slice ``x[:, :, 3:51]``."""
+    return _probe(probe_k, lambda x: _gather(x, (12, 20, 48), (1120, 56, 1), 3), (x,))
+
+
+def probe_l(x):
+    """Probe L: grid 2, ``o[i] = x[:, 8i+3:8i+19, :]``."""
+    return _probe(probe_l, lambda x: _gather(x, (2, 4, 16, 56), (448, 3584, 56, 1), 3 * 56), (x,))
+
+
+def probe_m(s, wsh, wgb):
+    """Probe M: the miniature SPADE chain (see :func:`probe_m_plain`)."""
+    return _probe(probe_m, _chain, (s, wsh, wgb))
+
+
+def _conv_variant(wrapper, plain, taps9bf16, xp, qw, scale, bias):
+    name = wrapper.__name__
+    _check(xp.dim() == 4 and xp.dtype == torch.int8, name,
+           "xp must be (B, H+2, W+2, Cin) int8")
+    B, Hp, Wp, cin = xp.shape
+    _check(Hp > 2 and Wp > 2, name, "xp has no pixel inside its halo")
+    _check(qw.wq.dim() == 3 and qw.wq.shape[0] == 9 and qw.wq.shape[2] == cin
+           and qw.wq.dtype == torch.int8, name, f"wq must be (9, Cout, {cin}) int8")
+    cout = qw.wq.shape[1]
+    _check(cin % CHANNEL_TILE == 0 and cout % CHANNEL_TILE == 0, name,
+           f"Cin={cin} and Cout={cout} must be multiples of {CHANNEL_TILE}")
+    for label, t in (("scale", scale), ("bias", bias)):
+        _check(t.dtype == F32 and tuple(t.shape) == (cout,), name, f"{label} must be f32 (Cout,)")
+    for label, t in (("xp", xp), ("wq", qw.wq), ("scale", scale), ("bias", bias)):
+        _check(t.device == xp.device, name, f"{label} is on {t.device}, xp on {xp.device}")
+        _check(t.is_contiguous() and t.data_ptr() % 16 == 0, name,
+               f"{label} must be contiguous and 16-byte aligned")
+    return _dispatch(wrapper, plain, lambda *a: _taps(taps9bf16, *a), (xp, qw, scale, bias))
+
+
+def conv_mmonly(xp: torch.Tensor, qw: QuantizedWeight, scale: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """The conv probe's ``mmonly`` variant: the centre tap of the padded int8
+    input times all nine weight taps, int32 sums, ``acc * scale + bias``,
+    (B, H, W, Cout) bf16. ``scale`` is the activation scale times the
+    weight's per-channel scale."""
+    return _conv_variant(conv_mmonly, conv_mmonly_plain, False, xp, qw, scale, bias)
+
+
+def conv_taps9bf16(xp: torch.Tensor, qw: QuantizedWeight, scale: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """The conv probe's ``taps9bf16`` variant: the 3x3 conv of the padded
+    int8 input with the int8 values as bf16 operands and f32 sums,
+    ``acc * scale + bias``, (B, H, W, Cout) bf16."""
+    return _conv_variant(conv_taps9bf16, conv_taps9bf16_plain, True, xp, qw, scale, bias)
+
+
+def plain_version(name: str):
+    """The plain PyTorch version beside a probe's wrapper."""
+    return globals()[f"{name}_plain"]
+
+
+WRAPPERS = {name: globals()[name] for name in (*SPECS, *CONV_VARIANTS)}
+for _wrapper in WRAPPERS.values():
+    _wrapper.launches = 0
+

@@ -190,3 +190,40 @@ def test_cuda_attention_value_chunk():
     assert [value_chunk(256, 2048), value_chunk(128, 1024), value_chunk(496, 4096)] == [256] * 3
     assert value_chunk(512, 4096) == 128  # 256-wide V tiles overflow shared memory
     assert (value_chunk(64, 384), value_chunk(16, 64)) == (128, 64)
+
+
+# one probe of each kernel family of csrc/probes.cu: movement (K, the
+# unaligned lane slice, on the scalar path; L on the 16-byte path),
+# contraction (A2, the major-dim contraction), the mini chain (M) and the
+# tap products (mmonly)
+PROBE_FAMILIES = ("probe_k", "probe_l", "probe_a2", "probe_m", "conv_mmonly")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", PROBE_FAMILIES)
+def test_cuda_probe_kernel_matches_plain(name):
+    """A probe kernel against its plain version on seeded inputs within
+    probes.TOLERANCE (exact for movement); the same inputs on the CPU take
+    the plain version and launch nothing, on the card the kernel once."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import int8_conv as ic
+    from shineon_tpu_torch.ops import probes as pr
+
+    if name in pr.SPECS:
+        args = pr.random_inputs(name, seed=9)
+    else:
+        g = torch.Generator().manual_seed(9)
+        qw = ic.quantize_weight(0.05 * torch.randn(128, 64, 3, 3, generator=g))
+        xp, s = pr.quantize_padded(torch.randn(2, 20, 13, 64, generator=g))
+        args = (xp, qw, (s * qw.scale).contiguous(), 0.1 * torch.randn(128, generator=g))
+    wrapper = pr.WRAPPERS[name]
+    before = wrapper.launches
+    ref = wrapper(*args)
+    assert wrapper.launches == before
+    cuda_args = tuple(ic.QuantizedWeight(*(t.cuda() for t in a)) if isinstance(a, tuple)
+                      else a.cuda() for a in args)
+    out = wrapper(*cuda_args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    ok, err, ratio = pr.agrees(name, out.cpu(), ref)
+    assert ok, (err, ratio)
