@@ -7,15 +7,19 @@ Phases, each fatal on failure:
   1. the card: torch's device name and count, and nvidia-smi's name and
      power limit;
   2. build the hand-written kernels from csrc/ (one nvcc a source, all at
-     once) and print their ptxas reports;
+     once) and print their ptxas reports; fail unless the two bf16 chain
+     bodies have wgmma (HGMMA, IGMMA in cuobjdump's SASS) fed by bulk
+     copies and no spills;
   3. hold each kernel against its plain PyTorch version at every shape the
      serving clips give it (the clips' batch), in bf16 and f32, plus a
      ragged tile, element by element, and time kernel and plain version on
      the same bf16 operands: the full-precision chain (3a, at the sites of
-     the clips with and without attention), the quantized chain with its
-     pre-pass (3b, the same sites, also held in rms, with two controls that
-     must fail its limits, and timed against the full-precision chain on
-     the same operands), the int8 3x3 conv (3c, on inputs of both signs,
+     the clips with and without attention and at the edges of its tiling,
+     labels and segmap channels, EDGES), the quantized chain with its pre-pass (3b, the same
+     sites, also held in rms, with two controls that must fail its limits,
+     and timed against the full-precision chain on the same operands); the
+     chains also by the device time of their own kernels (a torch.profiler
+     trace), with the share of the peak; the int8 3x3 conv (3c, on inputs of both signs,
      also timed against cuDNN's bf16 conv of the same shape, the conv it
      replaces) and SAGAN attention (3d, at flat and peaked score rows, with
      two controls that must fail at the peaked ones, also timed against
@@ -86,6 +90,13 @@ SITES = (
     (64, 48, 256, (4,), 0, 1), (64, 48, 256, (3,), 0, 2), (64, 48, 256, (2,), 0, 1),
 )
 RAGGED = (20, 13, 64, CUR, 0, 0)
+# edges of the bf16 chain kernels' tiling, labels and segmap channels,
+# beside RAGGED's odd count of 3 ragged pixel tiles and its one channel tile:
+# one pixel tile with L = 1, cs = 1; W below the tile width with L = 8,
+# cs = 8
+EDGES = ((8, 16, 128, (1,), 0, 0), (16, 12, 64, (8,) * 8, 0, 0))
+CHAIN_KERNELS = ("chain_kernel_bf16",)  # device-time filters of phase 3a / 3b
+INT8_CHAIN_KERNELS = ("chain_kernel_q_bf16", "hidden_absmax_kernel")
 # (N tokens, d, dv, launches a frame of the attention clip) of every SAGAN
 # attention shape: middle_2 (16x12, 4 labels x 1024 channels) twice, decode_1
 # norm_s and spade_0 (64x48, 4 x 512), decode_1 spade_1 (64x48, 4 x 256);
@@ -107,6 +118,57 @@ RAGGED_CONV = (20, 13, 64, 128, 0)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sass_counts(cuda_build, source):
+    """SASS instruction counts of the built library of ``source``, a
+    function: {function name: {"HGMMA": n, "IGMMA": n, "bulk": n}}, bulk
+    counting the bulk and tensor-map copies (UBLKCP, UTMALDG and their
+    kin). Read with the toolkit's cuobjdump."""
+    import re
+    from pathlib import Path
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(cuda_build.library_path(source))],
+                         check=True, capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"HGMMA": 0, "IGMMA": 0, "bulk": 0}
+        elif name is not None:
+            for op in ("HGMMA", "IGMMA"):
+                counts[name][op] += len(re.findall(rf"\b{op}\.", line))
+            counts[name]["bulk"] += len(re.findall(r"\bU\w*(?:BLK|TMA)\w*", line))
+    return counts
+
+
+def check_chain_build(cuda_build, fs, report):
+    """Phase 2 for the chain library: its two bf16 serving bodies run on
+    wgmma (HGMMA in chain_kernel_bf16, IGMMA in chain_kernel_q_bf16) fed by
+    bulk copies, and ptxas reports no spills for them."""
+    bodies = {"chain_kernel_bf16": "HGMMA", "chain_kernel_q_bf16": "IGMMA"}
+    failed = []
+    for name, c in sass_counts(cuda_build, fs.KERNEL_SOURCE).items():
+        short = next((b for b in (*bodies, "chain_kernel", "hidden_absmax") if b in name), None)
+        if short is None:
+            continue
+        log(f"  sass {name[:90]}: HGMMA {c['HGMMA']}, IGMMA {c['IGMMA']}, bulk copies "
+            f"{c['bulk']}")
+        if short in bodies and (c[bodies[short]] == 0 or c["bulk"] == 0):
+            failed.append(f"{short} has no {bodies[short]} or no bulk copy")
+    lines = report.splitlines()
+    if not lines:
+        failed.append("no ptxas report for the chain library")
+    for i, line in enumerate(lines):
+        body = next((b for b in bodies if f"{b}E" in line and "Function properties" in line), None)
+        if body and i + 1 < len(lines) and " 0 bytes spill stores" not in lines[i + 1]:
+            failed.append(f"{body} spills: {lines[i + 1].strip()}")
+    if len(failed) > 0:
+        raise SystemExit("chain build check failed: " + "; ".join(failed))
 
 
 def card_line() -> str:
@@ -199,50 +261,64 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps):
-    """Device time of the kernels fn launches, a call: their summed device
-    time in a torch.profiler trace of reps calls after a warm-up call. At
-    the probes' sizes a call's event time above measures the host path
-    (wrapper, allocation, launch), this the kernels alone. A trace that
-    now and then comes back without device events is taken again, up to
-    three times in all."""
+def device_times(torch, fn, reps, groups):
+    """Device time a call of fn, for each group of kernel names: the summed
+    device time of the kernels whose name holds one of the group's names
+    (None: every kernel) in a torch.profiler trace of reps calls after a
+    warm-up call. At the probes' sizes a call's event time measures the
+    host path (wrapper, allocation, launch), this the kernels alone; at the
+    chain sites it leaves out the wrapper's segmap concatenation and
+    allocation. A trace that now and then comes back without device events
+    of every group is taken again, up to five times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    for attempt in range(1, 6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type.name == "CUDA")
-        if total > 0:
-            return total / 1e3 / reps
-        log(f"the profiler trace shows no device time (attempt {attempt} of 3)")
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        times = {group: sum(e.self_device_time_total for e in events
+                            if names is None or any(n in e.key for n in names)) / 1e3 / reps
+                 for group, names in groups.items()}
+        if all(t > 0 for t in times.values()):
+            return times
+        log(f"the profiler trace shows no device time (attempt {attempt} of 5)")
     raise SystemExit("the profiler shows no device time")
 
 
+def device_ms(torch, fn, reps, names=None):
+    """Device time a call of the kernels fn launches (device_times), only
+    those whose name holds one of ``names`` where given."""
+    return device_times(torch, fn, reps, {"all": names})["all"]
+
+
 def seg_name(seg):
-    return "enc" if seg == ENC else "cur" if seg == CUR else f"seg{seg[0]}"
+    return "enc" if seg == ENC else "cur" if seg == CUR else "seg" + "-".join(map(str, seg))
 
 
 def time_site(torch, fs, args, site):
     """Kernel and plain version on the same bf16 operands, with the bound."""
     H, W, C, seg, per_frame, per_frame_att = site
     packed = fs.pack_weights(args[3], args[4], args[5], args[6], torch.bfloat16)
+    chain = lambda: fs.fused_multispade_modulate(*args, packed=packed)  # noqa: E731
     with torch.no_grad():
-        k_ms = cuda_ms(torch, lambda: fs.fused_multispade_modulate(*args, packed=packed), 5)
+        k_ms = cuda_ms(torch, chain, 5)
+        dev_ms = device_ms(torch, chain, 5, CHAIN_KERNELS)
         p_ms = cuda_ms(torch, lambda: fs.multispade_modulate_plain(*args), 5)
     flops, nbytes = site_cost(BATCH, H, W, C, seg, 2)
     bound_ms = 1e3 * max(flops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
     by = "operations" if flops / H100_BF16_FLOPS >= nbytes / H100_BYTES_PER_S else "bytes"
+    peak = flops / (dev_ms * 1e-3) / H100_BF16_FLOPS
     log(f"time bf16 B={BATCH} H={H} W={W} C={C} {seg_name(seg)} "
         f"x{per_frame}/{per_frame_att}/frame: "
-        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bound_ms:.4f} ms ({by}) "
-        f"kernel {flops / k_ms / 1e9:.2f} TFLOP/s")
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
-                per_frame=per_frame, per_frame_att=per_frame_att, flops=flops)
+        f"kernel device {dev_ms:.4f} ms (event {k_ms:.4f} ms, wrapper included) "
+        f"plain {p_ms:.4f} ms bound {bound_ms:.4f} ms ({by}) "
+        f"kernel {flops / dev_ms / 1e9:.2f} TFLOP/s, {100 * peak:.1f}% of the bf16 peak")
+    return dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
+                peak_share=peak, per_frame=per_frame, per_frame_att=per_frame_att, flops=flops)
 
 
 def check_chain_kernel(torch, fs):
@@ -251,7 +327,7 @@ def check_chain_kernel(torch, fs):
     fs.KERNEL_TOLERANCE); each bf16 site is then timed on the same operands.
     Every case is checked and printed before a failure ends the run."""
     errors, timings, failed = {}, {}, []
-    for i, site in enumerate(SITES + (RAGGED,)):
+    for i, site in enumerate(SITES + (RAGGED,) + EDGES):
         H, W, C, seg, per_frame, per_frame_att = site
         for dtype in (torch.bfloat16, torch.float32):
             args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, dtype, seed=i), DEVICE)
@@ -285,21 +361,28 @@ def int8_timings(torch, fs, args, site):
     x, ab, segs, wshs, bshs, wgbs, bgbs = args
     packed_q = fs.pack_weights(wshs, bshs, wgbs, bgbs, torch.bfloat16, quantized=True)
     packed = fs.pack_weights(wshs, bshs, wgbs, bgbs, torch.bfloat16)
-    seg_cat = torch.cat(segs, dim=-1).contiguous()
+    chain_q = lambda: fs.fused_multispade_modulate(  # noqa: E731
+        *args, packed=packed_q, quantized=True)
+    chain = lambda: fs.fused_multispade_modulate(*args, packed=packed)  # noqa: E731
     with torch.no_grad():
-        k_ms = cuda_ms(torch, lambda: fs.fused_multispade_modulate(
-            *args, packed=packed_q, quantized=True), 5)
-        pre_ms = cuda_ms(torch, lambda: fs.hidden_absmax(seg_cat, packed_q), 5)
+        k_ms = cuda_ms(torch, chain_q, 5)
+        dev = device_times(torch, lambda: (chain_q(), chain()), 5, {
+            "chain_q": INT8_CHAIN_KERNELS[:1], "pre": INT8_CHAIN_KERNELS[1:],
+            "fp": CHAIN_KERNELS})
+        dev_ms, pre_ms, fp_ms = dev["chain_q"] + dev["pre"], dev["pre"], dev["fp"]
         p_ms = cuda_ms(torch, lambda: fs.multispade_modulate_plain_int8(*args), 3)
-        fp_ms = cuda_ms(torch, lambda: fs.fused_multispade_modulate(*args, packed=packed), 5)
     bound_ms, by, ops = int8_site_bound(BATCH, H, W, C, seg)
+    # the share of the int8 peak: the bound's own mix of bf16 and int8 operations
+    peak = bound_ms / dev_ms if by == "operations" else float("nan")
     log(f"time int8 bf16 B={BATCH} H={H} W={W} C={C} {seg_name(seg)} "
         f"x{per_frame}/{per_frame_att}/frame: "
-        f"kernel {k_ms:.4f} ms (pre-pass {pre_ms:.4f}) plain {p_ms:.4f} ms "
-        f"bound {bound_ms:.4f} ms ({by}) bf16 chain {fp_ms:.4f} ms "
-        f"kernel {ops / k_ms / 1e9:.2f} Tops/s")
-    return dict(ms=k_ms, prepass_ms=pre_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
-                bf16_chain_ms=fp_ms, per_frame=per_frame, per_frame_att=per_frame_att, ops=ops)
+        f"kernel device {dev_ms:.4f} ms (pre-pass {pre_ms:.4f}; event {k_ms:.4f} ms, wrapper "
+        f"included) plain {p_ms:.4f} ms bound {bound_ms:.4f} ms ({by}) bf16 chain device "
+        f"{fp_ms:.4f} ms kernel {ops / dev_ms / 1e9:.2f} Tops/s, {100 * peak:.1f}% of the "
+        f"peak")
+    return dict(ms=k_ms, device_ms=dev_ms, prepass_ms=pre_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                bound_by=by, peak_share=peak, bf16_chain_device_ms=fp_ms, per_frame=per_frame,
+                per_frame_att=per_frame_att, ops=ops)
 
 
 def check_int8_chain(torch, fs):
@@ -311,7 +394,7 @@ def check_int8_chain(torch, fs):
     all) and the quantized kernel given gamma/beta weights quantized from
     their bf16 cast (a planted fault of the int8 stage)."""
     errors, timings, failed = {}, {}, []
-    for i, site in enumerate(SITES + (RAGGED,)):
+    for i, site in enumerate(SITES + (RAGGED,) + EDGES):
         H, W, C, seg, per_frame, per_frame_att = site
         for dtype in (torch.bfloat16, torch.float32):
             args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, dtype, seed=100 + i),
@@ -384,14 +467,16 @@ def check_int8_conv(torch, ic, fs):
                 x_nchw = x.permute(0, 3, 1, 2)
                 with torch.no_grad():
                     k_ms = cuda_ms(torch, lambda: ic.conv3x3_int8(x, qw, b, dtype), 10)
+                    k_dev = device_ms(torch, lambda: ic.conv3x3_int8(x, qw, b, dtype), 5)
                     p_ms = cuda_ms(torch, lambda: ic.conv3x3_int8_plain(x, qw, b, dtype), 3)
                     lib_ms = cuda_ms(torch, lambda: F.conv2d(x_nchw, w_bf, b_bf, padding=1), 10)
                 bound_ms, by, ops = conv_bound(BATCH, H, W, cin, cout)
                 log(f"time conv bf16 B={BATCH} H={H} W={W} {cin}->{cout} x{per_frame}/frame: "
-                    f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms bound {bound_ms:.4f} ms ({by}) "
+                    f"kernel {k_ms:.4f} ms (device {k_dev:.4f}) plain {p_ms:.4f} ms "
+                    f"bound {bound_ms:.4f} ms ({by}) "
                     f"cuDNN bf16 conv {lib_ms:.4f} ms kernel {ops / k_ms / 1e9:.2f} Tops/s")
                 timings[(H, W, cin, cout)] = dict(
-                    ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
+                    ms=k_ms, device_ms=k_dev, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
                     cudnn_bf16_ms=lib_ms, per_frame=per_frame, ops=ops)
     if failed:
         raise SystemExit(f"int8 conv disagrees with its plain version at {', '.join(failed)}")
@@ -478,16 +563,17 @@ def time_attention(torch, fa, F, q, k, v, per_frame):
     dv = v.shape[-1]
     with torch.no_grad():
         k_ms = cuda_ms(torch, lambda: fa.sagan_attention(q, k, v), 10)
+        k_dev = device_ms(torch, lambda: fa.sagan_attention(q, k, v), 5)
         p_ms = cuda_ms(torch, lambda: fa.attention_plain(q, k, v), 3)
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], v[:, None], scale=1.0), 10)
     need, done = attention_work(N, d, dv, fa.value_chunk(d, dv))
     bound_ms, by = bound(need / H100_BF16_FLOPS, BATCH * N * (2 * d + 2 * dv) * 2)
     log(f"time attention bf16 B={BATCH} N={N} d={d} dv={dv} x{per_frame}/frame: "
-        f"kernel {k_ms:.4f} ms plain {p_ms:.4f} ms SDPA {lib_ms:.4f} ms "
+        f"kernel {k_ms:.4f} ms (device {k_dev:.4f}) plain {p_ms:.4f} ms SDPA {lib_ms:.4f} ms "
         f"bound {bound_ms:.4f} ms ({by}) kernel {need / k_ms / 1e9:.2f} TFLOP/s "
         f"({done / k_ms / 1e9:.2f} TFLOP/s of the {done / need:.2f}x work it does)")
-    return dict(ms=k_ms, plain_ms=p_ms, sdpa_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, sdpa_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                 per_frame=per_frame, per_frame_att=per_frame, flops=need, work=done / need)
 
 
@@ -875,6 +961,7 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {source}: {line.strip()}")
+    check_chain_build(cuda_build, fs, reports[0])
 
     errors, timings = check_chain_kernel(torch, fs)
     q_errors, q_timings = check_int8_chain(torch, fs)
@@ -927,18 +1014,20 @@ def main() -> int:
     if built != n_convs or a_built != n_convs:
         raise SystemExit("an int8 generator's conv count disagrees with the conv list")
 
-    def per_clip(tim, key="per_frame"):
-        return (sum(t["ms"] * t[key] * n_frames for t in tim.values()),
+    def per_clip(tim, key="per_frame"):  # device time of the kernels, a clip
+        return (sum(t["device_ms"] * t[key] * n_frames for t in tim.values()),
                 sum(t["bound_ms"] * t[key] * n_frames for t in tim.values()))
 
     for name, tim in (("fused_multispade", timings), ("fused_multispade_int8", q_timings),
                       ("int8_conv3x3", c_timings)):
         k, b = per_clip(tim)
-        log(f"{name} per clip from the shape timings: {k:.1f} ms, bound {b:.2f} ms")
+        log(f"{name} per clip from the shape timings (device time): {k:.1f} ms, "
+            f"bound {b:.2f} ms")
     for name, tim in (("fused_multispade", timings), ("fused_multispade_int8", q_timings),
                       ("sagan_attention", a_timings)):
         k, b = per_clip(tim, "per_frame_att")
-        log(f"{name} per attention clip from the shape timings: {k:.1f} ms, bound {b:.2f} ms")
+        log(f"{name} per attention clip from the shape timings (device time): {k:.1f} ms, "
+            f"bound {b:.2f} ms")
     cudnn_clip = sum(t["cudnn_bf16_ms"] * t["per_frame"] * n_frames for t in c_timings.values())
     log(f"cuDNN bf16 conv at the same shapes per clip: {cudnn_clip:.1f} ms")
     sdpa_clip = sum(t["sdpa_ms"] * t["per_frame"] * n_frames for t in a_timings.values())
@@ -963,6 +1052,8 @@ def main() -> int:
         "max_abs_err": errors[top + ("bfloat16",)],
         "max_abs_err_f32": errors[top + ("float32",)],
         "ms": t["ms"],
+        "device_ms": t["device_ms"],
+        "peak_share": t["peak_share"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
@@ -981,12 +1072,14 @@ def main() -> int:
         "max_abs_err": q_errors[q_top + ("bfloat16",)][0],
         "max_abs_err_f32": q_errors[q_top + ("float32",)][0],
         "ms": qt["ms"],
+        "device_ms": qt["device_ms"],
+        "peak_share": qt["peak_share"],
         "prepass_ms": qt["prepass_ms"],
         "plain_ms": qt["plain_ms"],
         "bound_ms": qt["bound_ms"],
         "bound_by": qt["bound_by"],
         "library_ms": None,
-        "bf16_chain_ms": qt["bf16_chain_ms"],
+        "bf16_chain_device_ms": qt["bf16_chain_device_ms"],
         "site": site(q_top),
         "clip_ms": med["int8"],
         "clip_kernel_ms": per_clip(q_timings)[0],
@@ -1000,6 +1093,7 @@ def main() -> int:
         "max_abs_err": c_errors[c_top + ("bfloat16",)],
         "max_abs_err_f32": c_errors[c_top + ("float32",)],
         "ms": ct["ms"],
+        "device_ms": ct["device_ms"],
         "plain_ms": ct["plain_ms"],
         "bound_ms": ct["bound_ms"],
         "bound_by": ct["bound_by"],
@@ -1019,6 +1113,7 @@ def main() -> int:
         "max_abs_err": max(a_errors[a_top + ("bfloat16", rows)][0] for rows in SCORE_STDS),
         "max_abs_err_f32": max(a_errors[a_top + ("float32", rows)][0] for rows in SCORE_STDS),
         "ms": at["ms"],
+        "device_ms": at["device_ms"],
         "plain_ms": at["plain_ms"],
         "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"],

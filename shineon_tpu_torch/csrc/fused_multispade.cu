@@ -27,31 +27,45 @@
 // products and bias sum are round-to-nearest (__fmul_rn, __fadd_rn), never
 // contracted.
 //
+// Blocking: the TPU kernel keeps the whole image's segmaps and every
+// label's gamma/beta weights (18.9 MB in bf16 at C=1024, L=4) resident in
+// 100 MB of VMEM. A Hopper block has 227 KB, so this kernel blocks over
+// space AND output channels, which is exact because gamma_l[c] and beta_l[c]
+// only modulate x[..., c]. One block owns (sample, 8x16 pixel tile, 64
+// channels). Per label it recomputes the tile's 128-channel hidden map with
+// a 1-pixel halo into shared memory (9*8*128 MACs a hidden position against
+// 9*128*128 a pixel for the block's gamma/beta), then streams the label's
+// weights one 3x3 tap (a 128 x 128 slice: 32 KB in bf16, 16 KB in int8) at
+// a time through shared memory, accumulating gamma and beta in registers.
+// x stays in registers across labels and y is written once. Any H and W are
+// taken (ragged tiles are masked); C must be a multiple of 64.
+//
+// The bf16 serving bodies (chain_kernel_bf16, chain_kernel_q_bf16; design
+// at chain_wgmma below) run the gamma/beta conv on wgmma (m64n128k16 bf16,
+// or m64n128k32 s8, A from registers, B a 128-byte-swizzled slice image in
+// shared memory) with warp specialisation: a producer lane keeps a ring of
+// 4 (bf16) or 6 (int8) slices in flight by bulk async copies on mbarriers,
+// two consumer warpgroups compute. The hidden conv runs on mma.sync
+// straight from a segmap tile padded to 8 channels a label (no im2col); the
+// pre-pass takes the same code. The f32 bodies, kept for parity checks, are
+// the first design: scalar FMAs for the hidden map (and, unquantized,
+// gamma/beta), mma.sync s8 for the quantized gamma/beta conv from a
+// cp.async ring.
+//
 // What bounds it on this card: each pixel and label costs 2*9*128*2C
 // operations of gamma/beta product against ~4 bytes a channel of x/y
 // traffic, thousands of operations a byte, far above the H100's ridge (~295
-// FLOP/B in bf16, ~590 op/B in int8): the kernel is bound by operations. In
-// bf16, the serving dtype, both convolutions run on the tensor cores: the
-// hidden-map conv as an im2col GEMM (mma.sync m16n8k16, f32 accumulation),
-// the gamma/beta conv as one GEMM a tap (m16n8k16 bf16 or, quantized,
-// m16n8k32 s8 with s32 accumulation), with the taps' weight slices streamed
-// through shared memory by cp.async (two buffers in bf16, a ring of four in
-// int8) so the next slices load while the current one computes. The f32 path, kept for parity checks, computes
-// the hidden map with scalar FMAs (and, unquantized, gamma/beta too). wgmma
-// and TMA are later work.
-//
-// Design: the TPU kernel keeps the whole image's segmaps and every label's
-// gamma/beta weights (18.9 MB in bf16 at C=1024, L=4) resident in 100 MB of
-// VMEM. A Hopper block has 227 KB, so this kernel blocks over space AND
-// output channels, which is exact because gamma_l[c] and beta_l[c] only
-// modulate x[..., c]. One block owns (sample, 8x16 pixel tile, 64 channels).
-// Per label it recomputes the tile's 128-channel hidden map with a 1-pixel
-// halo into shared memory (about 9*cs*128 MACs a pixel against 9*128*128 for
-// the block's gamma/beta), then streams the label's weights one 3x3 tap (a
-// 128 x 128 slice: 32 KB in bf16, 16 KB in int8) at a time through shared
-// memory, accumulating gamma and beta in registers. x stays in registers
-// across labels and y is written once. Any H and W are taken (ragged tiles
-// are masked); C must be a multiple of 64.
+// FLOP/B in bf16, ~590 op/B in int8): the kernel is bound by operations in
+// device memory terms. Its weight slices come from L2: a slice serves a
+// block's 128 pixels, 128 FLOP a byte of L2 traffic in bf16 (256 int8 ops a
+// byte in int8), so the tensor cores at their peak would draw about 7.7
+// TB/s from L2 in either type, beyond what the L2 delivers: at 256x192,
+// C=128, L=4, batch 4 the slices are 3.6 GB a call. Two blocks of a cluster
+// sharing each slice by multicast halved that and measured slower on an
+// H100 (PERF.md): each pair waited on its slowest warpgroup at every
+// refill. With the products on wgmma, the kernel is held by what runs
+// beside them: the slice stream, the hidden conv (recomputed for each
+// 64-channel tile) and, quantized, its quantizing epilogue.
 
 #include <type_traits>
 
@@ -77,13 +91,12 @@ constexpr int PX = TH * TW / NPG;        // pixels a thread (4)
 
 struct ChainArgs {
   int H, W, C, L, cs_tot;
-  int kp;  // bf16 path: hidden-conv depth 9*max(cs) padded to a multiple of 16
+  int tiles_w;  // pixel tiles along W
   int cs[MAX_L];
   int cs_off[MAX_L];
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // 8 consecutive floats (32-byte aligned).
 __device__ __forceinline__ void load8(const float* p, float (&o)[CPT]) {
@@ -120,12 +133,19 @@ __device__ __forceinline__ void load_segmap_tile(float* s_s, const T* __restrict
 // bf16, plus the bias in bf16, rounded again. So kernel and plain version
 // quantize the same hidden values wherever their f32 sums round alike, and
 // the pre-pass's abs-max is the one the chain divides by.
+// v rounded to bf16 (nearest, ties to even) and back, for finite v, in
+// integer operations: the same value as __float2bfloat16_rn, without the
+// conversion unit, which the quantized chain's epilogue would saturate.
+__device__ __forceinline__ float round_bf16(float v) {
+  uint32_t u = __float_as_uint(v);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return __uint_as_float(u & 0xFFFF0000u);
+}
+
 template <bool ROUND_BF16>
 __device__ __forceinline__ float hidden_value(float acc, float bias) {
   if (!ROUND_BF16) return fmaxf(acc + bias, 0.f);
-  const float v = __bfloat162float(__float2bfloat16_rn(acc)) +
-                  __bfloat162float(__float2bfloat16_rn(bias));
-  return fmaxf(__bfloat162float(__float2bfloat16_rn(v)), 0.f);
+  return fmaxf(round_bf16(round_bf16(acc) + round_bf16(bias)), 0.f);
 }
 
 // Where the hidden conv puts its values: each policy gives the value of a
@@ -160,9 +180,23 @@ struct HidQuant {  // quantized chain: the int8 tile [HT*WT][HS], scale s = 1 / 
   __device__ __forceinline__ void put(int p, int k, float v) {
     h[p * HS + k] = static_cast<int8_t>(quant_level(v, s, r));
   }
+  // quant_level in full-rate arithmetic: clip(y, -127, 127) rounds to
+  // nearest even as y + 1.5 * 2^23 (whose low byte is then the level), the
+  // same integer as rintf and then the clip; near a half-integer, from the
+  // IEEE quotient, as quant_level.
+  static __device__ __forceinline__ float shifted(float y) {
+    return __fadd_rn(fminf(fmaxf(y, -127.f), 127.f), 12582912.f);
+  }
+  __device__ __forceinline__ int8_t level(float v) const {
+    const float y = v * r;
+    float t = shifted(y);
+    const float q = __fadd_rn(t, -12582912.f);
+    if (fabsf(fabsf(fminf(fmaxf(y, -127.f), 127.f) - q) - 0.5f) < 1e-4f)
+      t = shifted(__fdiv_rn(v, s));
+    return static_cast<int8_t>(__float_as_int(t) & 0xFF);
+  }
   __device__ __forceinline__ void put2(int p, int k, float v0, float v1) {
-    *reinterpret_cast<char2*>(h + p * HS + k) = make_char2(
-        static_cast<int8_t>(quant_level(v0, s, r)), static_cast<int8_t>(quant_level(v1, s, r)));
+    *reinterpret_cast<char2*>(h + p * HS + k) = make_char2(level(v0), level(v1));
   }
 };
 
@@ -330,35 +364,14 @@ chain_kernel_f32(const float* __restrict__ x, const float* __restrict__ ab,
     if (valid[j]) store8(y + xoff[j], xr[j]);
 }
 
-// --------------------------------------------------------------- bf16 path
-// Tensor cores for both convolutions, mma.sync m16n8k16 bf16 -> f32 with
-// ldmatrix fragments.
-//  * hidden conv: an im2col GEMM per label, (192 = 180 hidden positions
-//    padded) x (9*cs padded to kp) x (128 hidden channels);
-//  * [gamma | beta] conv: per tap a (128 pixels) x (128 hidden) x (128 =
-//    64 gamma + 64 beta columns) product. The 8 warps split it 4 (pixel
-//    rows) x 2 (channel halves); each warp holds a 32 x 64 accumulator. The
-//    weight slice in shared memory interleaves gamma and beta n-tiles
-//    (gamma channels 8p..8p+7, then beta channels 8p..8p+7), so one thread's
-//    accumulators hold gamma and beta of the same pixels and channels and
-//    the modulation runs on them in registers. Weight slices are double
-//    buffered with cp.async: the next tap's slice (and a label's first
-//    slice, during its hidden conv) loads while the current one computes.
-// x, y, seg: bf16.  wsh: (L, NHID, kp) bf16, k = tap*cs_l + ci, zero padded.
-// wgb: (L, 9, 2C, NHID) bf16 (hidden index contiguous).
-constexpr int HS_BF16 = NHID + 8;  // 272-byte rows: 16-byte aligned, conflict-free ldmatrix
-constexpr int WS_BF16 = NHID + 8;
-constexpr int KP_MAX = (9 * MAX_CS + 15) / 16 * 16;  // 80
-constexpr int AS_MAX = KP_MAX + 8;                   // im2col row stride bound
-constexpr int HM = (HT * WT + 15) / 16 * 16;         // hidden positions padded (192)
+// ------------------------------------- f32 quantized chain: mma.sync fragments
 constexpr int WARPS = NTHREADS / 32;
 constexpr int WARPS_M = 4;         // warps along the pixel rows of the tile
 constexpr int MT = TH / WARPS_M;   // m16 tiles (tile rows) a warp (2)
 constexpr int NPAIR = TC / 8 / (WARPS / WARPS_M);  // gamma/beta n-tile pairs a warp (4)
-constexpr int HID_MCHUNK = 4;      // hidden-conv m-tiles a warp holds at once
 
-// The chain bodies on the tensor cores (bf16, quantized) share one layout of
-// a thread's accumulators: element e of (m-tile mi, gamma/beta pair pi) is
+// The f32 quantized chain's mma.sync layout of a thread's accumulators:
+// element e of (m-tile mi, gamma/beta pair pi) is
 //   pixel (tile row MT*wm + mi, tile column g + 8*(e/2)),
 //   channel chw + 8*pi + e%2,  chw = ch0 + 8*NPAIR*wn + 2*t
 // (warp (wm, wn), mma group g, thread t in the group) in the block's
@@ -465,94 +478,126 @@ __device__ __forceinline__ void modulate_frag(float (&xr)[MT][NPAIR][4],
   }
 }
 
-constexpr size_t smem_bf16() {
-  return sizeof(__nv_bfloat16) *
-             ((size_t)HT * WT * HS_BF16 + 2 * 2 * TC * WS_BF16 + (HM + NHID) * AS_MAX) +
-         sizeof(float) * (size_t)(ST * SWT * MAX_CS);
-}
+// ------------------------------------------------ bf16 serving bodies (wgmma)
+// chain_kernel_bf16 (kernel 1) and chain_kernel_q_bf16 (kernel 2) share one
+// body, chain_wgmma<QUANT>:
+//  * 384 threads: two consumer warpgroups (warps 0-7) and a producer
+//    warpgroup, one lane of which issues the copies. Warpgroup w owns tile
+//    rows 4w..4w+3, its warp q tile row 4w+q: the 64 rows of the
+//    warpgroup's products are 4 x 16 pixels.
+//  * Each tap's [gamma | beta] weight slice is one contiguous, pre-swizzled
+//    image (pack_weights), copied by one bulk copy. The ring has NST
+//    stages with a full and an empty mbarrier each; a stage is refilled
+//    once all 8 consumer warps have released it.
+//  * Hidden conv (per label, mma.sync m16n8k16): the segmap is padded to
+//    SEG_C = 8 channels a label, 16 bytes a position, so each 8-element
+//    k-half of A (k = tap*8 + ci) is one segmap position at a tap's offset
+//    in the segmap tile, read straight by ldmatrix: no im2col. The hidden
+//    weights (L, 128, KH) come from global memory into registers. Each
+//    consumer warpgroup computes the 6 hidden rows its taps read (rows 4-5
+//    by both) behind its own named barrier, so that one warpgroup's hidden
+//    conv overlaps the other's taps, and the next label's segmap rows load
+//    during the current label's taps.
+//  * [gamma | beta] conv (per tap, wgmma m64n128, A from registers): A is
+//    the hidden tile shifted by the tap, whose 8-row groups sit at uneven
+//    strides (+8 positions, then +WT), so no descriptor names it; each
+//    warp's 16 rows are one tile row, contiguous, loaded by ldmatrix. B is
+//    the slice through a 128-byte-swizzle descriptor. Columns 0..63 of the
+//    product are gamma, 64..127 beta: thread (g, t) of warp q holds gamma
+//    and beta of channels 8i + 2t (+1), i = 0..7, at pixels g and g + 8 of
+//    its tile row, and the modulation runs in registers.
+constexpr int CONSUMERS = 256;             // two consumer warpgroups
+constexpr int NTHREADS_WG = CONSUMERS + 128;  // and a producer warpgroup
+constexpr int SEG_C = MAX_CS;              // segmap channels a label, padded
+constexpr int KH = (9 * SEG_C + 15) / 16 * 16;  // hidden-conv depth (80)
+constexpr int HS_BF16 = NHID + 8;          // 272-byte rows: conflict-free ldmatrix
+constexpr int HSQ = NHID + 16;             // 144-byte int8 rows
+constexpr int SLICE_B = 2 * TC * NHID * 2;  // bytes of a bf16 slice image (32 KB)
+constexpr int SLICE_Q8 = 2 * TC * NHID;     // bytes of an int8 slice image (16 KB)
+constexpr int NST_B = 4;                   // ring stages, bf16
+constexpr int NST_Q8 = 6;                  // ring stages, int8
+constexpr int SEG_TILE_BYTES = ST * SWT * SEG_C * 2;  // the pre-pass's segmap tile
+constexpr int NH_WG = 4 + 2;  // hidden rows a consumer warpgroup computes (4 + halo)
+constexpr int SEG_WG = (NH_WG + 2) * SWT * SEG_C;  // elements of a warpgroup's segmap rows
 
-// Start copying one tap's [gamma | beta] weight slice into w_buf: shared row
-// n (0..2TC) holds output column (n/8 odd ? C : 0) + ch0 + 8*(n/16) + n%8.
-__device__ __forceinline__ void load_gb_slice(__nv_bfloat16* w_buf,
-                                              const __nv_bfloat16* __restrict__ wgb,
-                                              const ChainArgs& args, int l, int tap, int ch0) {
-  const size_t twoC = 2 * (size_t)args.C;
-  const __nv_bfloat16* wt = wgb + ((size_t)l * 9 + tap) * twoC * NHID;
-  for (int i = threadIdx.x; i < 2 * TC * (NHID / 8); i += NTHREADS) {
-    const int n = i / (NHID / 8), chunk = i % (NHID / 8);
-    const size_t col = ((n / 8) % 2 ? (size_t)args.C : 0) + ch0 + 8 * (n / 16) + n % 8;
-    cp_async16(w_buf + n * WS_BF16 + 8 * chunk, wt + col * NHID + 8 * chunk);
+// Segmap rows of label l for hidden rows h0..h0+nh-1 of the tile: segmap
+// tile rows h0..h0+nh+1 (image rows r0-2+h0 ..), bf16, SEG_C channels a
+// position, into s_seg ([(nh+2)*SWT][SEG_C]) by 16-byte cp.async, zero
+// outside the image; threads tid of n. Committed.
+__device__ __forceinline__ void load_seg_rows(__nv_bfloat16* s_seg,
+                                              const __nv_bfloat16* __restrict__ seg,
+                                              const ChainArgs& args, int l, int b, int r0,
+                                              int c0, int h0, int nh, int tid, int n) {
+  const size_t stride = (size_t)SEG_C * args.L;
+  for (int pos = tid; pos < (nh + 2) * SWT; pos += n) {
+    const int sr = r0 - 2 + h0 + pos / SWT, sc = c0 - 2 + pos % SWT;
+    const bool inside = sr >= 0 && sr < args.H && sc >= 0 && sc < args.W;
+    const size_t at = inside ? ((size_t)b * args.H + sr) * args.W + sc : 0;
+    cp_async16_zfill(s_seg + pos * SEG_C, seg + at * stride + SEG_C * l, inside);
   }
   cp_async_commit();
 }
 
-// Hidden tile of label l on the tensor cores: im2col of the segmap tile
-// (a_s, [HM][kp+8]) times the label's hidden weights (b_s, [NHID][kp+8]),
-// then Out::hidden with the bias, zero outside the image, into `out`.
-template <typename Out>
-__device__ __forceinline__ void hidden_mma(Out& out, __nv_bfloat16* a_s,
-                                           __nv_bfloat16* b_s, const float* s_s,
-                                           const __nv_bfloat16* __restrict__ wsh,
-                                           const float* __restrict__ bsh,
-                                           const ChainArgs& args, int l, int r0, int c0) {
-  const int cs = args.cs[l], kp = args.kp, as = kp + 8, k9 = 9 * cs;
-  for (int i = threadIdx.x; i < HM * kp; i += NTHREADS) {
-    const int p = i / kp, k = i % kp;
-    float v = 0.f;
-    if (p < HT * WT && k < k9) {
-      const int tap = k / cs, ci = k % cs;
-      v = s_s[((p / WT + tap / 3) * SWT + p % WT + tap % 3) * cs + ci];
-    }
-    a_s[p * as + k] = __float2bfloat16(v);
-  }
-  const __nv_bfloat16* wl = wsh + (size_t)l * NHID * kp;
-  for (int i = threadIdx.x; i < NHID * kp / 8; i += NTHREADS) {
-    const int n = i / (kp / 8), chunk = i % (kp / 8);
-    *reinterpret_cast<uint4*>(b_s + n * as + 8 * chunk) =
-        __ldg(reinterpret_cast<const uint4*>(wl + (size_t)n * kp) + chunk);
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+// One pass of hidden_mma: hidden channels n0..n0+8*NJ-1.
+template <int NJ, int MCH, typename Out>
+__device__ __forceinline__ void hidden_mma_pass(Out& out, const __nv_bfloat16* s_seg,
+                                                const __nv_bfloat16* __restrict__ wsh,
+                                                const float* __restrict__ bsh,
+                                                const ChainArgs& args, int l, int r0, int c0,
+                                                int h0, int nh, int n0, int lane) {
   const int g = lane / 4, t = lane % 4;
-  const int a_row = (lane % 8) + 8 * ((lane / 8) % 2), a_k = 8 * (lane / 16);
-  const int b_row = (lane % 8) + 8 * (lane / 16), b_k = 8 * ((lane / 8) % 2);
-  const int n0 = 16 * warp;  // this warp's two n-tiles of the 128 hidden channels
-  float bias[2][2];
+  uint32_t bfr[KH / 16][NJ][2];
+  const __nv_bfloat16* wl = wsh + (size_t)l * NHID * KH;
 #pragma unroll
-  for (int nj = 0; nj < 2; ++nj)
+  for (int ks = 0; ks < KH / 16; ++ks)
+#pragma unroll
+    for (int nj = 0; nj < NJ; ++nj) {
+      const __nv_bfloat16* w = wl + (size_t)(n0 + 8 * nj + g) * KH + 16 * ks + 2 * t;
+      bfr[ks][nj][0] = __ldg(reinterpret_cast<const unsigned int*>(w));
+      bfr[ks][nj][1] = __ldg(reinterpret_cast<const unsigned int*>(w + 8));
+    }
+  float bias[NJ][2];
+#pragma unroll
+  for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
     for (int e = 0; e < 2; ++e) bias[nj][e] = bsh[l * NHID + n0 + 8 * nj + 2 * t + e];
 
-  for (int m0 = 0; m0 < HM / 16; m0 += HID_MCHUNK) {
-    float acc[HID_MCHUNK][2][4];
+  const int npos = nh * WT;
+  const int a_row = (lane % 8) + 8 * ((lane / 8) % 2), a_half = lane / 16;
+  for (int m0 = 0; 16 * m0 < npos; m0 += MCH) {
+    float acc[MCH][NJ][4];
+    int base[MCH];  // segmap position of this lane's A row at tap (0, 0)
 #pragma unroll
-    for (int mi = 0; mi < HID_MCHUNK; ++mi)
+    for (int mi = 0; mi < MCH; ++mi) {
+      const int p = min(16 * (m0 + mi) + a_row, npos - 1);
+      base[mi] = (p / WT) * SWT + p % WT;
 #pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
+      for (int nj = 0; nj < NJ; ++nj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-    for (int ks = 0; ks < kp / 16; ++ks) {
-      uint32_t bfr[4];
-      ldmatrix_x4(bfr, b_s + (n0 + b_row) * as + 16 * ks + b_k);
+    }
 #pragma unroll
-      for (int mi = 0; mi < HID_MCHUNK; ++mi) {
+    for (int ks = 0; ks < KH / 16; ++ks) {
+      const int tap = min(2 * ks + a_half, 8);  // k >= 72: zero weights
+      const int off = (tap / 3) * SWT + tap % 3;
+#pragma unroll
+      for (int mi = 0; mi < MCH; ++mi) {
         uint32_t afr[4];
-        ldmatrix_x4(afr, a_s + (16 * (m0 + mi) + a_row) * as + 16 * ks + a_k);
-        mma_bf16(acc[mi][0], afr, bfr[0], bfr[1]);
-        mma_bf16(acc[mi][1], afr, bfr[2], bfr[3]);
+        ldmatrix_x4(afr, s_seg + (base[mi] + off) * SEG_C);
+#pragma unroll
+        for (int nj = 0; nj < NJ; ++nj) mma_bf16(acc[mi][nj], afr, bfr[ks][nj][0], bfr[ks][nj][1]);
       }
     }
 #pragma unroll
-    for (int mi = 0; mi < HID_MCHUNK; ++mi) {
+    for (int mi = 0; mi < MCH; ++mi) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int p = 16 * (m0 + mi) + g + 8 * half;
-        if (p >= HT * WT) continue;
-        const int ir = r0 - 1 + p / WT, ic = c0 - 1 + p % WT;
+        if (p >= npos) continue;
+        const int ir = r0 - 1 + h0 + p / WT, ic = c0 - 1 + p % WT;
         const bool inside = ir >= 0 && ir < args.H && ic >= 0 && ic < args.W;
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
+        for (int nj = 0; nj < NJ; ++nj) {
           float v0 = Out::hidden(acc[mi][nj][2 * half], bias[nj][0]);
           float v1 = Out::hidden(acc[mi][nj][2 * half + 1], bias[nj][1]);
           if (!inside) v0 = v1 = 0.f;
@@ -563,96 +608,266 @@ __device__ __forceinline__ void hidden_mma(Out& out, __nv_bfloat16* a_s,
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-chain_kernel_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
-                  const __nv_bfloat16* __restrict__ seg, const __nv_bfloat16* __restrict__ wsh,
-                  const float* __restrict__ bsh, const __nv_bfloat16* __restrict__ wgb,
-                  const float* __restrict__ bgb, __nv_bfloat16* __restrict__ y,
-                  const ChainArgs args) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* h_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [HT*WT][HS_BF16]
-  __nv_bfloat16* w_s = h_s + HT * WT * HS_BF16;                 // 2 x [2*TC][WS_BF16]
-  __nv_bfloat16* a_s = w_s + 2 * 2 * TC * WS_BF16;              // [HM][kp+8]
-  __nv_bfloat16* b_s = a_s + HM * AS_MAX;                       // [NHID][kp+8]
-  float* s_s = reinterpret_cast<float*>(b_s + NHID * AS_MAX);   // [ST*SWT][cs]
-
-  const Frag frag = Frag::of_thread(args);
-  const int b = frag.b, r0 = frag.r0, c0 = frag.c0, ch0 = frag.ch0, wm = frag.wm, wn = frag.wn;
-  const int L = args.L, lane = threadIdx.x % 32;
-
-  float xr[MT][NPAIR][4];
-  bool valid[MT][2];
-  load_x_frag(xr, valid, x, args, frag);
-
-  // ldmatrix row addresses of this lane
-  const int a_row = (lane % 8) + 8 * ((lane / 8) % 2);  // pixel column in the m-tile
-  const int a_k = 8 * (lane / 16);
-  const int b_row = (lane % 8) + 8 * (lane / 16);       // row in a gamma/beta n-tile pair
-  const int b_k = 8 * ((lane / 8) % 2);
-
-  for (int l = 0; l < L; ++l) {
-    load_gb_slice(w_s, wgb, args, l, 0, ch0);  // overlaps the hidden conv
-    load_segmap_tile(s_s, seg, args, l, b, r0, c0);
-    __syncthreads();
-    HidStoreBf16<HS_BF16> hid{h_s};
-    hidden_mma(hid, a_s, b_s, s_s, wsh, bsh, args, l, r0, c0);
-
-    float acc[MT][2 * NPAIR][4];
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int n = 0; n < 2 * NPAIR; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
-
-    for (int tap = 0; tap < 9; ++tap) {
-      __nv_bfloat16* w_cur = w_s + (tap % 2) * 2 * TC * WS_BF16;
-      if (tap + 1 < 9) {
-        load_gb_slice(w_s + ((tap + 1) % 2) * 2 * TC * WS_BF16, wgb, args, l, tap + 1, ch0);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();  // this tap's slice (and, at tap 0, the hidden tile) visible to all
-      const int di = tap / 3, dj = tap % 3;
-#pragma unroll 2
-      for (int ks = 0; ks < NHID / 16; ++ks) {
-        uint32_t afr[MT][4];
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          const int pos = (MT * wm + mi + di) * WT + a_row + dj;
-          ldmatrix_x4(afr[mi], h_s + pos * HS_BF16 + 16 * ks + a_k);
-        }
-#pragma unroll
-        for (int pi = 0; pi < NPAIR; ++pi) {
-          uint32_t bfr[4];
-          ldmatrix_x4(bfr, w_cur + (16 * (NPAIR * wn + pi) + b_row) * WS_BF16 + 16 * ks + b_k);
-#pragma unroll
-          for (int mi = 0; mi < MT; ++mi) {
-            mma_bf16(acc[mi][2 * pi], afr[mi], bfr[0], bfr[1]);
-            mma_bf16(acc[mi][2 * pi + 1], afr[mi], bfr[2], bfr[3]);
-          }
-        }
-      }
-      __syncthreads();  // everyone is done with w_cur before it is refilled
-    }
-
-    modulate_frag(xr, acc, ab, bgb, nullptr, 0.f, args, l, frag);
-  }
-  store_y_frag(y, xr, valid, args, frag);
+// Hidden rows h0..h0+nh-1 of the tile of label l on the tensor cores, read
+// from s_seg (segmap rows h0..h0+nh+1, load_seg_rows), by NW warps: warp
+// `warp` computes hidden channels (128/NW)*warp.. of the nh*WT positions
+// (local position p = (hr - h0)*WT + hc; rows past them are clamped and
+// dropped), then Out::hidden with the bias, zero outside the image, into
+// `out` at p.
+template <int NW, typename Out>
+__device__ __forceinline__ void hidden_mma(Out& out, const __nv_bfloat16* s_seg,
+                                           const __nv_bfloat16* __restrict__ wsh,
+                                           const float* __restrict__ bsh, const ChainArgs& args,
+                                           int l, int r0, int c0, int h0, int nh, int warp,
+                                           int lane) {
+  // a warp's 128/NW channels in passes of 16 (two n8 tiles), to bound the
+  // registers the B fragments and sums hold beside the chain's own
+  constexpr int NJ = 2, MCH = 4;  // n8 tiles a pass, m16 tiles held at once
+  for (int pass = 0; pass < NHID / 16 / NW; ++pass)
+    hidden_mma_pass<NJ, MCH>(out, s_seg, wsh, bsh, args, l, r0, c0, h0, nh,
+                             16 * (NHID / 16 / NW * warp + pass), lane);
 }
 
-// ---------------------------------------------------------- quantized path
+// Shared memory of a wgmma chain body: the weight ring (1024-byte aligned
+// stages), each consumer warpgroup's hidden rows and two buffers of its
+// segmap rows (the next label's load during the current label's taps), the
+// ring's barriers; plus
+// slack to align the dynamic buffer's base to 1024 bytes.
+template <bool QUANT>
+struct WgLayout {
+  static constexpr int SLICE = QUANT ? SLICE_Q8 : SLICE_B;
+  static constexpr int NST = QUANT ? NST_Q8 : NST_B;
+  static constexpr int HROW = QUANT ? HSQ : 2 * HS_BF16;  // bytes a hidden position
+  static constexpr size_t HID = (size_t)NST * SLICE;
+  static constexpr size_t SEG = HID + 2 * (size_t)NH_WG * WT * HROW;  // a tile a warpgroup
+  static constexpr size_t BARS = SEG + 2 * 2 * sizeof(__nv_bfloat16) * SEG_WG;  // two a warpgroup
+  static constexpr size_t BYTES = BARS + 2 * NST * sizeof(uint64_t) + 1024;
+};
+
+// x <- (x * a + b) * (1 + gamma) + beta for label l from a wgmma
+// accumulator (gamma in columns 0..63, beta in 64..127). xr[i][2*half + e]
+// is channel ch0 + 8i + 2t + e at pixel column g + 8*half.
+template <typename Acc>
+__device__ __forceinline__ void modulate_wg(float (&xr)[8][4], const Acc (&acc)[64],
+                                            const float* __restrict__ ab,
+                                            const float* __restrict__ bgb,
+                                            const float* __restrict__ sgb, float s,
+                                            const ChainArgs& args, int l, int b, int ch) {
+  const int C = args.C;
+  const size_t twoC = 2 * (size_t)C;
+  const float* abl = ab + ((size_t)b * args.L + l) * twoC;
+  const float* bgl = bgb + (size_t)l * twoC;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = ch + 8 * i + e;
+      const float a = abl[c], bb = abl[C + c], g0 = bgl[c], b0 = bgl[C + c];
+      const float sg = sgb ? __fmul_rn(s, sgb[l * twoC + c]) : 0.f;
+      const float sb = sgb ? __fmul_rn(s, sgb[l * twoC + C + c]) : 0.f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float gam = dequant(acc[4 * i + 2 * half + e], sg, g0);
+        const float bet = dequant(acc[4 * (i + 8) + 2 * half + e], sb, b0);
+        float& v = xr[i][2 * half + e];
+        v = (v * a + bb) * (1.f + gam) + bet;
+      }
+    }
+  }
+}
+
+// The bf16 serving chain, full precision (QUANT = false; wgb: bf16 slice
+// images, sgb and absmax unused) or quantized (wgb: int8 slice images, sgb
+// (L, 2C) weight scales, absmax (L,) from the pre-pass). x, y, seg, wsh
+// bf16: seg (B, H, W, SEG_C * L), wsh (L, NHID, KH).
+template <bool QUANT>
+__device__ __forceinline__ void chain_wgmma(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
+    const __nv_bfloat16* __restrict__ seg, const __nv_bfloat16* __restrict__ wsh,
+    const float* __restrict__ bsh, const unsigned char* __restrict__ wgb,
+    const float* __restrict__ sgb, const float* __restrict__ bgb,
+    const float* __restrict__ absmax, __nv_bfloat16* __restrict__ y, const ChainArgs& args) {
+  using Lay = WgLayout<QUANT>;
+  using Acc = typename std::conditional<QUANT, int, float>::type;
+  constexpr int SLICE = Lay::SLICE, NST = Lay::NST, HROW = Lay::HROW;
+  constexpr int KSTEPS = QUANT ? NHID / 32 : NHID / 16;  // 32-byte k-steps of a tap
+  constexpr int KPART = 4;  // k-steps whose A fragments are held at once
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* ring = smem;
+  unsigned char* h_s = smem + Lay::HID;
+  __nv_bfloat16* s_seg = reinterpret_cast<__nv_bfloat16*>(smem + Lay::SEG);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Lay::BARS);
+  uint64_t* empty = full + NST;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = (blockIdx.x / args.tiles_w) * TH;
+  const int c0 = (blockIdx.x % args.tiles_w) * TW;
+  const int ch0 = blockIdx.y * TC, b = blockIdx.z;
+  const int nsteps = 9 * args.L;
+
+  if (tid == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  // The two roles never reconverge. Of the 168 registers a thread of the
+  // 384-thread launch, the producer warpgroup gives back 128 and the
+  // consumers ask for 232 a thread (setmaxnreg); ptxas still budgets the
+  // consumer code at 168, which the one-tap A fragments and the 16-channel
+  // hidden passes keep free of spills. The producer may return early: the
+  // consumers wait on every copy it issues.
+  if (warp >= CONSUMERS / 32) {
+    // producer: one lane streams every (label, tap) slice of the block's
+    // channel tile
+    setmaxnreg_dec<40>();
+    if (warp == CONSUMERS / 32 && lane == 0) {
+      const unsigned char* src = wgb + (size_t)blockIdx.y * SLICE;
+      const size_t step = (size_t)(args.C / TC) * SLICE;  // from one (label, tap) to the next
+      for (int s = 0; s < nsteps; ++s) {
+        const int st = s % NST;
+        mbar_wait(&empty[st], ((s / NST) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[st], SLICE);
+        bulk_copy(ring + st * SLICE, src + s * step, SLICE, &full[st]);
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const int wg = warp / 4, q = warp % 4, g = lane / 4, t = lane % 4;
+    const int trow = 4 * wg + q;  // this warp's tile row
+    const int r = r0 + trow, ch = ch0 + 2 * t;
+    // this warpgroup's hidden rows 4wg..4wg+5 and segmap rows, its own
+    unsigned char* h_wg = h_s + wg * NH_WG * WT * HROW;
+    __nv_bfloat16* seg_wg = s_seg + wg * 2 * SEG_WG;
+    const int h0 = 4 * wg, wtid = tid % 128;
+    load_seg_rows(seg_wg, seg, args, 0, b, r0, c0, h0, NH_WG, wtid, 128);  // loads beside x
+    float xr[8][4];
+    bool valid[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c = c0 + g + 8 * half;
+      valid[half] = r < args.H && c < args.W;
+      const __nv_bfloat16* xp = x + (((size_t)b * args.H + r) * args.W + c) * args.C + ch;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 v = valid[half] ? load2(xp + 8 * i) : make_float2(0.f, 0.f);
+        xr[i][2 * half] = v.x;
+        xr[i][2 * half + 1] = v.y;
+      }
+    }
+    // ldmatrix row of this lane in the hidden tile, and its k-half in bytes
+    const int a_row = (lane % 8) + 8 * ((lane / 8) % 2), a_k = 16 * (lane / 16);
+
+    // the A fragments of k-steps k0..k0+KPART-1 of one tap from the hidden
+    // tile (32 bytes of K a step)
+    auto load_a = [&](uint32_t (&a)[KPART][4], int tap, int k0) {
+      const unsigned char* arow = h_wg + ((q + tap / 3) * WT + a_row + tap % 3) * HROW + a_k;
+#pragma unroll
+      for (int ks = 0; ks < KPART; ++ks) ldmatrix_x4(a[ks], arow + 32 * (k0 + ks));
+    };
+
+    // The two warpgroups run apart: each computes its own hidden rows
+    // (rows 4-5 twice) behind its own named barrier, so one's hidden conv
+    // overlaps the other's taps; the ring lets them drift NST steps apart.
+    for (int l = 0; l < args.L; ++l) {
+      __nv_bfloat16* seg_l = seg_wg + (l % 2) * SEG_WG;
+      cp_async_wait<0>();
+      named_sync(1 + wg, 128);  // segmap rows in; the warpgroup is done with the last taps
+      float s = 0.f;
+      if constexpr (QUANT) {
+        s = int8_scale(absmax[l]);
+        HidQuant<true, HSQ> hid{reinterpret_cast<int8_t*>(h_wg), s, __frcp_rn(s)};
+        hidden_mma<4>(hid, seg_l, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
+      } else {
+        HidStoreBf16<HS_BF16> hid{reinterpret_cast<__nv_bfloat16*>(h_wg)};
+        hidden_mma<4>(hid, seg_l, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
+      }
+      named_sync(1 + wg, 128);  // hidden rows complete; the other segmap buffer is free
+      if (l + 1 < args.L)  // the next label's segmap rows load during the taps
+        load_seg_rows(seg_wg + ((l + 1) % 2) * SEG_WG, seg, args, l + 1, b, r0, c0, h0, NH_WG,
+                      wtid, 128);
+
+      // A tap's products run in parts of KPART k-steps, each waiting for its
+      // own (wait_group 0) before the next part's A fragments overwrite the
+      // registers they read: 16 registers of A at a time. (A second set, to
+      // keep two taps in flight, measured no faster and spills.)
+      Acc acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0;
+      for (int tap = 0; tap < 9; ++tap) {
+        const int step = 9 * l + tap, st = step % NST;
+        const unsigned char* slice = ring + st * SLICE;
+#pragma unroll
+        for (int k0 = 0; k0 < KSTEPS; k0 += KPART) {
+          uint32_t afr[KPART][4];
+          load_a(afr, tap, k0);
+          if (k0 == 0) mbar_wait(&full[st], (step / NST) & 1);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KPART; ++kk) {
+            // bf16: K-halves of 64 (16 KB apart), k16 steps of 32 bytes in a
+            // 128-byte row; int8: one 128-byte row, k32 steps of 32 bytes
+            const int ks = k0 + kk;
+            const uint64_t desc =
+                wgmma_desc_sw128(slice + (ks / 4) * (SLICE / 2)) + 2 * (ks % 4);
+            if constexpr (QUANT)
+              wgmma_m64n128k32_s8_rs(acc, afr[kk], desc);
+            else
+              wgmma_m64n128k16_bf16_rs(acc, afr[kk], desc);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = 0; kk < KPART; ++kk) fence_regs(afr[kk]);
+        }
+        if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the slice
+      }
+      modulate_wg(xr, acc, ab, bgb, QUANT ? sgb : nullptr, s, args, l, b, ch);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!valid[half]) continue;
+      __nv_bfloat16* yp = y + (((size_t)b * args.H + r) * args.W + c0 + g + 8 * half) * args.C + ch;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) store2(yp + 8 * i, xr[i][2 * half], xr[i][2 * half + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS_WG, 1)
+chain_kernel_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
+                  const __nv_bfloat16* __restrict__ seg, const __nv_bfloat16* __restrict__ wsh,
+                  const float* __restrict__ bsh, const unsigned char* __restrict__ wgb,
+                  const float* __restrict__ bgb, __nv_bfloat16* __restrict__ y,
+                  const ChainArgs args) {
+  chain_wgmma<false>(x, ab, seg, wsh, bsh, wgb, nullptr, bgb, nullptr, y, args);
+}
+
+__global__ void __launch_bounds__(NTHREADS_WG, 1)
+chain_kernel_q_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
+                    const __nv_bfloat16* __restrict__ seg, const __nv_bfloat16* __restrict__ wsh,
+                    const float* __restrict__ bsh, const unsigned char* __restrict__ wgb,
+                    const float* __restrict__ sgb, const float* __restrict__ bgb,
+                    const float* __restrict__ absmax, __nv_bfloat16* __restrict__ y,
+                    const ChainArgs args) {
+  chain_wgmma<true>(x, ab, seg, wsh, bsh, wgb, sgb, bgb, absmax, y, args);
+}
+
+// ----------------------------------------------- quantized path, f32 parity
 // The hidden tile is quantized into int8 ([HT*WT][HSQ] bytes) as it is
-// computed; the [gamma | beta] conv runs on mma.sync m16n8k32 s8 -> s32 with
-// ldmatrix fragments (an int8 k32 step is 32 bytes, laid out as a bf16 k16
-// step, so the bf16 path's fragment addressing carries over in bytes). The
-// weight slice interleaves gamma and beta n-tiles as in the bf16 path. An
-// int8 tap is half the bf16 tap's work, too short to hide one slice's load,
-// so the slices stream through a ring of NSTAGE_Q buffers, NSTAGE_Q - 1
-// (label, tap) steps ahead, across label boundaries.
+// computed (scalar FMAs); the [gamma | beta] conv runs on mma.sync m16n8k32
+// s8 -> s32 with ldmatrix fragments. The weight slice interleaves gamma and
+// beta n-tiles (gamma channels 8p..8p+7, then beta channels 8p..8p+7), so
+// one thread's accumulators hold gamma and beta of the same pixels and
+// channels. The slices stream through a ring of NSTAGE_Q cp.async buffers,
+// NSTAGE_Q - 1 (label, tap) steps ahead, across label boundaries.
 // wgb: (L, 9, 2C, NHID) int8 (hidden index contiguous); sgb: (L, 2C) f32.
-constexpr int HSQ = NHID + 16;  // 144-byte rows: 16-byte aligned, conflict-free ldmatrix
 constexpr int WSQ = NHID + 16;
 constexpr int NSTAGE_Q = 4;
 constexpr int SLICE_Q = 2 * TC * WSQ;  // bytes of one slice buffer
@@ -660,24 +875,22 @@ constexpr int SLICE_Q = 2 * TC * WSQ;  // bytes of one slice buffer
 template <typename T>
 constexpr bool is_bf16_v = std::is_same<T, __nv_bfloat16>::value;
 
-// Shared memory of the quantized chain: int8 hidden tile, the ring of int8
-// weight slices, (bf16 only) the hidden conv's im2col operands, the segmap
-// tile.
-template <typename T>
-constexpr size_t smem_q() {
+// Shared memory of the f32 quantized chain: int8 hidden tile, the ring of
+// int8 weight slices, the f32 segmap tile.
+constexpr size_t smem_q_f32() {
   return (size_t)HT * WT * HSQ + (size_t)NSTAGE_Q * SLICE_Q +
-         (is_bf16_v<T> ? sizeof(__nv_bfloat16) * (size_t)(HM + NHID) * AS_MAX : 0) +
          sizeof(float) * (size_t)(ST * SWT * MAX_CS);
 }
 
-// Shared memory of the pre-pass: the hidden conv's operands only.
+// Shared memory of the pre-pass: the segmap tile only.
 template <typename T>
 constexpr size_t smem_absmax() {
-  return (is_bf16_v<T> ? sizeof(__nv_bfloat16) * (size_t)(HM + NHID) * AS_MAX : 0) +
-         sizeof(float) * (size_t)(ST * SWT * MAX_CS);
+  return is_bf16_v<T> ? (size_t)SEG_TILE_BYTES : sizeof(float) * (size_t)(ST * SWT * MAX_CS);
 }
 
-// int8 counterpart of load_gb_slice: the same rows, NHID bytes each.
+// Start copying one tap's int8 [gamma | beta] weight slice into w_buf:
+// shared row n (0..2TC) holds output column (n/8 odd ? C : 0) + ch0 +
+// 8*(n/16) + n%8, NHID bytes.
 __device__ __forceinline__ void load_gb_slice_q(int8_t* w_buf, const int8_t* __restrict__ wgb,
                                                 const ChainArgs& args, int l, int tap,
                                                 int ch0) {
@@ -692,7 +905,9 @@ __device__ __forceinline__ void load_gb_slice_q(int8_t* w_buf, const int8_t* __r
 }
 
 // Pre-pass: absmax[l] = max |hidden_l| over the batch (absmax zeroed by the
-// caller). One block a (sample, pixel tile), all labels.
+// caller). One block a (sample, pixel tile), all labels. bf16: the hidden
+// conv of the bf16 chains (segmap padded to SEG_C channels, wsh (L, NHID,
+// KH)); f32: the f32 chain's scalar one.
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
 hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
@@ -701,10 +916,6 @@ hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
   constexpr bool BF16 = is_bf16_v<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[NTHREADS / 32];
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(smem);  // bf16 only
-  __nv_bfloat16* b_s = a_s + HM * AS_MAX;
-  float* s_s = BF16 ? reinterpret_cast<float*>(b_s + NHID * AS_MAX)
-                    : reinterpret_cast<float*>(smem);
   const int tiles_w = (args.W + TW - 1) / TW;
   const int r0 = (blockIdx.x / tiles_w) * TH;
   const int c0 = (blockIdx.x % tiles_w) * TW;
@@ -712,18 +923,24 @@ hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   for (int l = 0; l < args.L; ++l) {
-    load_segmap_tile(s_s, seg, args, l, b, r0, c0);
-    __syncthreads();
     HidMax<BF16> hid{0.f};
-    if constexpr (BF16)
-      hidden_mma(hid, a_s, b_s, s_s, wsh, bsh, args, l, r0, c0);
-    else
+    if constexpr (BF16) {
+      __nv_bfloat16* s_seg = reinterpret_cast<__nv_bfloat16*>(smem);
+      load_seg_rows(s_seg, seg, args, l, b, r0, c0, 0, HT, threadIdx.x, NTHREADS);
+      cp_async_wait<0>();
+      __syncthreads();
+      hidden_mma<NTHREADS / 32>(hid, s_seg, wsh, bsh, args, l, r0, c0, 0, HT, warp, lane);
+    } else {
+      float* s_s = reinterpret_cast<float*>(smem);
+      load_segmap_tile(s_s, seg, args, l, b, r0, c0);
+      __syncthreads();
       compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
+    }
     float m = hid.m;
 #pragma unroll
     for (int off = 16; off > 0; off /= 2) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (lane == 0) red[warp] = m;
-    __syncthreads();  // also: every warp is done with s_s and the im2col operands
+    __syncthreads();  // also: every warp is done with the segmap tile
     if (threadIdx.x == 0) {
       for (int w = 1; w < NTHREADS / 32; ++w) m = fmaxf(m, red[w]);
       // non-negative floats order as their bit patterns do
@@ -732,23 +949,19 @@ hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
   }
 }
 
-// The quantized chain. x, y, seg, wsh in T (bf16: wsh (L, NHID, kp); f32:
-// per label (9, cs_l, NHID), flat). absmax: (L,) from the pre-pass.
-template <typename T>
+// The f32 quantized chain. x, y, seg, wsh f32 (wsh per label (9, cs_l,
+// NHID), flat). absmax: (L,) from the pre-pass.
 __global__ void __launch_bounds__(NTHREADS, 1)
-chain_kernel_q(const T* __restrict__ x, const float* __restrict__ ab, const T* __restrict__ seg,
-               const T* __restrict__ wsh, const float* __restrict__ bsh,
-               const int8_t* __restrict__ wgb, const float* __restrict__ sgb,
-               const float* __restrict__ bgb, const float* __restrict__ absmax,
-               T* __restrict__ y, const ChainArgs args) {
-  constexpr bool BF16 = is_bf16_v<T>;
+chain_kernel_q_f32(const float* __restrict__ x, const float* __restrict__ ab,
+                   const float* __restrict__ seg, const float* __restrict__ wsh,
+                   const float* __restrict__ bsh, const int8_t* __restrict__ wgb,
+                   const float* __restrict__ sgb, const float* __restrict__ bgb,
+                   const float* __restrict__ absmax, float* __restrict__ y,
+                   const ChainArgs args) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* h_q = reinterpret_cast<int8_t*>(smem);  // [HT*WT][HSQ]
   int8_t* w_s = h_q + HT * WT * HSQ;              // NSTAGE_Q x [2*TC][WSQ]
-  __nv_bfloat16* a_s = reinterpret_cast<__nv_bfloat16*>(w_s + NSTAGE_Q * SLICE_Q);  // bf16 only
-  __nv_bfloat16* b_s = a_s + HM * AS_MAX;
-  float* s_s = BF16 ? reinterpret_cast<float*>(b_s + NHID * AS_MAX)
-                    : reinterpret_cast<float*>(a_s);
+  float* s_s = reinterpret_cast<float*>(w_s + NSTAGE_Q * SLICE_Q);
 
   const Frag frag = Frag::of_thread(args);
   const int b = frag.b, r0 = frag.r0, c0 = frag.c0, ch0 = frag.ch0, wm = frag.wm, wn = frag.wn;
@@ -778,11 +991,8 @@ chain_kernel_q(const T* __restrict__ x, const float* __restrict__ ab, const T* _
     const float s = int8_scale(absmax[l]);
     load_segmap_tile(s_s, seg, args, l, b, r0, c0);
     __syncthreads();
-    HidQuant<BF16, HSQ> hid{h_q, s, __frcp_rn(s)};
-    if constexpr (BF16)
-      hidden_mma(hid, a_s, b_s, s_s, wsh, bsh, args, l, r0, c0);
-    else
-      compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
+    HidQuant<false, HSQ> hid{h_q, s, __frcp_rn(s)};
+    compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
 
     int acc[MT][2 * NPAIR][4];
 #pragma unroll
@@ -829,21 +1039,6 @@ chain_kernel_q(const T* __restrict__ x, const float* __restrict__ ab, const T* _
   store_y_frag(y, xr, valid, args, frag);
 }
 
-template <typename T, typename WshT, typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, const void* x, const void* ab, const void* seg,
-                   const void* wsh, const void* bsh, const void* wgb, const void* bgb, void* y,
-                   int B, const ChainArgs& args, cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(((args.H + TH - 1) / TH) * ((args.W + TW - 1) / TW), args.C / TC, B);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ab), static_cast<const T*>(seg),
-      static_cast<const WshT*>(wsh), static_cast<const float*>(bsh),
-      static_cast<const T*>(wgb), static_cast<const float*>(bgb), static_cast<T*>(y), args);
-  return cudaGetLastError();
-}
-
 // The chain's shape arguments; false if the kernel does not take them.
 bool fill_args(ChainArgs& args, int B, int H, int W, int C, int L, const int* cs) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < TC || C % TC != 0 || L < 1 || L > MAX_L)
@@ -852,68 +1047,51 @@ bool fill_args(ChainArgs& args, int B, int H, int W, int C, int L, const int* cs
   args.W = W;
   args.C = C;
   args.L = L;
+  args.tiles_w = (W + TW - 1) / TW;
   int off = 0;
   for (int l = 0; l < MAX_L; ++l) {
     args.cs[l] = 0;
     args.cs_off[l] = 0;
   }
-  int max_cs = 0;
   for (int l = 0; l < L; ++l) {
     if (cs[l] < 1 || cs[l] > MAX_CS) return false;
     args.cs[l] = cs[l];
     args.cs_off[l] = off;
     off += cs[l];
-    max_cs = cs[l] > max_cs ? cs[l] : max_cs;
   }
   args.cs_tot = off;
-  args.kp = (9 * max_cs + 15) / 16 * 16;
   return true;
 }
 
 dim3 chain_grid(int B, const ChainArgs& args, int channel_tiles) {
-  return dim3(((args.H + TH - 1) / TH) * ((args.W + TW - 1) / TW), channel_tiles, B);
+  return dim3(((args.H + TH - 1) / TH) * args.tiles_w, channel_tiles, B);
 }
 
-template <typename T>
-cudaError_t launch_absmax(const void* seg, const void* wsh, const void* bsh, void* absmax,
-                          int B, const ChainArgs& args, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(absmax, 0, sizeof(float) * args.L, stream);
+// Launch a chain body on the (pixel tiles, channel tiles, B) grid with
+// `threads` threads a block: NTHREADS (f32 parity kernels, the pre-pass)
+// or NTHREADS_WG (the wgmma bodies). A refused launch (too much shared
+// memory) returns its error.
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), size_t smem, dim3 grid, int threads,
+                   cudaStream_t stream, Args... a) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_absmax<T>();
-  err = cudaFuncSetAttribute(hidden_absmax_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  hidden_absmax_kernel<T><<<chain_grid(B, args, 1), NTHREADS, smem, stream>>>(
-      static_cast<const T*>(seg), static_cast<const T*>(wsh), static_cast<const float*>(bsh),
-      static_cast<float*>(absmax), args);
+  kernel<<<grid, threads, smem, stream>>>(a...);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_q(const void* x, const void* ab, const void* seg, const void* wsh,
-                     const void* bsh, const void* wgb, const void* sgb, const void* bgb,
-                     const void* absmax, void* y, int B, const ChainArgs& args,
-                     cudaStream_t stream) {
-  const size_t smem = smem_q<T>();
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel_q<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  chain_kernel_q<T><<<chain_grid(B, args, args.C / TC), NTHREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ab), static_cast<const T*>(seg),
-      static_cast<const T*>(wsh), static_cast<const float*>(bsh),
-      static_cast<const int8_t*>(wgb), static_cast<const float*>(sgb),
-      static_cast<const float*>(bgb), static_cast<const float*>(absmax), static_cast<T*>(y),
-      args);
-  return cudaGetLastError();
-}
+using bf16 = __nv_bfloat16;
 
 }  // namespace
 
 extern "C" {
 
 // Launches the chain on `stream`; returns a cudaError_t (0 on success).
-// is_bf16 selects bf16 (1) or f32 (0) for x, y, seg and wgb. cs holds the L
-// labels' segmap channel counts (host memory).
+// is_bf16 selects the bf16 serving kernel (x, y bf16; seg (B, H, W, 8L)
+// bf16; wsh (L, NHID, KH) bf16; wgb the slice images) or the f32 parity
+// kernel (f32 operands in the f32 layout). cs holds the L labels' segmap
+// channel counts (host memory).
 int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const void* seg,
                              const void* wsh, const void* bsh, const void* wgb,
                              const void* bgb, void* y, int B, int H, int W, int C, int L,
@@ -921,31 +1099,48 @@ int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const v
   ChainArgs args;
   if (!fill_args(args, B, H, W, C, L, cs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* abf = static_cast<const float*>(ab);
+  const float* bshf = static_cast<const float*>(bsh);
+  const float* bgbf = static_cast<const float*>(bgb);
+  const dim3 grid = chain_grid(B, args, C / TC);
   const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(chain_kernel_bf16, smem_bf16(), x, ab, seg,
-                                                     wsh, bsh, wgb, bgb, y, B, args, s)
-              : launch<float, float>(chain_kernel_f32, smem_f32(), x, ab, seg, wsh, bsh, wgb,
-                                     bgb, y, B, args, s);
+      is_bf16 ? launch(chain_kernel_bf16, WgLayout<false>::BYTES, grid, NTHREADS_WG, s,
+                       static_cast<const bf16*>(x), abf, static_cast<const bf16*>(seg),
+                       static_cast<const bf16*>(wsh), bshf,
+                       static_cast<const unsigned char*>(wgb), bgbf, static_cast<bf16*>(y), args)
+              : launch(chain_kernel_f32, smem_f32(), grid, NTHREADS, s,
+                       static_cast<const float*>(x), abf, static_cast<const float*>(seg),
+                       static_cast<const float*>(wsh), bshf, static_cast<const float*>(wgb),
+                       bgbf, static_cast<float*>(y), args);
   return (int)err;
 }
 
 // Pre-pass of the quantized chain: zeroes absmax (L f32, device) and fills
 // it with max |hidden_l| over the batch. is_bf16 selects seg's and wsh's
-// dtype (and the hidden conv) as for the chain.
+// dtype and layout (and the hidden conv) as for the chain.
 int multispade_hidden_absmax(int is_bf16, const void* seg, const void* wsh, const void* bsh,
                              void* absmax, int B, int H, int W, int L, const int* cs,
                              void* stream) {
   ChainArgs args;
   if (!fill_args(args, B, H, W, TC, L, cs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_absmax<__nv_bfloat16>(seg, wsh, bsh, absmax, B, args, s)
-              : launch_absmax<float>(seg, wsh, bsh, absmax, B, args, s);
+  cudaError_t err = cudaMemsetAsync(absmax, 0, sizeof(float) * L, s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid = chain_grid(B, args, 1);
+  const float* bshf = static_cast<const float*>(bsh);
+  float* am = static_cast<float*>(absmax);
+  err = is_bf16 ? launch(hidden_absmax_kernel<bf16>, smem_absmax<bf16>(), grid, NTHREADS, s,
+                         static_cast<const bf16*>(seg), static_cast<const bf16*>(wsh), bshf, am,
+                         args)
+                : launch(hidden_absmax_kernel<float>, smem_absmax<float>(), grid, NTHREADS, s,
+                         static_cast<const float*>(seg), static_cast<const float*>(wsh), bshf,
+                         am, args);
   return (int)err;
 }
 
-// The quantized chain: as multispade_chain_forward, with wgb int8 (L, 9,
-// 2C, NHID), sgb (L, 2C) f32 weight scales and absmax from the pre-pass.
+// The quantized chain: as multispade_chain_forward, with wgb int8 (bf16:
+// the int8 slice images; f32: (L, 9, 2C, NHID)), sgb (L, 2C) f32 weight
+// scales and absmax from the pre-pass.
 int multispade_chain_forward_int8(int is_bf16, const void* x, const void* ab, const void* seg,
                                   const void* wsh, const void* bsh, const void* wgb,
                                   const void* sgb, const void* bgb, const void* absmax,
@@ -954,10 +1149,22 @@ int multispade_chain_forward_int8(int is_bf16, const void* x, const void* ab, co
   ChainArgs args;
   if (!fill_args(args, B, H, W, C, L, cs)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* abf = static_cast<const float*>(ab);
+  const float* bshf = static_cast<const float*>(bsh);
+  const float* sgbf = static_cast<const float*>(sgb);
+  const float* bgbf = static_cast<const float*>(bgb);
+  const float* am = static_cast<const float*>(absmax);
+  const dim3 grid = chain_grid(B, args, C / TC);
   const cudaError_t err =
-      is_bf16 ? launch_q<__nv_bfloat16>(x, ab, seg, wsh, bsh, wgb, sgb, bgb, absmax, y, B,
-                                        args, s)
-              : launch_q<float>(x, ab, seg, wsh, bsh, wgb, sgb, bgb, absmax, y, B, args, s);
+      is_bf16 ? launch(chain_kernel_q_bf16, WgLayout<true>::BYTES, grid, NTHREADS_WG, s,
+                       static_cast<const bf16*>(x), abf, static_cast<const bf16*>(seg),
+                       static_cast<const bf16*>(wsh), bshf,
+                       static_cast<const unsigned char*>(wgb), sgbf, bgbf, am,
+                       static_cast<bf16*>(y), args)
+              : launch(chain_kernel_q_f32, smem_q_f32(), grid, NTHREADS, s,
+                       static_cast<const float*>(x), abf, static_cast<const float*>(seg),
+                       static_cast<const float*>(wsh), bshf, static_cast<const int8_t*>(wgb),
+                       sgbf, bgbf, am, static_cast<float*>(y), args);
   return (int)err;
 }
 

@@ -127,12 +127,13 @@ def fused_chain(spades, x, segmaps):
     of one: they depend on the chain's running value), quantized if the
     SPADEs were built with ``int8``. Outside autograd the chain's weights
     are packed once into the kernel's layout and kept on its first SPADE
-    until a weight changes."""
+    until a weight changes (on the card: on the CPU the chain takes its
+    plain version, which reads the OIHW weights)."""
     per_label = [s.fused_args(x, m) for s, m in zip(spades, segmaps)]
     abs_, segs, wshs, bshs, wgbs, bgbs = zip(*per_label)
     quantized = spades[0].int8
     packed = None
-    if not torch.is_grad_enabled():
+    if x.is_cuda and not torch.is_grad_enabled():
         packed = spades[0]._packed.get(
             [p for s in spades for p in s.parameters()], (x.dtype, quantized),
             lambda: pack_weights(wshs, bshs, wgbs, bgbs, x.dtype, quantized),

@@ -55,10 +55,12 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless a current build exists. Returns the
-    ptxas report (registers, shared memory, spills); raises on failure."""
+    ptxas report (registers, shared memory, spills), kept beside the build;
+    raises on failure."""
     out = library_path(name)
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
-        return ""
+        return report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
@@ -68,6 +70,7 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed: {name} (nvcc exit {proc.returncode}):\n"
                            f"{proc.stdout}")
+    report.write_text(proc.stdout)
     os.replace(tmp, out)
     return proc.stdout
 

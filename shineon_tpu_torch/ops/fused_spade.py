@@ -161,13 +161,19 @@ def multispade_modulate_plain_int8(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name
 class PackedWeights(NamedTuple):
     """The kernel's weight operands for one chain and compute dtype.
 
-    bf16 (tensor-core operands, reduction index contiguous):
-      wsh (L, 128, kp) with k = tap * cs_l + ci, zero padded to kp = 9 *
-      max(cs) rounded up to 16; wgb (L, 9, 2C, 128).
-    f32: wsh per label (9, cs_l, 128), labels concatenated, flat;
-      wgb (L, 9, 128, 2C).
-    quantized (either dtype): wgb (L, 9, 2C, 128) int8, quantized from the
-      f32 weights, and sgb (L, 2C) f32 its per-output-channel scales.
+    bf16 (the serving kernels; see ``csrc/fused_multispade.cu``):
+      wsh (L, 128, HIDDEN_DEPTH) with k = tap * 8 + ci, zero for ci >= cs_l
+      and k >= 72 (each label's segmap is padded to SEG_CHANNELS);
+      wgb (L, 9, C / 64, 16384): one slice image a (label, tap, 64-channel
+      tile j), the [gamma | beta] rows n = 0..127 (n < 64: gamma channel
+      64j + n; n >= 64: beta channel C + 64j + n - 64) K-major in the
+      128-byte swizzle the kernel's wgmma descriptor reads: bf16 in two
+      K-halves of 64 ([h][n][64]), int8 (quantized) in one ([n][128]).
+    f32 (the parity kernels): wsh per label (9, cs_l, 128), labels
+      concatenated, flat; wgb (L, 9, 128, 2C), or quantized (L, 9, 2C, 128)
+      int8.
+    quantized (either dtype): wgb int8, quantized from the f32 weights, and
+      sgb (L, 2C) f32 its per-output-channel scales.
     """
 
     cs: tuple  # segmap channels per label
@@ -178,19 +184,70 @@ class PackedWeights(NamedTuple):
     sgb: Optional[torch.Tensor] = None  # quantized only
 
 
-def _hidden_depth(cs) -> int:
-    return (9 * max(cs) + 15) // 16 * 16
+SEG_CHANNELS = 8  # the bf16 kernels' segmap channels a label, zero padded
+HIDDEN_DEPTH = 80  # the bf16 kernels' hidden-conv depth: 9 * SEG_CHANNELS padded to 16
+SLICE_ELEMS = 2 * CHANNEL_TILE * NHID  # elements of a slice image (bf16 or int8)
 
 
 def _packed_shapes(dtype, cs, C, quantized=False):
     L = len(cs)
     if dtype == torch.bfloat16:
-        wsh = (L, NHID, _hidden_depth(cs))
-        wgb = (L, 9, 2 * C, NHID)
-    else:
-        wsh = (9 * sum(cs) * NHID,)
-        wgb = (L, 9, 2 * C, NHID) if quantized else (L, 9, NHID, 2 * C)
+        return (L, NHID, HIDDEN_DEPTH), (L, 9, C // CHANNEL_TILE, SLICE_ELEMS)
+    wsh = (9 * sum(cs) * NHID,)
+    wgb = (L, 9, 2 * C, NHID) if quantized else (L, 9, NHID, 2 * C)
     return wsh, wgb
+
+
+def _swizzle_128b(rows: torch.Tensor) -> torch.Tensor:
+    """The 128-byte swizzle of rows of 128 bytes (..., N, E), E = 128 /
+    itemsize: 16-byte chunk p of row n holds chunk p ^ (n % 8). Its own
+    inverse."""
+    *lead, n, e = rows.shape
+    chunks = rows.reshape(*lead, n, 8, e // 8)
+    idx = torch.arange(8)[None, :] ^ (torch.arange(n) % 8)[:, None]  # (N, 8)
+    idx = idx.to(rows.device)[..., None].expand(n, 8, e // 8).expand(*lead, n, 8, e // 8)
+    return chunks.gather(-2, idx).reshape(rows.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def slice_index(C: int, int8: bool) -> torch.Tensor:
+    """Where each element of a tap's slice images comes from: (C / 64 *
+    SLICE_ELEMS,) flat indices into the tap's (2C, 128) [gamma | beta] rows.
+    Image j holds rows n = 0..127 (n < 64: gamma channel 64j + n, else beta
+    channel C + 64j + n - 64), K-major and 128-byte swizzled: int8 as
+    [n][128], bf16 as two K-halves [h][n][64]."""
+    T = C // CHANNEL_TILE
+    ids = torch.arange(2 * C * NHID).reshape(2, T, CHANNEL_TILE, NHID)
+    n = ids.transpose(0, 1).reshape(T, 2 * CHANNEL_TILE, NHID)  # (T, 128 n, 128 k)
+    if not int8:
+        n = n.reshape(T, 2 * CHANNEL_TILE, 2, NHID // 2).transpose(1, 2)
+    return _swizzle_128b(n).reshape(-1)
+
+
+def slice_images(wt: torch.Tensor) -> torch.Tensor:
+    """(9, 2C, 128) tap-major [gamma | beta] weights, bf16 or int8 -> (9,
+    C / 64, SLICE_ELEMS) slice images (:func:`slice_index`)."""
+    C = wt.shape[1] // 2
+    idx = slice_index(C, wt.dtype == torch.int8).to(wt.device)
+    return wt.reshape(9, -1)[:, idx].reshape(9, C // CHANNEL_TILE, SLICE_ELEMS)
+
+
+def unpack_slice_images(img: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`slice_images`: (9, C / 64, SLICE_ELEMS) ->
+    (9, 2C, 128)."""
+    C = img.shape[1] * CHANNEL_TILE
+    out = img.new_empty(9, 2 * C * NHID)
+    out[:, slice_index(C, img.dtype == torch.int8).to(img.device)] = img.reshape(9, -1)
+    return out.reshape(9, 2 * C, NHID)
+
+
+def kernel_segmap(segs, dtype) -> torch.Tensor:
+    """The labels' segmaps as one kernel operand (B, H, W, ...) in
+    ``dtype``: bf16 pads each label to SEG_CHANNELS channels (16 bytes a
+    position), f32 concatenates them as they are."""
+    if dtype == torch.bfloat16:
+        segs = [F.pad(s.to(dtype), (0, SEG_CHANNELS - s.shape[-1])) for s in segs]
+    return torch.cat([s.to(dtype) for s in segs], dim=-1).contiguous()
 
 
 def pack_weights(wshs, bshs, wgbs, bgbs, dtype, quantized=False) -> PackedWeights:
@@ -198,20 +255,24 @@ def pack_weights(wshs, bshs, wgbs, bgbs, dtype, quantized=False) -> PackedWeight
     ``quantized`` the [gamma | beta] weights become int8 with their scales."""
     cs = tuple(int(w.shape[1]) for w in wshs)
     sgb = None
-    if dtype == torch.bfloat16:
-        kp = _hidden_depth(cs)
+    bf16 = dtype == torch.bfloat16
+    if bf16 and wgbs[0].shape[0] % (2 * CHANNEL_TILE):
+        raise ValueError(f"pack_weights: C={wgbs[0].shape[0] // 2} must be a multiple of "
+                         f"{CHANNEL_TILE} for the bf16 kernels")
+    if bf16:
         wsh = torch.stack([
-            F.pad(w.to(dtype).permute(0, 2, 3, 1).reshape(NHID, -1), (0, kp - 9 * w.shape[1]))
+            F.pad(F.pad(w.to(dtype).permute(0, 2, 3, 1), (0, SEG_CHANNELS - w.shape[1]))
+                  .reshape(NHID, 9 * SEG_CHANNELS), (0, HIDDEN_DEPTH - 9 * SEG_CHANNELS))
             for w in wshs
         ])
     else:
         wsh = torch.cat([w.to(dtype).permute(2, 3, 1, 0).reshape(-1) for w in wshs])
     if quantized:
-        qws = [quantize_weight(w) for w in wgbs]  # from the f32 weights
-        wgb = torch.stack([q.wq for q in qws])
+        qws = [quantize_weight(w) for w in wgbs]  # from the f32 weights; wq (9, 2C, 128)
+        wgb = torch.stack([slice_images(q.wq) if bf16 else q.wq for q in qws])
         sgb = torch.stack([q.scale for q in qws]).contiguous()
-    elif dtype == torch.bfloat16:
-        wgb = torch.stack([w.to(dtype).permute(2, 3, 0, 1).reshape(9, w.shape[0], NHID)
+    elif bf16:
+        wgb = torch.stack([slice_images(w.to(dtype).permute(2, 3, 0, 1).reshape(9, w.shape[0], NHID))
                            for w in wgbs])
     else:
         wgb = torch.stack([w.to(dtype).permute(2, 3, 1, 0).reshape(9, NHID, w.shape[0])
@@ -247,7 +308,8 @@ def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
     wsh_shape, wgb_shape = _packed_shapes(x.dtype, packed.cs, C, quantized)
     expect = {
         "ab": (ab, (B, L, 2 * C), torch.float32),
-        "seg": (seg, (B, H, W, sum(packed.cs)), x.dtype),
+        "seg": (seg, (B, H, W, SEG_CHANNELS * L if x.dtype == torch.bfloat16 else sum(packed.cs)),
+                x.dtype),
         "wsh": (packed.wsh, wsh_shape, x.dtype),
         "bsh": (packed.bsh, (L, NHID), torch.float32),
         "wgb": (packed.wgb, wgb_shape, torch.int8 if quantized else x.dtype),
@@ -317,8 +379,8 @@ def _library():
 def hidden_absmax(seg: torch.Tensor, packed: PackedWeights) -> torch.Tensor:
     """The quantized chain's pre-pass on the card: (L,) f32 max |hidden_l|
     over the batch, each label's hidden map computed by the chain's own
-    device code. ``seg`` (B, H, W, sum(cs)) in the compute dtype; ``packed``
-    as for the chain. Adds one to ``fused_multispade_modulate.absmax_launches``."""
+    device code. ``seg`` from :func:`kernel_segmap` in the compute dtype;
+    ``packed`` as for the chain. Adds one to ``fused_multispade_modulate.absmax_launches``."""
     B, H, W, _ = seg.shape
     L = len(packed.cs)
     lib, call = _library()
@@ -351,7 +413,7 @@ class FusedMultiSpade(torch.autograd.Function):
             packed = pack_weights(wshs, bshs, wgbs, bgbs, x.dtype, quantized)
         if (packed.sgb is not None) != quantized:
             raise ValueError("fused_multispade_modulate: packed weights do not match quantized")
-        seg = torch.cat([s.to(x.dtype) for s in segs], dim=-1).contiguous()
+        seg = kernel_segmap(segs, x.dtype)
         return _launch(x.contiguous(), ab.float().contiguous(), seg, packed, act_name)
 
     @staticmethod

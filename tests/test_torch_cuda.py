@@ -227,3 +227,52 @@ def test_cuda_probe_kernel_matches_plain(name):
     assert wrapper.launches == before + 1
     ok, err, ratio = pr.agrees(name, out.cpu(), ref)
     assert ok, (err, ratio)
+
+
+# edge cases of the bf16 chain kernels' tiling, labels and segmap channels:
+# (H, W, C, segmap channels of the labels)
+CHAIN_EDGES = (
+    (20, 13, 64, (4, 3, 3, 2)),  # 3 ragged pixel tiles; one channel tile
+    (8, 16, 128, (1,)),  # one pixel tile; L = 1, cs = 1
+    (16, 12, 64, (8,) * 8),  # W below the tile width; L = 8, cs = 8
+    (24, 40, 192, (2, 8, 1)),  # 9 pixel tiles, 3 channel tiles
+)
+
+
+def _chain_case(H, W, C, cs_list, seed, B=2):
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).cuda()  # noqa: E731
+    L = len(cs_list)
+    x = rn(B, H, W, C, scale=0.5).to(torch.bfloat16)
+    ab = torch.cat([1.0 + rn(B, L, C, scale=0.1), rn(B, L, C, scale=0.1)], -1)
+    segs = [rn(B, H, W, c).to(torch.bfloat16) for c in cs_list]
+    wshs = [rn(128, c, 3, 3, scale=(9 * c) ** -0.5) for c in cs_list]
+    bshs = [rn(128, scale=0.1) for _ in cs_list]
+    wgbs = [rn(2 * C, 128, 3, 3, scale=(9 * 128) ** -0.5) for _ in cs_list]
+    bgbs = [rn(2 * C, scale=0.05) for _ in cs_list]
+    return x, ab, segs, wshs, bshs, wgbs, bgbs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("case", CHAIN_EDGES)
+def test_cuda_bf16_chain_edges(case, quantized):
+    """The bf16 chain kernels (full precision and quantized) against their
+    plain versions at the edges of their tiling, labels and segmap
+    channels: an odd count of ragged pixel tiles, one tile, one channel
+    tile, L = 1 and 8, cs = 1 and 8, W below the tile width; within KERNEL_TOLERANCE (full precision) or the int8
+    limits (int8_chain_agrees)."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import fused_spade as fs
+
+    args = _chain_case(*case, seed=sum(case[:3]))
+    out = fs.fused_multispade_modulate(*args, quantized=quantized)
+    plain = fs.multispade_modulate_plain_int8 if quantized else fs.multispade_modulate_plain
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    if quantized:
+        ok, ratio, rms = fs.int8_chain_agrees(out, ref)
+        assert ok, (ratio, rms)
+    else:
+        assert fs.error_ratio(out, ref) <= fs.KERNEL_TOLERANCE[torch.bfloat16]

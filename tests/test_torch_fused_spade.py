@@ -10,6 +10,7 @@ import torch
 
 from shineon_tpu.ops import fused_spade as jfs
 from shineon_tpu_torch.ops import fused_spade as tfs
+from shineon_tpu_torch.ops import int8_conv as ic
 
 
 def _make_case(B=2, H=20, W=13, C=64, L=4, seed=0):
@@ -169,26 +170,42 @@ def test_bf16_tolerance_separates_rounding_from_faults(fault, L):
     assert ratio <= tol if fault is None else ratio > tol
 
 
+def _kernel_cols(seg, B, H, W):
+    """3x3 patches of a (B, H, W, c) segmap as the kernels read them, (B,
+    9 * c, H * W) with k = tap * c + ci, zero outside the image."""
+    c = seg.shape[-1]
+    cols = torch.nn.functional.unfold(seg.float().permute(0, 3, 1, 2), 3, padding=1)
+    return cols.reshape(B, c, 9, H * W).transpose(1, 2).reshape(B, 9 * c, H * W)
+
+
 def _emulate_kernel(x, ab, segs, packed, bf16_layout):
     """The chain computed from the kernel's packed operands, in f32 torch:
-    what the CUDA kernel indexes, so a wrong layout shows on the CPU."""
+    what the CUDA kernel indexes, so a wrong layout shows on the CPU. bf16:
+    each label's segmap padded to SEG_CHANNELS in the one segmap operand
+    (kernel_segmap), the hidden conv over k = tap * 8 + ci to HIDDEN_DEPTH
+    (past tap 8 the kernel reads tap 8's position against zero weights), the
+    [gamma | beta] weights un-swizzled from their slice images."""
     B, H, W, C = x.shape
     out = x.float()
+    seg_all = tfs.kernel_segmap(segs, torch.bfloat16 if bf16_layout else torch.float32)
+    c = tfs.SEG_CHANNELS if bf16_layout else None
+    off = 0
     for l, cs in enumerate(packed.cs):
-        seg = segs[l].float().permute(0, 3, 1, 2)
-        cols = torch.nn.functional.unfold(seg, 3, padding=1)  # (B, cs*9, HW), k = ci*9 + tap
-        cols = cols.reshape(B, cs, 9, H * W).transpose(1, 2).reshape(B, 9 * cs, H * W)
         if bf16_layout:
-            wsh = packed.wsh[l, :, :9 * cs].float()  # (128, 9*cs), k = tap*cs + ci
+            cols = _kernel_cols(seg_all[..., c * l:c * (l + 1)], B, H, W)
+            pad = tfs.HIDDEN_DEPTH - 9 * c
+            cols = torch.cat([cols, cols[:, 8 * c:8 * c + pad]], dim=1)
+            wsh = packed.wsh[l].float()  # (128, HIDDEN_DEPTH)
+            wgb = tfs.unpack_slice_images(packed.wgb[l]).float()  # (9, 2C, 128)
         else:
-            off = 9 * sum(packed.cs[:l]) * tfs.NHID
-            wsh = packed.wsh[off:off + 9 * cs * tfs.NHID].float().reshape(9 * cs, tfs.NHID).t()
+            cols = _kernel_cols(seg_all[..., off:off + cs], B, H, W)
+            wsh = packed.wsh[9 * off * tfs.NHID:9 * (off + cs) * tfs.NHID].float()
+            wsh = wsh.reshape(9 * cs, tfs.NHID).t()
+            wgb = packed.wgb[l].float().transpose(1, 2)  # (9, 2C, 128)
+        off += cs
         hid = torch.relu(torch.einsum("nk,bkp->bnp", wsh, cols) + packed.bsh[l][None, :, None])
         hid = hid.reshape(B, tfs.NHID, H, W)
         hcols = torch.nn.functional.unfold(hid, 3, padding=1).reshape(B, tfs.NHID, 9, H * W)
-        wgb = packed.wgb[l].float()
-        if not bf16_layout:
-            wgb = wgb.transpose(1, 2)  # (9, 2C, 128)
         gb = torch.einsum("tmk,bktp->bpm", wgb, hcols) + packed.bgb[l]
         gb = gb.reshape(B, H, W, 2 * C)
         a, b = ab[:, l, :C][:, None, None], ab[:, l, C:][:, None, None]
@@ -199,16 +216,63 @@ def _emulate_kernel(x, ab, segs, packed, bf16_layout):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_packed_layouts_match_plain(dtype):
     """pack_weights lays the weights out as the kernel reads them (bf16:
-    reduction index contiguous for the tensor cores; f32: output channel
-    contiguous). Emulating the kernel's indexing in f32 on the packed
-    operands reproduces the plain version within 1e-4 of its scale (f32
-    inputs rounded to the packed dtype once)."""
-    x, ab, segs, wshs, bshs, wgbs, bgbs = _torch_args(_make_case(B=1, H=9, W=7, C=16, L=4, seed=6),
+    swizzled K-major slice images for wgmma, the hidden depth over 8-channel
+    padded segmaps; f32: output channel contiguous). Emulating the kernel's
+    indexing in f32 on the packed operands reproduces the plain version
+    within 1e-4 of its scale (weights and segmaps rounded to the packed
+    dtype once)."""
+    x, ab, segs, wshs, bshs, wgbs, bgbs = _torch_args(_make_case(B=1, H=9, W=7, C=64, L=4, seed=6),
                                                       torch.float32)
     wshs = [w.to(dtype).float() for w in wshs]
     wgbs = [w.to(dtype).float() for w in wgbs]
+    segs = [s.to(dtype).float() for s in segs]
     packed = tfs.pack_weights(wshs, bshs, wgbs, bgbs, dtype)
     assert packed.wgb.dtype == packed.wsh.dtype == dtype
     out = _emulate_kernel(x, ab, segs, packed, dtype == torch.bfloat16)
     ref = tfs.multispade_modulate_plain(x, ab, segs, wshs, bshs, wgbs, bgbs)
     assert _max_rel(out.numpy(), ref.numpy()) <= 1e-4
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [64, 128, 192])
+def test_slice_index_is_a_permutation(C, int8):
+    """Every element of a tap's (2C, 128) weights lands in exactly one place
+    of its slice images, and row n, element k of image j sits where the
+    128-byte swizzle puts it."""
+    idx = tfs.slice_index(C, int8)
+    assert torch.equal(idx.sort().values, torch.arange(2 * C * tfs.NHID))
+    img = idx.reshape(C // 64, -1)
+    for j, n, k in ((0, 0, 0), (C // 64 - 1, 70, 100), (0, 127, 127), (C // 64 - 1, 9, 33)):
+        row = (n if n < 64 else C + n - 64) + 64 * j
+        if int8:
+            at = n * 128 + ((k // 16) ^ (n % 8)) * 16 + k % 16
+        else:
+            at = (k // 64) * 8192 + n * 64 + (((k % 64) // 8) ^ (n % 8)) * 8 + k % 8
+        assert img[j, at] == row * tfs.NHID + k
+
+
+@pytest.mark.parametrize("C", [64, 128])
+@pytest.mark.parametrize("cs", [1, 2, 8])
+@pytest.mark.parametrize("L", [1, 4, 8])
+def test_unpacking_returns_each_weight(L, cs, C):
+    """Un-packing the bf16 and the quantized bf16 operands returns each
+    OIHW weight exactly once at its (n, k): the slice images give back the
+    (tap, output channel, hidden channel) weights (bf16, or int8 as
+    quantize_weight makes them) and the hidden weights (128, 80) hold
+    w[n, ci, di, dj] at k = (3 di + dj) * 8 + ci and zeros elsewhere."""
+    g = torch.Generator().manual_seed(L * 100 + cs * 10 + C)
+    wshs = [torch.randn(128, cs, 3, 3, generator=g) for _ in range(L)]
+    bshs = [torch.randn(128, generator=g) for _ in range(L)]
+    wgbs = [torch.randn(2 * C, 128, 3, 3, generator=g) for _ in range(L)]
+    bgbs = [torch.randn(2 * C, generator=g) for _ in range(L)]
+    for quantized in (False, True):
+        packed = tfs.pack_weights(wshs, bshs, wgbs, bgbs, torch.bfloat16, quantized)
+        assert tuple(packed.wgb.shape) == (L, 9, C // 64, tfs.SLICE_ELEMS)
+        assert tuple(packed.wsh.shape) == (L, 128, tfs.HIDDEN_DEPTH)
+        for l in range(L):
+            want = (ic.quantize_weight(wgbs[l]).wq if quantized
+                    else wgbs[l].to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, 2 * C, 128))
+            assert torch.equal(tfs.unpack_slice_images(packed.wgb[l]), want)
+            wsh = packed.wsh[l, :, :9 * tfs.SEG_CHANNELS].reshape(128, 3, 3, tfs.SEG_CHANNELS)
+            assert torch.equal(wsh[..., :cs].permute(0, 3, 1, 2), wshs[l].to(torch.bfloat16))
+            assert not wsh[..., cs:].any() and not packed.wsh[l, :, 9 * tfs.SEG_CHANNELS:].any()

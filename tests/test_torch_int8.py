@@ -36,7 +36,7 @@ from shineon_tpu_torch.ops import fused_spade as tfs
 from shineon_tpu_torch.ops import int8_conv as ic
 from shineon_tpu_torch.options import sams_options, warp_options
 from shineon_tpu_torch.serving import make_one_clip, warm_up
-from test_torch_fused_spade import _jax_args, _make_case, _torch_args
+from test_torch_fused_spade import _jax_args, _kernel_cols, _make_case, _torch_args
 from test_torch_networks import LABELS, _np, _spade_inputs, _t, _with_random_stats
 from test_torch_serving import TINY, _jax_clip
 
@@ -160,27 +160,37 @@ def test_quantized_backward_recomputes_fp():
 
 def _emulate_int8_kernel(x, ab, segs, packed, fault=None):
     """The quantized kernel's numerics from its packed operands, in torch on
-    the CPU: the hidden map by another summation order (unfold + einsum),
-    in bf16 rounded as the kernel rounds it (the sum, then the sum with the
-    bf16 bias), one scale a label over the batch, the int8 weights and
-    scales as packed, exact integer sums, uncontracted dequantization. A
-    ``fault`` plants a bug: "per_sample" takes one scale a sample,
-    "no_scale" drops s_l from the dequantization. (Weights quantized from
-    their bf16 cast are planted by packing such weights.)"""
-    F = torch.nn.functional
-    rd = (lambda t: t.to(torch.bfloat16).float()) if x.dtype == torch.bfloat16 else (lambda t: t)
+    the CPU, read as the kernel reads them: in bf16 the segmaps padded to
+    SEG_CHANNELS (kernel_segmap), the hidden conv over k = tap * 8 + ci to
+    HIDDEN_DEPTH, the int8 weights un-swizzled from their slice images; in
+    f32 the flat per-label hidden weights and (L, 9, 2C, 128) int8 weights.
+    The hidden map by another summation order (unfold + einsum), in bf16
+    rounded as the kernel rounds it (the sum, then the sum with the bf16
+    bias), one scale a label over the batch, the int8 weights and scales as
+    packed, exact integer sums, uncontracted dequantization. A ``fault``
+    plants a bug: "per_sample" takes one scale a sample, "no_scale" drops
+    s_l from the dequantization. (Weights quantized from their bf16 cast are
+    planted by packing such weights.)"""
+    bf16 = x.dtype == torch.bfloat16
+    rd = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
     B, H, W, C = x.shape
     out = x.float()
+    seg_all = tfs.kernel_segmap(segs, x.dtype)
     off = 0
     for l, cs in enumerate(packed.cs):
-        cols = F.unfold(segs[l].float().permute(0, 3, 1, 2), 3, padding=1)  # k = ci*9 + tap
-        if x.dtype == torch.bfloat16:
-            wsh = packed.wsh[l, :, :9 * cs].float().reshape(tfs.NHID, 9, cs).transpose(1, 2)
+        if bf16:
+            c = tfs.SEG_CHANNELS
+            cols = _kernel_cols(seg_all[..., c * l:c * (l + 1)], B, H, W)
+            cols = torch.cat([cols, cols[:, 8 * c:8 * c + tfs.HIDDEN_DEPTH - 9 * c]], dim=1)
+            wsh = packed.wsh[l].float()
+            wq = tfs.unpack_slice_images(packed.wgb[l])
         else:
-            wsh = packed.wsh[off:off + 9 * cs * tfs.NHID].float().reshape(9, cs, tfs.NHID)
-            wsh = wsh.permute(2, 1, 0)
-        off += 9 * cs * tfs.NHID
-        acc = torch.einsum("nk,bkp->bnp", wsh.reshape(tfs.NHID, -1), cols)
+            cols = _kernel_cols(seg_all[..., off:off + cs], B, H, W)
+            wsh = packed.wsh[9 * off * tfs.NHID:9 * (off + cs) * tfs.NHID].float()
+            wsh = wsh.reshape(9 * cs, tfs.NHID).t()
+            wq = packed.wgb[l]
+        off += cs
+        acc = torch.einsum("nk,bkp->bnp", wsh, cols)
         hid = torch.relu(rd(rd(acc) + rd(packed.bsh[l])[None, :, None]))
         hid = hid.reshape(B, tfs.NHID, H, W).permute(0, 2, 3, 1)
         if fault == "per_sample":
@@ -188,7 +198,7 @@ def _emulate_int8_kernel(x, ab, segs, packed, fault=None):
         else:
             s = ic.activation_scale(hid)
         q = torch.clamp(torch.round(hid / s), -127, 127)
-        qw = ic.QuantizedWeight(packed.wgb[l], packed.sgb[l])
+        qw = ic.QuantizedWeight(wq, packed.sgb[l])
         scale = qw.scale if fault == "no_scale" else s * qw.scale
         gb = ic.int8_matmul_conv(q, qw) * scale + packed.bgb[l]
         a, b = ab[:, l, :C][:, None, None], ab[:, l, C:][:, None, None]

@@ -1,8 +1,10 @@
 """The port stands alone: no module of shineon_tpu_torch, and not
-chip_smoke.py, imports JAX, flax or the JAX package; and its entry point
-does not quietly fall back to the CPU."""
+chip_smoke.py, imports JAX, flax or the JAX package; and its entry points
+do not quietly fall back to the CPU."""
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -48,3 +50,16 @@ def test_build_inference_default_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_inference(batch_size=1)
+
+
+def test_chain_sites_exits_without_cuda():
+    """The chain timing tool, run by path as its users run it, exits 1 and
+    times nothing on a host without CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    tool = REPO / "shineon_tpu_torch" / "tools" / "chain_sites.py"
+    proc = subprocess.run([sys.executable, str(tool), "--tag", "cpu"], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA device" in proc.stderr
+    assert "site" not in proc.stdout
