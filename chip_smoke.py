@@ -7,23 +7,29 @@ Phases, each fatal on failure:
   1. the card: torch's device name and count, and nvidia-smi's name and
      power limit;
   2. build the hand-written kernels from csrc/ (one nvcc a source, all at
-     once) and print their ptxas reports; fail unless the two bf16 chain
-     bodies have wgmma (HGMMA, IGMMA in cuobjdump's SASS) fed by bulk
-     copies and no spills;
+     once) and print their ptxas reports; fail unless the bf16 serving
+     bodies run on wgmma fed by bulk or tensor-map copies (cuobjdump's
+     SASS: HGMMA in the bf16 chain and attention, IGMMA in the quantized
+     chain and the int8 conv; UBLKCP or UTMALDG in each) and ptxas reports
+     no spills for them;
   3. hold each kernel against its plain PyTorch version at every shape the
      serving clips give it (the clips' batch), in bf16 and f32, plus a
      ragged tile, element by element, and time kernel and plain version on
      the same bf16 operands: the full-precision chain (3a, at the sites of
      the clips with and without attention and at the edges of its tiling,
-     labels and segmap channels, EDGES), the quantized chain with its pre-pass (3b, the same
+     labels and segmap channels, EDGES, and the shapes the first kernels
+     refused, REPAIRED), the quantized chain with its pre-pass (3b, the same
      sites, also held in rms, with two controls that must fail its limits,
      and timed against the full-precision chain on the same operands); the
      chains also by the device time of their own kernels (a torch.profiler
      trace), with the share of the peak; the int8 3x3 conv (3c, on inputs of both signs,
+     at the clip's shapes and at channel counts off the 64-channel tile,
      also timed against cuDNN's bf16 conv of the same shape, the conv it
-     replaces) and SAGAN attention (3d, at flat and peaked score rows, with
-     two controls that must fail at the peaked ones, also timed against
-     scaled_dot_product_attention with scale 1); and the probe kernels
+     replaces, beside the abs-max reduction it runs first) and SAGAN
+     attention (3d, at flat and peaked score rows, with two controls that
+     must fail at the peaked ones, at the clip's shapes and at widths off
+     the first kernel's tiles, d = 8, 108 and 640, dv = 320 and 864, also
+     timed against scaled_dot_product_attention with scale 1); and the probe kernels
      (3e, run last, after phase 5 has timed the clips, so that its
      profiler sessions precede no clip timing): the 15 layout probes on
      seeded random inputs of their own shapes and the int8-conv probe's
@@ -95,14 +101,28 @@ RAGGED = (20, 13, 64, CUR, 0, 0)
 # one pixel tile with L = 1, cs = 1; W below the tile width with L = 8,
 # cs = 8
 EDGES = ((8, 16, 128, (1,), 0, 0), (16, 12, 64, (8,) * 8, 0, 0))
+# shapes the first chain kernels refused: labels of 12 and 18 segmap
+# channels (two and three 8-channel segments), C off the 64-channel tile,
+# and a label of 40 channels (five segments: streamed through the segmap
+# buffer of four)
+REPAIRED = ((20, 13, 64, (12,), 0, 0), (20, 13, 64, (18, 3), 0, 0), (20, 13, 96, (4, 3), 0, 0),
+            (16, 12, 64, (40,), 0, 0))
 CHAIN_KERNELS = ("chain_kernel_bf16",)  # device-time filters of phase 3a / 3b
+CONV_KERNELS = ("conv_wgmma",)  # of phase 3c (the bf16 body)
+QUANTIZE_KERNELS = ("quantize_kernel",)  # its quantize pass
+ATTENTION_KERNELS = ("attention_wgmma",)  # of phase 3d
 INT8_CHAIN_KERNELS = ("chain_kernel_q_bf16", "hidden_absmax_kernel")
 # (N tokens, d, dv, launches a frame of the attention clip) of every SAGAN
 # attention shape: middle_2 (16x12, 4 labels x 1024 channels) twice, decode_1
 # norm_s and spade_0 (64x48, 4 x 512), decode_1 spade_1 (64x48, 4 x 256);
 # then a ragged shape and a tiny one
 ATTENTION_SHAPES = ((192, 512, 4096, 2), (3072, 256, 2048, 2), (3072, 128, 1024, 1),
-                    (260, 64, 512, 0), (12, 16, 64, 0))
+                    (260, 64, 512, 0), (12, 16, 64, 0),
+                    # widths the first kernel refused: SAMS attention at 64
+                    # channels (d = 8), TOM's U-Net attention at 2 frames (d =
+                    # 108, dv = 864), five 1024-channel labels (d = 640), and
+                    # part of one 384-column block at a ragged query tile
+                    (192, 8, 64, 0), (192, 108, 864, 0), (192, 640, 5120, 0), (150, 64, 320, 0))
 SCORE_STDS = {"flat": 0.3, "peaked": 8.0}  # std of the raw scores q.k
 GAMMA_MEAN, GAMMA_STD = 0.5, 0.1  # the attention gammas the clips are run with
 # (H, W, Cin, Cout, launches a frame) of every int8 3x3 conv of the int8 clip
@@ -114,6 +134,8 @@ CONVS = (
     (16, 12, 1024, 1024, 6),
 )
 RAGGED_CONV = (20, 13, 64, 128, 0)
+# channel counts off the first kernel's 64-channel tiles
+REPAIRED_CONVS = ((20, 13, 32, 96, 0), (20, 13, 96, 32, 0), (20, 13, 64, 100, 0))
 
 
 def log(msg: str) -> None:
@@ -146,29 +168,40 @@ def sass_counts(cuda_build, source):
     return counts
 
 
-def check_chain_build(cuda_build, fs, report):
-    """Phase 2 for the chain library: its two bf16 serving bodies run on
-    wgmma (HGMMA in chain_kernel_bf16, IGMMA in chain_kernel_q_bf16) fed by
-    bulk copies, and ptxas reports no spills for them."""
-    bodies = {"chain_kernel_bf16": "HGMMA", "chain_kernel_q_bf16": "IGMMA"}
-    failed = []
-    for name, c in sass_counts(cuda_build, fs.KERNEL_SOURCE).items():
-        short = next((b for b in (*bodies, "chain_kernel", "hidden_absmax") if b in name), None)
-        if short is None:
+# The bf16 serving bodies of each kernel source (a name their symbols hold)
+# and the wgmma their SASS must show.
+SERVING_BODIES = {
+    "fused_multispade": {"chain_kernel_bf16E": "HGMMA", "chain_kernel_q_bf16E": "IGMMA"},
+    "int8_conv3x3": {"conv_wgmma": "IGMMA"},
+    "sagan_attention": {"attention_wgmma": "HGMMA"},
+}
+
+
+def check_build(cuda_build, source, report):
+    """Phase 2 for one library: each of its bf16 serving bodies runs on
+    wgmma (SERVING_BODIES) fed by bulk or tensor-map copies, and ptxas
+    reports no spills for it."""
+    bodies = SERVING_BODIES[source]
+    failed, seen = [], set()
+    for name, c in sass_counts(cuda_build, source).items():
+        log(f"  sass {name[:100]}: HGMMA {c['HGMMA']}, IGMMA {c['IGMMA']}, bulk or tensor-map "
+            f"copies {c['bulk']}")
+        body = next((b for b in bodies if b in name), None)
+        if body is None:
             continue
-        log(f"  sass {name[:90]}: HGMMA {c['HGMMA']}, IGMMA {c['IGMMA']}, bulk copies "
-            f"{c['bulk']}")
-        if short in bodies and (c[bodies[short]] == 0 or c["bulk"] == 0):
-            failed.append(f"{short} has no {bodies[short]} or no bulk copy")
+        seen.add(body)
+        if c[bodies[body]] == 0 or c["bulk"] == 0:
+            failed.append(f"{name[:80]} has no {bodies[body]} or no bulk copy")
+    failed += [f"no function {b} in the {source} library" for b in bodies if b not in seen]
     lines = report.splitlines()
     if not lines:
-        failed.append("no ptxas report for the chain library")
+        failed.append(f"no ptxas report for the {source} library")
     for i, line in enumerate(lines):
-        body = next((b for b in bodies if f"{b}E" in line and "Function properties" in line), None)
+        body = next((b for b in bodies if b in line and "Function properties" in line), None)
         if body and i + 1 < len(lines) and " 0 bytes spill stores" not in lines[i + 1]:
             failed.append(f"{body} spills: {lines[i + 1].strip()}")
-    if len(failed) > 0:
-        raise SystemExit("chain build check failed: " + "; ".join(failed))
+    if failed:
+        raise SystemExit(f"{source} build check failed: " + "; ".join(failed))
 
 
 def card_line() -> str:
@@ -327,7 +360,7 @@ def check_chain_kernel(torch, fs):
     fs.KERNEL_TOLERANCE); each bf16 site is then timed on the same operands.
     Every case is checked and printed before a failure ends the run."""
     errors, timings, failed = {}, {}, []
-    for i, site in enumerate(SITES + (RAGGED,) + EDGES):
+    for i, site in enumerate(SITES + (RAGGED,) + EDGES + REPAIRED):
         H, W, C, seg, per_frame, per_frame_att = site
         for dtype in (torch.bfloat16, torch.float32):
             args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, dtype, seed=i), DEVICE)
@@ -394,7 +427,7 @@ def check_int8_chain(torch, fs):
     all) and the quantized kernel given gamma/beta weights quantized from
     their bf16 cast (a planted fault of the int8 stage)."""
     errors, timings, failed = {}, {}, []
-    for i, site in enumerate(SITES + (RAGGED,) + EDGES):
+    for i, site in enumerate(SITES + (RAGGED,) + EDGES + REPAIRED):
         H, W, C, seg, per_frame, per_frame_att = site
         for dtype in (torch.bfloat16, torch.float32):
             args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, dtype, seed=100 + i),
@@ -432,12 +465,15 @@ def check_int8_chain(torch, fs):
 
 def check_int8_conv(torch, ic, fs):
     """Phase 3c: the int8 3x3 conv against its plain version at every conv
-    shape of the int8 clip and a ragged one, bf16 and f32, element by
-    element (ic.INT8_CONV_TOLERANCE); each bf16 shape is timed against its
-    plain version, its bound and cuDNN's bf16 conv of the same shape."""
+    shape of the int8 clip, a ragged one and channel counts off the 64-
+    channel tile, bf16 and f32, element by element
+    (ic.INT8_CONV_TOLERANCE); each bf16 clip shape is timed against its
+    plain version, its bound and cuDNN's bf16 conv of the same shape: the
+    kernel by its own device time, beside it the abs-max reduction the
+    wrapper runs before it."""
     F = torch.nn.functional
     errors, timings, failed = {}, {}, []
-    for i, shape in enumerate(CONVS + (RAGGED_CONV,)):
+    for i, shape in enumerate(CONVS + (RAGGED_CONV,) + REPAIRED_CONVS):
         H, W, cin, cout, per_frame = shape
         g = torch.Generator().manual_seed(200 + i)
         # the clip feeds the conv leaky_relu(0.2) output: both signs
@@ -445,9 +481,18 @@ def check_int8_conv(torch, ic, fs):
         x0 = x0.to(DEVICE)
         w = (torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5).to(DEVICE)
         b = (0.1 * torch.randn(cout, generator=g)).to(DEVICE)
-        qw = ic.quantize_weight(w)
+        qw = ic.quantize_weight(w, images=True)
         for dtype in (torch.bfloat16, torch.float32):
             x = x0.to(dtype)
+            if dtype == torch.bfloat16:  # the bf16 conv's quantize pass: exact
+                absmax = torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32)
+                xq, xq_ref = ic.quantize_int8(x, absmax), ic.quantize_int8_plain(x, absmax)
+                q_err = (xq.int() - xq_ref.int()).abs().max().item()
+                log(f"check quantize pass B={BATCH} H={H} W={W} Cin={cin}: max_abs_err={q_err} "
+                    f"(exact) {'ok' if q_err == 0 else 'FAIL'}")
+                errors[(H, W, cin, cout, "quantize")] = q_err
+                if q_err:
+                    failed.append(f"{(H, W, cin, cout)} quantize pass")
             out = ic.conv3x3_int8(x, qw, b, dtype)
             ref = ic.conv3x3_int8_plain(x, qw, b, dtype)
             torch.cuda.synchronize()
@@ -465,19 +510,37 @@ def check_int8_conv(torch, ic, fs):
             elif dtype == torch.bfloat16 and per_frame:
                 w_bf, b_bf = w.to(dtype), b.to(dtype)
                 x_nchw = x.permute(0, 3, 1, 2)
+                absmax_fn = lambda: torch.linalg.vector_norm(  # noqa: E731
+                    x, float("inf"), dtype=torch.float32)
                 with torch.no_grad():
                     k_ms = cuda_ms(torch, lambda: ic.conv3x3_int8(x, qw, b, dtype), 10)
-                    k_dev = device_ms(torch, lambda: ic.conv3x3_int8(x, qw, b, dtype), 5)
+                    dev = device_times(torch, lambda: ic.conv3x3_int8(x, qw, b, dtype), 5,
+                                       {"kernel": CONV_KERNELS})
+                    am_ms = device_ms(torch, absmax_fn, 5)
                     p_ms = cuda_ms(torch, lambda: ic.conv3x3_int8_plain(x, qw, b, dtype), 3)
                     lib_ms = cuda_ms(torch, lambda: F.conv2d(x_nchw, w_bf, b_bf, padding=1), 10)
+                k_dev = dev["kernel"]
+                with torch.no_grad():
+                    qz = lambda: ic.quantize_int8(x, absmax)  # noqa: E731
+                    qz_ms = cuda_ms(torch, qz, 10)
+                    qz_dev = device_ms(torch, qz, 5, QUANTIZE_KERNELS)
+                    qz_plain = cuda_ms(torch, lambda: ic.quantize_int8_plain(x, absmax), 3)
+                qz_bound, qz_by = bound(0.0, bytes_of(x) + bytes_of(xq) + 4)
+                log(f"time quantize pass bf16 B={BATCH} H={H} W={W} Cin={cin}: kernel device "
+                    f"{qz_dev:.4f} ms (event {qz_ms:.4f}) plain {qz_plain:.4f} ms bound "
+                    f"{qz_bound:.4f} ms ({qz_by})")
                 bound_ms, by, ops = conv_bound(BATCH, H, W, cin, cout)
+                split = ic.plan(BATCH, H, W, cin, cout)[1]
                 log(f"time conv bf16 B={BATCH} H={H} W={W} {cin}->{cout} x{per_frame}/frame: "
-                    f"kernel {k_ms:.4f} ms (device {k_dev:.4f}) plain {p_ms:.4f} ms "
-                    f"bound {bound_ms:.4f} ms ({by}) "
-                    f"cuDNN bf16 conv {lib_ms:.4f} ms kernel {ops / k_ms / 1e9:.2f} Tops/s")
+                    f"kernel device {k_dev:.4f} ms (K split {split}; event {k_ms:.4f} ms, wrapper "
+                    f"and abs-max included) abs-max device {am_ms:.4f} ms plain {p_ms:.4f} ms "
+                    f"bound {bound_ms:.4f} ms ({by}) cuDNN bf16 conv {lib_ms:.4f} ms kernel "
+                    f"{ops / k_dev / 1e9:.2f} Tops/s")
                 timings[(H, W, cin, cout)] = dict(
-                    ms=k_ms, device_ms=k_dev, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
-                    cudnn_bf16_ms=lib_ms, per_frame=per_frame, ops=ops)
+                    ms=k_ms, device_ms=k_dev, absmax_ms=am_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                    bound_by=by, cudnn_bf16_ms=lib_ms, per_frame=per_frame, ops=ops, ksplit=split,
+                    quantize=dict(ms=qz_ms, device_ms=qz_dev, plain_ms=qz_plain,
+                                  bound_ms=qz_bound, bound_by=qz_by, bytes=bytes_of(x, xq)))
     if failed:
         raise SystemExit(f"int8 conv disagrees with its plain version at {', '.join(failed)}")
     return errors, timings
@@ -501,9 +564,9 @@ def attention_over_queries(torch, q, k, v):
 
 def attention_work(N, d, dv, chunk):
     """(the operations the function needs, the operations the kernel does:
-    QK^T once per dv chunk) at the clips' batch."""
+    QK^T once per block of ``chunk`` value columns) at the clips' batch."""
     need = 2 * BATCH * N * N * (d + dv)
-    done = 2 * BATCH * N * N * (d * (dv // chunk) + dv)
+    done = 2 * BATCH * N * N * (d * -(-dv // chunk) + dv)
     return need, done
 
 
@@ -563,18 +626,21 @@ def time_attention(torch, fa, F, q, k, v, per_frame):
     dv = v.shape[-1]
     with torch.no_grad():
         k_ms = cuda_ms(torch, lambda: fa.sagan_attention(q, k, v), 10)
-        k_dev = device_ms(torch, lambda: fa.sagan_attention(q, k, v), 5)
+        k_dev = device_ms(torch, lambda: fa.sagan_attention(q, k, v), 5, ATTENTION_KERNELS)
         p_ms = cuda_ms(torch, lambda: fa.attention_plain(q, k, v), 3)
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], v[:, None], scale=1.0), 10)
-    need, done = attention_work(N, d, dv, fa.value_chunk(d, dv))
+    chunk = fa.value_chunk(d, dv)
+    need, done = attention_work(N, d, dv, chunk)
     bound_ms, by = bound(need / H100_BF16_FLOPS, BATCH * N * (2 * d + 2 * dv) * 2)
     log(f"time attention bf16 B={BATCH} N={N} d={d} dv={dv} x{per_frame}/frame: "
-        f"kernel {k_ms:.4f} ms (device {k_dev:.4f}) plain {p_ms:.4f} ms SDPA {lib_ms:.4f} ms "
-        f"bound {bound_ms:.4f} ms ({by}) kernel {need / k_ms / 1e9:.2f} TFLOP/s "
-        f"({done / k_ms / 1e9:.2f} TFLOP/s of the {done / need:.2f}x work it does)")
-    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, sdpa_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
-                per_frame=per_frame, per_frame_att=per_frame, flops=need, work=done / need)
+        f"kernel device {k_dev:.4f} ms (event {k_ms:.4f}) plain {p_ms:.4f} ms SDPA {lib_ms:.4f} "
+        f"ms bound {bound_ms:.4f} ms ({by}) kernel {need / k_dev / 1e9:.2f} TFLOP/s "
+        f"({done / k_dev / 1e9:.2f} TFLOP/s of the {done / need:.2f}x work it does; QK^T "
+        f"{-(-dv // chunk)}x the minimum)")
+    return dict(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, sdpa_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=by, per_frame=per_frame, per_frame_att=per_frame, flops=need,
+                work=done / need, qk_ratio=-(-dv // chunk))
 
 
 def probe_library(torch, name, args):
@@ -961,7 +1027,9 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {source}: {line.strip()}")
-    check_chain_build(cuda_build, fs, reports[0])
+    for source, report in zip(sources, reports):
+        if source in SERVING_BODIES:
+            check_build(cuda_build, source, report)
 
     errors, timings = check_chain_kernel(torch, fs)
     q_errors, q_timings = check_int8_chain(torch, fs)
@@ -977,9 +1045,11 @@ def main() -> int:
     fp_counters = {"fused_multispade": (fmm, "launches"), "sagan_attention": (att, "launches")}
     q_counters = {**fp_counters, "fused_multispade_int8": (fmm, "int8_launches"),
                   "multispade_hidden_absmax": (fmm, "absmax_launches"),
-                  "int8_conv3x3": (ic.conv3x3_int8, "launches")}
+                  "int8_conv3x3": (ic.conv3x3_int8, "launches"),
+                  "int8_quantize": (ic.quantize_int8, "launches")}
     q_expected = {"fused_multispade": 0, "fused_multispade_int8": n_sites,
-                  "multispade_hidden_absmax": n_sites, "int8_conv3x3": n_convs}
+                  "multispade_hidden_absmax": n_sites, "int8_conv3x3": n_convs,
+                  "int8_quantize": n_convs}
     clip, launches, n_frames, _ = run_clip(
         torch, "bf16", lambda: build_inference(BATCH), fp_counters,
         {"fused_multispade": n_sites, "sagan_attention": 0})
@@ -1030,6 +1100,11 @@ def main() -> int:
             f"bound {b:.2f} ms")
     cudnn_clip = sum(t["cudnn_bf16_ms"] * t["per_frame"] * n_frames for t in c_timings.values())
     log(f"cuDNN bf16 conv at the same shapes per clip: {cudnn_clip:.1f} ms")
+    absmax_clip = sum(t["absmax_ms"] * t["per_frame"] * n_frames for t in c_timings.values())
+    log(f"the int8 conv's abs-max reduction per clip (device time): {absmax_clip:.2f} ms")
+    qz_timings = {k: {**t["quantize"], "per_frame": t["per_frame"]} for k, t in c_timings.items()}
+    qz_clip, qz_bound = per_clip(qz_timings)
+    log(f"its quantize pass per clip (device time): {qz_clip:.2f} ms, bound {qz_bound:.2f} ms")
     sdpa_clip = sum(t["sdpa_ms"] * t["per_frame"] * n_frames for t in a_timings.values())
     log(f"SDPA (scale 1) at the same shapes per attention clip: {sdpa_clip:.1f} ms")
     log("clip latency " + ", ".join(f"{name} {ms:.1f} ms" for name, ms in med.items())
@@ -1099,10 +1174,28 @@ def main() -> int:
         "bound_by": ct["bound_by"],
         "library_ms": None,
         "cudnn_bf16_ms": ct["cudnn_bf16_ms"],
+        "absmax_ms": ct["absmax_ms"],
+        "ksplit": ct["ksplit"],
         "site": {"B": BATCH, "H": c_top[0], "W": c_top[1], "Cin": c_top[2], "Cout": c_top[3],
                  "dtype": "bfloat16"},
         "clip_ms": med["int8"],
         "clip_kernel_ms": per_clip(c_timings)[0],
+    }, {
+        "name": "int8_quantize",
+        "route": "cuda",
+        "source": "shineon_tpu_torch/csrc/int8_conv3x3.cu",
+        "replaces": "tools/pallas_conv_probe.py:233 (the quantize before the call at :282)",
+        "launches": q_launches["int8_quantize"],
+        "attention_clip_launches": qa_launches["int8_quantize"],
+        "max_abs_err": max(v for k, v in c_errors.items() if k[-1] == "quantize"),
+        "ms": qz_timings[c_top]["ms"],
+        "device_ms": qz_timings[c_top]["device_ms"],
+        "plain_ms": qz_timings[c_top]["plain_ms"],
+        "bound_ms": qz_timings[c_top]["bound_ms"],
+        "bound_by": qz_timings[c_top]["bound_by"],
+        "library_ms": None,
+        "site": {"B": BATCH, "H": c_top[0], "W": c_top[1], "Cin": c_top[2], "dtype": "bfloat16"},
+        "clip_kernel_ms": qz_clip,
     }, {
         "name": "sagan_attention",
         "route": "cuda",
@@ -1118,6 +1211,7 @@ def main() -> int:
         "bound_ms": at["bound_ms"],
         "bound_by": at["bound_by"],
         "library_ms": at["sdpa_ms"],
+        "qk_ratio": at["qk_ratio"],
         "shape": {"B": BATCH, "N": a_top[0], "d": a_top[1], "dv": a_top[2],
                   "dtype": "bfloat16"},
         "clip_ms": med["bf16 attention"],

@@ -38,7 +38,8 @@
 // weights one 3x3 tap (a 128 x 128 slice: 32 KB in bf16, 16 KB in int8) at
 // a time through shared memory, accumulating gamma and beta in registers.
 // x stays in registers across labels and y is written once. Any H and W are
-// taken (ragged tiles are masked); C must be a multiple of 64.
+// taken (ragged tiles are masked); C must be a multiple of 64 (the wrapper
+// zero-pads other widths); a label may have any number of segmap channels.
 //
 // The bf16 serving bodies (chain_kernel_bf16, chain_kernel_q_bf16; design
 // at chain_wgmma below) run the gamma/beta conv on wgmma (m64n128k16 bf16,
@@ -48,9 +49,9 @@
 // two consumer warpgroups compute. The hidden conv runs on mma.sync
 // straight from a segmap tile padded to 8 channels a label (no im2col); the
 // pre-pass takes the same code. The f32 bodies, kept for parity checks, are
-// the first design: scalar FMAs for the hidden map (and, unquantized,
-// gamma/beta), mma.sync s8 for the quantized gamma/beta conv from a
-// cp.async ring.
+// the first design: scalar FMAs for the hidden map, its segmap read from
+// global memory (and, unquantized, gamma/beta), mma.sync s8 for the
+// quantized gamma/beta conv from a cp.async ring.
 //
 // What bounds it on this card: each pixel and label costs 2*9*128*2C
 // operations of gamma/beta product against ~4 bytes a channel of x/y
@@ -82,7 +83,6 @@ constexpr int WT = TW + 2;    // hidden tile columns
 constexpr int ST = TH + 4;    // segmap tile rows (2-pixel halo)
 constexpr int SWT = TW + 4;   // segmap tile columns
 constexpr int MAX_L = 8;      // labels
-constexpr int MAX_CS = 8;     // segmap channels of one label
 constexpr int NTHREADS = 256;
 constexpr int CPT = 8;                   // channels a thread
 constexpr int NCG = TC / CPT;            // channel groups (8)
@@ -91,9 +91,13 @@ constexpr int PX = TH * TW / NPG;        // pixels a thread (4)
 
 struct ChainArgs {
   int H, W, C, L, cs_tot;
-  int tiles_w;  // pixel tiles along W
+  int tiles_w;   // pixel tiles along W
+  int segs_tot;  // 8-channel segments of the bf16 segmap operand, all labels
+  int seg_buf;   // segments a bf16 body's segmap buffer holds
   int cs[MAX_L];
   int cs_off[MAX_L];
+  int nseg[MAX_L];     // segments of each label: ceil(cs / 8)
+  int seg_off[MAX_L];  // its first segment
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -109,23 +113,6 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[CPT]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
-// Segmap tile of label l into s_s ([ST*SWT][cs] floats): image rows
-// r0-2 .. r0+TH+1, columns c0-2 .. c0+TW+1, zero outside the image.
-template <typename T>
-__device__ __forceinline__ void load_segmap_tile(float* s_s, const T* __restrict__ seg,
-                                                 const ChainArgs& args, int l, int b,
-                                                 int r0, int c0) {
-  const int cs = args.cs[l];
-  for (int i = threadIdx.x; i < ST * SWT * cs; i += NTHREADS) {
-    const int ci = i % cs, pos = i / cs;
-    const int sr = r0 - 2 + pos / SWT, sc = c0 - 2 + pos % SWT;
-    float v = 0.f;
-    if (sr >= 0 && sr < args.H && sc >= 0 && sc < args.W)
-      v = to_f(seg[(((size_t)b * args.H + sr) * args.W + sc) * args.cs_tot + args.cs_off[l] + ci]);
-    s_s[i] = v;
-  }
-}
-
 // The value of a hidden position: relu(conv + bias) from the conv's f32 sum.
 // Full precision keeps that f32 value (the bf16 chain rounds it once as it
 // stores the tile). The quantized chain and its pre-pass in bf16 round as
@@ -215,12 +202,14 @@ struct HidMax {  // pre-pass: this thread's max |v|
 // f32 path: hidden tile of label l into `out` with scalar FMAs: hidden
 // (hr, hc) is image pixel (r0-1+hr, c0-1+hc); Out::hidden of the conv's sum
 // and the bias, zero outside the image (the reference zero-pads the hidden
-// map).
+// map). The segmap is read from global memory (seg (B, H, W, cs_tot) f32),
+// so a label may have any number of channels; taps outside the image add
+// nothing to the sum.
 template <typename Out>
-__device__ __forceinline__ void compute_hidden_f32(Out& out, const float* s_s,
+__device__ __forceinline__ void compute_hidden_f32(Out& out, const float* __restrict__ seg,
                                                    const float* __restrict__ wsh,
                                                    const float* __restrict__ bsh,
-                                                   const ChainArgs& args, int l, int r0,
+                                                   const ChainArgs& args, int l, int b, int r0,
                                                    int c0) {
   const int cs = args.cs[l];
   const int k = threadIdx.x % NHID;
@@ -233,10 +222,15 @@ __device__ __forceinline__ void compute_hidden_f32(Out& out, const float* s_s,
     if (ir >= 0 && ir < args.H && ic >= 0 && ic < args.W) {
       float acc = 0.f;
       for (int di = 0; di < 3; ++di) {
+        const int sr = ir - 1 + di;
+        if (sr < 0 || sr >= args.H) continue;
         for (int dj = 0; dj < 3; ++dj) {
-          const float* sp = s_s + ((hr + di) * SWT + (hc + dj)) * cs;
+          const int sc = ic - 1 + dj;
+          if (sc < 0 || sc >= args.W) continue;
+          const float* sp =
+              seg + (((size_t)b * args.H + sr) * args.W + sc) * args.cs_tot + args.cs_off[l];
           const float* wp = wl + (size_t)((di * 3 + dj) * cs) * NHID + k;
-          for (int ci = 0; ci < cs; ++ci) acc = fmaf(sp[ci], __ldg(wp + ci * NHID), acc);
+          for (int ci = 0; ci < cs; ++ci) acc = fmaf(__ldg(sp + ci), __ldg(wp + ci * NHID), acc);
         }
       }
       v = Out::hidden(acc, bias);
@@ -253,7 +247,7 @@ __device__ __forceinline__ void compute_hidden_f32(Out& out, const float* s_s,
 constexpr int HS_F32 = NHID + 1;  // odd row stride: a warp's pixels in distinct banks
 
 constexpr size_t smem_f32() {
-  return sizeof(float) * ((size_t)HT * WT * HS_F32 + NHID * 2 * TC + ST * SWT * MAX_CS);
+  return sizeof(float) * ((size_t)HT * WT * HS_F32 + NHID * 2 * TC);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1)
@@ -265,7 +259,6 @@ chain_kernel_f32(const float* __restrict__ x, const float* __restrict__ ab,
   extern __shared__ __align__(16) unsigned char smem[];
   float* h_s = reinterpret_cast<float*>(smem);  // [HT*WT][HS]
   float* w_s = h_s + HT * WT * HS;              // [NHID][2*TC]
-  float* s_s = w_s + NHID * 2 * TC;             // [ST*SWT][cs]
 
   const int H = args.H, W = args.W, C = args.C, L = args.L;
   const size_t twoC = 2 * (size_t)C;
@@ -298,10 +291,8 @@ chain_kernel_f32(const float* __restrict__ x, const float* __restrict__ ab,
   }
 
   for (int l = 0; l < L; ++l) {
-    load_segmap_tile(s_s, seg, args, l, b, r0, c0);
-    __syncthreads();
     HidStoreF32<HS> hid{h_s};
-    compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
+    compute_hidden_f32(hid, seg, wsh, bsh, args, l, b, r0, c0);
 
     float gam[PX][CPT], bet[PX][CPT];
 #pragma unroll
@@ -356,7 +347,7 @@ chain_kernel_f32(const float* __restrict__ x, const float* __restrict__ ab,
       for (int j = 0; j < PX; ++j)
         xr[j][i] = (xr[j][i] * a + bb) * (1.f + (gam[j][i] + g0)) + (bet[j][i] + b0);
     }
-    __syncthreads();  // hidden and segmap tiles are free for the next label
+    __syncthreads();  // the hidden tile is free for the next label
   }
 
 #pragma unroll
@@ -490,14 +481,17 @@ __device__ __forceinline__ void modulate_frag(float (&xr)[MT][NPAIR][4],
 //    stages with a full and an empty mbarrier each; a stage is refilled
 //    once all 8 consumer warps have released it.
 //  * Hidden conv (per label, mma.sync m16n8k16): the segmap is padded to
-//    SEG_C = 8 channels a label, 16 bytes a position, so each 8-element
-//    k-half of A (k = tap*8 + ci) is one segmap position at a tap's offset
-//    in the segmap tile, read straight by ldmatrix: no im2col. The hidden
-//    weights (L, 128, KH) come from global memory into registers. Each
-//    consumer warpgroup computes the 6 hidden rows its taps read (rows 4-5
-//    by both) behind its own named barrier, so that one warpgroup's hidden
-//    conv overlaps the other's taps, and the next label's segmap rows load
-//    during the current label's taps.
+//    segments of SEG_C = 8 channels, ceil(cs / 8) a label, 16 bytes a
+//    position, so each 8-element k-half of A (k = seg*KH + tap*8 + ci) is
+//    one segmap position of one segment at a tap's offset in the segmap
+//    tile, read straight by ldmatrix: no im2col. The hidden weights (one
+//    (128, KH) block a segment) come from global memory into registers.
+//    Each consumer warpgroup computes the 6 hidden rows its taps read (rows
+//    4-5 by both) behind its own named barrier, so that one warpgroup's
+//    hidden conv overlaps the other's taps, and the next label's segmap rows
+//    load during the current label's taps. The segmap buffer holds up to
+//    SEG_GROUP segments; a label of more is streamed through it in groups,
+//    reloaded for each pass of the hidden conv (any cs is taken).
 //  * [gamma | beta] conv (per tap, wgmma m64n128, A from registers): A is
 //    the hidden tile shifted by the tap, whose 8-row groups sit at uneven
 //    strides (+8 positions, then +WT), so no descriptor names it; each
@@ -508,54 +502,91 @@ __device__ __forceinline__ void modulate_frag(float (&xr)[MT][NPAIR][4],
 //    its tile row, and the modulation runs in registers.
 constexpr int CONSUMERS = 256;             // two consumer warpgroups
 constexpr int NTHREADS_WG = CONSUMERS + 128;  // and a producer warpgroup
-constexpr int SEG_C = MAX_CS;              // segmap channels a label, padded
-constexpr int KH = (9 * SEG_C + 15) / 16 * 16;  // hidden-conv depth (80)
+constexpr int SEG_C = 8;                   // segmap channels a segment
+constexpr int SEG_GROUP = 4;               // segments a segmap buffer holds at most
+constexpr int KH = (9 * SEG_C + 15) / 16 * 16;  // hidden-conv depth a segment (80)
 constexpr int HS_BF16 = NHID + 8;          // 272-byte rows: conflict-free ldmatrix
 constexpr int HSQ = NHID + 16;             // 144-byte int8 rows
 constexpr int SLICE_B = 2 * TC * NHID * 2;  // bytes of a bf16 slice image (32 KB)
 constexpr int SLICE_Q8 = 2 * TC * NHID;     // bytes of an int8 slice image (16 KB)
 constexpr int NST_B = 4;                   // ring stages, bf16
 constexpr int NST_Q8 = 6;                  // ring stages, int8
-constexpr int SEG_TILE_BYTES = ST * SWT * SEG_C * 2;  // the pre-pass's segmap tile
+constexpr int SEG_TILE_BYTES = ST * SWT * SEG_C * 2;  // the pre-pass's segmap tile, a segment
 constexpr int NH_WG = 4 + 2;  // hidden rows a consumer warpgroup computes (4 + halo)
 constexpr int SEG_WG = (NH_WG + 2) * SWT * SEG_C;  // elements of a warpgroup's segmap rows
 
-// Segmap rows of label l for hidden rows h0..h0+nh-1 of the tile: segmap
-// tile rows h0..h0+nh+1 (image rows r0-2+h0 ..), bf16, SEG_C channels a
-// position, into s_seg ([(nh+2)*SWT][SEG_C]) by 16-byte cp.async, zero
-// outside the image; threads tid of n. Committed.
-__device__ __forceinline__ void load_seg_rows(__nv_bfloat16* s_seg,
-                                              const __nv_bfloat16* __restrict__ seg,
-                                              const ChainArgs& args, int l, int b, int r0,
-                                              int c0, int h0, int nh, int tid, int n) {
-  const size_t stride = (size_t)SEG_C * args.L;
-  for (int pos = tid; pos < (nh + 2) * SWT; pos += n) {
+// Who loads a label's segmap rows into a segmap buffer: the NT threads of
+// this thread's group (a warpgroup or the block), synchronised on named
+// barrier 1 + group, for sample blockIdx.z. Read from the special
+// registers where used, to hold no registers across the chain.
+template <int NT>
+struct SegLoader {
+  const __nv_bfloat16* __restrict__ seg;  // (B, H, W, SEG_C * segs_tot)
+  static constexpr int n = NT;
+  __device__ __forceinline__ int tid() const { return threadIdx.x % NT; }
+  __device__ __forceinline__ int bar() const { return 1 + threadIdx.x / NT; }
+  __device__ __forceinline__ int b() const { return blockIdx.z; }
+};
+
+// Segmap rows of segments s0..s0+ns-1 of label l for hidden rows
+// h0..h0+nh-1 of the tile: segmap tile rows h0..h0+nh+1 (image rows
+// r0-2+h0 ..), bf16, SEG_C channels a position, into s_seg
+// ([ns][(nh+2)*SWT][SEG_C]) by 16-byte cp.async, zero outside the image.
+// Committed.
+template <int NT>
+__device__ __forceinline__ void load_seg_rows(__nv_bfloat16* s_seg, const SegLoader<NT>& ld,
+                                              const ChainArgs& args, int l, int s0, int ns,
+                                              int r0, int c0, int h0, int nh) {
+  const size_t stride = (size_t)SEG_C * args.segs_tot;
+  const int npos = (nh + 2) * SWT;
+  const __nv_bfloat16* src = ld.seg + SEG_C * (args.seg_off[l] + s0);
+  for (int i = ld.tid(); i < ns * npos; i += NT) {
+    const int s = i / npos, pos = i % npos;
     const int sr = r0 - 2 + h0 + pos / SWT, sc = c0 - 2 + pos % SWT;
     const bool inside = sr >= 0 && sr < args.H && sc >= 0 && sc < args.W;
-    const size_t at = inside ? ((size_t)b * args.H + sr) * args.W + sc : 0;
-    cp_async16_zfill(s_seg + pos * SEG_C, seg + at * stride + SEG_C * l, inside);
+    const size_t at = inside ? ((size_t)ld.b() * args.H + sr) * args.W + sc : 0;
+    cp_async16_zfill(s_seg + i * SEG_C, src + at * stride + SEG_C * s, inside);
   }
   cp_async_commit();
 }
 
-// One pass of hidden_mma: hidden channels n0..n0+8*NJ-1.
-template <int NJ, int MCH, typename Out>
-__device__ __forceinline__ void hidden_mma_pass(Out& out, const __nv_bfloat16* s_seg,
+// The first group of label l's segments (what the buffer holds when its
+// label has at most seg_buf of them).
+template <int NT>
+__device__ __forceinline__ void load_seg_group0(__nv_bfloat16* s_seg, const SegLoader<NT>& ld,
+                                                const ChainArgs& args, int l, int r0, int c0,
+                                                int h0, int nh) {
+  load_seg_rows(s_seg, ld, args, l, 0, min(args.nseg[l], args.seg_buf), r0, c0, h0, nh);
+}
+
+// One pass of hidden_mma: hidden channels n0..n0+8*NJ-1. s_seg holds the
+// label's first segments (load_seg_group0). MULTI (a label of more than one
+// segment): the B fragments are loaded again for each segment, and a label
+// of more than seg_buf segments is streamed through s_seg again here, a
+// group at a time; else (one segment) the B fragments are loaded once.
+template <int NJ, int MCH, bool MULTI, int NT, typename Out>
+__device__ __forceinline__ void hidden_mma_pass(Out& out, __nv_bfloat16* s_seg,
+                                                const SegLoader<NT>& ld,
                                                 const __nv_bfloat16* __restrict__ wsh,
                                                 const float* __restrict__ bsh,
                                                 const ChainArgs& args, int l, int r0, int c0,
                                                 int h0, int nh, int n0, int lane) {
   const int g = lane / 4, t = lane % 4;
+  const int S = MULTI ? args.nseg[l] : 1, G = MULTI ? args.seg_buf : 1;
+  const int seg_elems = (nh + 2) * SWT * SEG_C;  // a segment's rows in s_seg
   uint32_t bfr[KH / 16][NJ][2];
-  const __nv_bfloat16* wl = wsh + (size_t)l * NHID * KH;
+  auto load_b = [&](int s) {  // the weights of segment s of the label
+    const __nv_bfloat16* wl = wsh + (size_t)(args.seg_off[l] + s) * NHID * KH;
 #pragma unroll
-  for (int ks = 0; ks < KH / 16; ++ks)
+    for (int ks = 0; ks < KH / 16; ++ks)
 #pragma unroll
-    for (int nj = 0; nj < NJ; ++nj) {
-      const __nv_bfloat16* w = wl + (size_t)(n0 + 8 * nj + g) * KH + 16 * ks + 2 * t;
-      bfr[ks][nj][0] = __ldg(reinterpret_cast<const unsigned int*>(w));
-      bfr[ks][nj][1] = __ldg(reinterpret_cast<const unsigned int*>(w + 8));
-    }
+      for (int nj = 0; nj < NJ; ++nj) {
+        const __nv_bfloat16* w = wl + (size_t)(n0 + 8 * nj + g) * KH + 16 * ks + 2 * t;
+        bfr[ks][nj][0] = __ldg(reinterpret_cast<const unsigned int*>(w));
+        bfr[ks][nj][1] = __ldg(reinterpret_cast<const unsigned int*>(w + 8));
+      }
+  };
+  if (!MULTI) load_b(0);
   float bias[NJ][2];
 #pragma unroll
   for (int nj = 0; nj < NJ; ++nj)
@@ -576,16 +607,29 @@ __device__ __forceinline__ void hidden_mma_pass(Out& out, const __nv_bfloat16* s
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
     }
+    for (int s0 = 0; s0 < S; s0 += G) {
+      if (MULTI && S > G) {  // stream this group of segments through the buffer
+        named_sync(ld.bar(), NT);  // every warp is done with the buffer
+        load_seg_rows(s_seg, ld, args, l, s0, min(G, S - s0), r0, c0, h0, nh);
+        cp_async_wait<0>();
+        named_sync(ld.bar(), NT);
+      }
+      for (int s = s0; s < min(s0 + G, S); ++s) {
+        if (MULTI) load_b(s);  // (one segment: loaded once, above)
+        const __nv_bfloat16* sg = s_seg + (s - s0) * seg_elems;
 #pragma unroll
-    for (int ks = 0; ks < KH / 16; ++ks) {
-      const int tap = min(2 * ks + a_half, 8);  // k >= 72: zero weights
-      const int off = (tap / 3) * SWT + tap % 3;
+        for (int ks = 0; ks < KH / 16; ++ks) {
+          const int tap = min(2 * ks + a_half, 8);  // k >= 72: zero weights
+          const int off = (tap / 3) * SWT + tap % 3;
 #pragma unroll
-      for (int mi = 0; mi < MCH; ++mi) {
-        uint32_t afr[4];
-        ldmatrix_x4(afr, s_seg + (base[mi] + off) * SEG_C);
+          for (int mi = 0; mi < MCH; ++mi) {
+            uint32_t afr[4];
+            ldmatrix_x4(afr, sg + (base[mi] + off) * SEG_C);
 #pragma unroll
-        for (int nj = 0; nj < NJ; ++nj) mma_bf16(acc[mi][nj], afr, bfr[ks][nj][0], bfr[ks][nj][1]);
+            for (int nj = 0; nj < NJ; ++nj)
+              mma_bf16(acc[mi][nj], afr, bfr[ks][nj][0], bfr[ks][nj][1]);
+          }
+        }
       }
     }
 #pragma unroll
@@ -609,39 +653,50 @@ __device__ __forceinline__ void hidden_mma_pass(Out& out, const __nv_bfloat16* s
 }
 
 // Hidden rows h0..h0+nh-1 of the tile of label l on the tensor cores, read
-// from s_seg (segmap rows h0..h0+nh+1, load_seg_rows), by NW warps: warp
+// from s_seg (segmap rows h0..h0+nh+1, load_seg_group0), by NW warps: warp
 // `warp` computes hidden channels (128/NW)*warp.. of the nh*WT positions
 // (local position p = (hr - h0)*WT + hc; rows past them are clamped and
 // dropped), then Out::hidden with the bias, zero outside the image, into
-// `out` at p.
-template <int NW, typename Out>
-__device__ __forceinline__ void hidden_mma(Out& out, const __nv_bfloat16* s_seg,
+// `out` at p. Every warp of ld's barrier calls it.
+template <int NW, int NT, typename Out>
+__device__ __forceinline__ void hidden_mma(Out& out, __nv_bfloat16* s_seg, const SegLoader<NT>& ld,
                                            const __nv_bfloat16* __restrict__ wsh,
                                            const float* __restrict__ bsh, const ChainArgs& args,
                                            int l, int r0, int c0, int h0, int nh, int warp,
                                            int lane) {
   // a warp's 128/NW channels in passes of 16 (two n8 tiles), to bound the
-  // registers the B fragments and sums hold beside the chain's own
+  // registers the B fragments and sums hold beside the chain's own; a
+  // label of several segments holds half the m16 tiles at once
   constexpr int NJ = 2, MCH = 4;  // n8 tiles a pass, m16 tiles held at once
-  for (int pass = 0; pass < NHID / 16 / NW; ++pass)
-    hidden_mma_pass<NJ, MCH>(out, s_seg, wsh, bsh, args, l, r0, c0, h0, nh,
-                             16 * (NHID / 16 / NW * warp + pass), lane);
+  const bool multi = args.nseg[l] > 1;
+  for (int pass = 0; pass < NHID / 16 / NW; ++pass) {
+    const int n0 = 16 * (NHID / 16 / NW * warp + pass);
+    if (multi)
+      hidden_mma_pass<NJ, MCH / 2, true>(out, s_seg, ld, wsh, bsh, args, l, r0, c0, h0, nh, n0,
+                                         lane);
+    else
+      hidden_mma_pass<NJ, MCH, false>(out, s_seg, ld, wsh, bsh, args, l, r0, c0, h0, nh, n0,
+                                      lane);
+  }
 }
 
 // Shared memory of a wgmma chain body: the weight ring (1024-byte aligned
-// stages), each consumer warpgroup's hidden rows and two buffers of its
-// segmap rows (the next label's load during the current label's taps), the
-// ring's barriers; plus
-// slack to align the dynamic buffer's base to 1024 bytes.
+// stages), each consumer warpgroup's hidden rows, the ring's barriers, each
+// consumer warpgroup's segmap buffer of seg_buf segments (the next label's
+// rows load into it during the current label's taps: the hidden conv that
+// read it is done); plus slack to align the dynamic buffer's base to 1024
+// bytes.
 template <bool QUANT>
 struct WgLayout {
   static constexpr int SLICE = QUANT ? SLICE_Q8 : SLICE_B;
   static constexpr int NST = QUANT ? NST_Q8 : NST_B;
   static constexpr int HROW = QUANT ? HSQ : 2 * HS_BF16;  // bytes a hidden position
   static constexpr size_t HID = (size_t)NST * SLICE;
-  static constexpr size_t SEG = HID + 2 * (size_t)NH_WG * WT * HROW;  // a tile a warpgroup
-  static constexpr size_t BARS = SEG + 2 * 2 * sizeof(__nv_bfloat16) * SEG_WG;  // two a warpgroup
-  static constexpr size_t BYTES = BARS + 2 * NST * sizeof(uint64_t) + 1024;
+  static constexpr size_t BARS = HID + 2 * (size_t)NH_WG * WT * HROW;  // a tile a warpgroup
+  static constexpr size_t SEG = BARS + 2 * NST * sizeof(uint64_t);
+  static constexpr size_t bytes(int seg_buf) {
+    return SEG + 2 * (size_t)seg_buf * sizeof(__nv_bfloat16) * SEG_WG + 1024;
+  }
 };
 
 // x <- (x * a + b) * (1 + gamma) + beta for label l from a wgmma
@@ -679,7 +734,7 @@ __device__ __forceinline__ void modulate_wg(float (&xr)[8][4], const Acc (&acc)[
 // The bf16 serving chain, full precision (QUANT = false; wgb: bf16 slice
 // images, sgb and absmax unused) or quantized (wgb: int8 slice images, sgb
 // (L, 2C) weight scales, absmax (L,) from the pre-pass). x, y, seg, wsh
-// bf16: seg (B, H, W, SEG_C * L), wsh (L, NHID, KH).
+// bf16: seg (B, H, W, SEG_C * segs_tot), wsh (segs_tot, NHID, KH).
 template <bool QUANT>
 __device__ __forceinline__ void chain_wgmma(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
@@ -743,9 +798,10 @@ __device__ __forceinline__ void chain_wgmma(
     const int r = r0 + trow, ch = ch0 + 2 * t;
     // this warpgroup's hidden rows 4wg..4wg+5 and segmap rows, its own
     unsigned char* h_wg = h_s + wg * NH_WG * WT * HROW;
-    __nv_bfloat16* seg_wg = s_seg + wg * 2 * SEG_WG;
-    const int h0 = 4 * wg, wtid = tid % 128;
-    load_seg_rows(seg_wg, seg, args, 0, b, r0, c0, h0, NH_WG, wtid, 128);  // loads beside x
+    __nv_bfloat16* seg_wg = s_seg + wg * args.seg_buf * SEG_WG;
+    const int h0 = 4 * wg;
+    const SegLoader<128> ld{seg};
+    load_seg_group0(seg_wg, ld, args, 0, r0, c0, h0, NH_WG);  // loads beside x
     float xr[8][4];
     bool valid[2];
 #pragma unroll
@@ -775,22 +831,20 @@ __device__ __forceinline__ void chain_wgmma(
     // (rows 4-5 twice) behind its own named barrier, so one's hidden conv
     // overlaps the other's taps; the ring lets them drift NST steps apart.
     for (int l = 0; l < args.L; ++l) {
-      __nv_bfloat16* seg_l = seg_wg + (l % 2) * SEG_WG;
       cp_async_wait<0>();
       named_sync(1 + wg, 128);  // segmap rows in; the warpgroup is done with the last taps
       float s = 0.f;
       if constexpr (QUANT) {
         s = int8_scale(absmax[l]);
         HidQuant<true, HSQ> hid{reinterpret_cast<int8_t*>(h_wg), s, __frcp_rn(s)};
-        hidden_mma<4>(hid, seg_l, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
+        hidden_mma<4>(hid, seg_wg, ld, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
       } else {
         HidStoreBf16<HS_BF16> hid{reinterpret_cast<__nv_bfloat16*>(h_wg)};
-        hidden_mma<4>(hid, seg_l, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
+        hidden_mma<4>(hid, seg_wg, ld, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
       }
-      named_sync(1 + wg, 128);  // hidden rows complete; the other segmap buffer is free
+      named_sync(1 + wg, 128);  // hidden rows complete; the segmap buffer is free
       if (l + 1 < args.L)  // the next label's segmap rows load during the taps
-        load_seg_rows(seg_wg + ((l + 1) % 2) * SEG_WG, seg, args, l + 1, b, r0, c0, h0, NH_WG,
-                      wtid, 128);
+        load_seg_group0(seg_wg, ld, args, l + 1, r0, c0, h0, NH_WG);
 
       // A tap's products run in parts of KPART k-steps, each waiting for its
       // own (wait_group 0) before the next part's A fragments overwrite the
@@ -876,16 +930,16 @@ template <typename T>
 constexpr bool is_bf16_v = std::is_same<T, __nv_bfloat16>::value;
 
 // Shared memory of the f32 quantized chain: int8 hidden tile, the ring of
-// int8 weight slices, the f32 segmap tile.
+// int8 weight slices.
 constexpr size_t smem_q_f32() {
-  return (size_t)HT * WT * HSQ + (size_t)NSTAGE_Q * SLICE_Q +
-         sizeof(float) * (size_t)(ST * SWT * MAX_CS);
+  return (size_t)HT * WT * HSQ + (size_t)NSTAGE_Q * SLICE_Q;
 }
 
-// Shared memory of the pre-pass: the segmap tile only.
+// Shared memory of the pre-pass: bf16, the segmap buffer of seg_buf
+// segments; f32 none (the segmap is read from global memory).
 template <typename T>
-constexpr size_t smem_absmax() {
-  return is_bf16_v<T> ? (size_t)SEG_TILE_BYTES : sizeof(float) * (size_t)(ST * SWT * MAX_CS);
+size_t smem_absmax(const ChainArgs& args) {
+  return is_bf16_v<T> ? (size_t)args.seg_buf * SEG_TILE_BYTES : 0;
 }
 
 // Start copying one tap's int8 [gamma | beta] weight slice into w_buf:
@@ -926,15 +980,13 @@ hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
     HidMax<BF16> hid{0.f};
     if constexpr (BF16) {
       __nv_bfloat16* s_seg = reinterpret_cast<__nv_bfloat16*>(smem);
-      load_seg_rows(s_seg, seg, args, l, b, r0, c0, 0, HT, threadIdx.x, NTHREADS);
+      const SegLoader<NTHREADS> ld{seg};
+      load_seg_group0(s_seg, ld, args, l, r0, c0, 0, HT);
       cp_async_wait<0>();
       __syncthreads();
-      hidden_mma<NTHREADS / 32>(hid, s_seg, wsh, bsh, args, l, r0, c0, 0, HT, warp, lane);
+      hidden_mma<NTHREADS / 32>(hid, s_seg, ld, wsh, bsh, args, l, r0, c0, 0, HT, warp, lane);
     } else {
-      float* s_s = reinterpret_cast<float*>(smem);
-      load_segmap_tile(s_s, seg, args, l, b, r0, c0);
-      __syncthreads();
-      compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
+      compute_hidden_f32(hid, seg, wsh, bsh, args, l, b, r0, c0);
     }
     float m = hid.m;
 #pragma unroll
@@ -961,7 +1013,6 @@ chain_kernel_q_f32(const float* __restrict__ x, const float* __restrict__ ab,
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* h_q = reinterpret_cast<int8_t*>(smem);  // [HT*WT][HSQ]
   int8_t* w_s = h_q + HT * WT * HSQ;              // NSTAGE_Q x [2*TC][WSQ]
-  float* s_s = reinterpret_cast<float*>(w_s + NSTAGE_Q * SLICE_Q);
 
   const Frag frag = Frag::of_thread(args);
   const int b = frag.b, r0 = frag.r0, c0 = frag.c0, ch0 = frag.ch0, wm = frag.wm, wn = frag.wn;
@@ -989,10 +1040,8 @@ chain_kernel_q_f32(const float* __restrict__ x, const float* __restrict__ ab,
 
   for (int l = 0; l < L; ++l) {
     const float s = int8_scale(absmax[l]);
-    load_segmap_tile(s_s, seg, args, l, b, r0, c0);
-    __syncthreads();
     HidQuant<false, HSQ> hid{h_q, s, __frcp_rn(s)};
-    compute_hidden_f32(hid, s_s, wsh, bsh, args, l, r0, c0);
+    compute_hidden_f32(hid, seg, wsh, bsh, args, l, b, r0, c0);
 
     int acc[MT][2 * NPAIR][4];
 #pragma unroll
@@ -1040,6 +1089,9 @@ chain_kernel_q_f32(const float* __restrict__ x, const float* __restrict__ ab,
 }
 
 // The chain's shape arguments; false if the kernel does not take them.
+// Each label may have any number of segmap channels (cs >= 1): the bf16
+// bodies take them in 8-channel segments, seg_buf = min(max segments,
+// SEG_GROUP) of them resident at once.
 bool fill_args(ChainArgs& args, int B, int H, int W, int C, int L, const int* cs) {
   if (B < 1 || B > 65535 || H < 1 || W < 1 || C < TC || C % TC != 0 || L < 1 || L > MAX_L)
     return false;
@@ -1048,18 +1100,21 @@ bool fill_args(ChainArgs& args, int B, int H, int W, int C, int L, const int* cs
   args.C = C;
   args.L = L;
   args.tiles_w = (W + TW - 1) / TW;
-  int off = 0;
-  for (int l = 0; l < MAX_L; ++l) {
-    args.cs[l] = 0;
-    args.cs_off[l] = 0;
-  }
+  for (int l = 0; l < MAX_L; ++l) args.cs[l] = args.cs_off[l] = args.nseg[l] = args.seg_off[l] = 0;
+  int off = 0, soff = 0, smax = 0;
   for (int l = 0; l < L; ++l) {
-    if (cs[l] < 1 || cs[l] > MAX_CS) return false;
+    if (cs[l] < 1) return false;
     args.cs[l] = cs[l];
     args.cs_off[l] = off;
+    args.nseg[l] = (cs[l] + SEG_C - 1) / SEG_C;
+    args.seg_off[l] = soff;
     off += cs[l];
+    soff += args.nseg[l];
+    smax = max(smax, args.nseg[l]);
   }
   args.cs_tot = off;
+  args.segs_tot = soff;
+  args.seg_buf = min(smax, SEG_GROUP);
   return true;
 }
 
@@ -1088,8 +1143,9 @@ using bf16 = __nv_bfloat16;
 extern "C" {
 
 // Launches the chain on `stream`; returns a cudaError_t (0 on success).
-// is_bf16 selects the bf16 serving kernel (x, y bf16; seg (B, H, W, 8L)
-// bf16; wsh (L, NHID, KH) bf16; wgb the slice images) or the f32 parity
+// is_bf16 selects the bf16 serving kernel (x, y bf16; seg (B, H, W, 8S)
+// bf16, S the labels' 8-channel segments, ceil(cs_l / 8) a label; wsh
+// (S, NHID, KH) bf16; wgb the slice images) or the f32 parity
 // kernel (f32 operands in the f32 layout). cs holds the L labels' segmap
 // channel counts (host memory).
 int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const void* seg,
@@ -1104,7 +1160,8 @@ int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const v
   const float* bgbf = static_cast<const float*>(bgb);
   const dim3 grid = chain_grid(B, args, C / TC);
   const cudaError_t err =
-      is_bf16 ? launch(chain_kernel_bf16, WgLayout<false>::BYTES, grid, NTHREADS_WG, s,
+      is_bf16 ? launch(chain_kernel_bf16, WgLayout<false>::bytes(args.seg_buf), grid,
+                       NTHREADS_WG, s,
                        static_cast<const bf16*>(x), abf, static_cast<const bf16*>(seg),
                        static_cast<const bf16*>(wsh), bshf,
                        static_cast<const unsigned char*>(wgb), bgbf, static_cast<bf16*>(y), args)
@@ -1129,10 +1186,10 @@ int multispade_hidden_absmax(int is_bf16, const void* seg, const void* wsh, cons
   const dim3 grid = chain_grid(B, args, 1);
   const float* bshf = static_cast<const float*>(bsh);
   float* am = static_cast<float*>(absmax);
-  err = is_bf16 ? launch(hidden_absmax_kernel<bf16>, smem_absmax<bf16>(), grid, NTHREADS, s,
+  err = is_bf16 ? launch(hidden_absmax_kernel<bf16>, smem_absmax<bf16>(args), grid, NTHREADS, s,
                          static_cast<const bf16*>(seg), static_cast<const bf16*>(wsh), bshf, am,
                          args)
-                : launch(hidden_absmax_kernel<float>, smem_absmax<float>(), grid, NTHREADS, s,
+                : launch(hidden_absmax_kernel<float>, smem_absmax<float>(args), grid, NTHREADS, s,
                          static_cast<const float*>(seg), static_cast<const float*>(wsh), bshf,
                          am, args);
   return (int)err;
@@ -1156,7 +1213,8 @@ int multispade_chain_forward_int8(int is_bf16, const void* x, const void* ab, co
   const float* am = static_cast<const float*>(absmax);
   const dim3 grid = chain_grid(B, args, C / TC);
   const cudaError_t err =
-      is_bf16 ? launch(chain_kernel_q_bf16, WgLayout<true>::BYTES, grid, NTHREADS_WG, s,
+      is_bf16 ? launch(chain_kernel_q_bf16, WgLayout<true>::bytes(args.seg_buf), grid,
+                       NTHREADS_WG, s,
                        static_cast<const bf16*>(x), abf, static_cast<const bf16*>(seg),
                        static_cast<const bf16*>(wsh), bshf,
                        static_cast<const unsigned char*>(wgb), sgbf, bgbf, am,

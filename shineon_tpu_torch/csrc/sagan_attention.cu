@@ -18,241 +18,370 @@
 // (256, N) score tile. A Hopper block has 227 KB, so this kernel streams K
 // and V through shared memory in key tiles with an online softmax (running
 // max and sum in f32), and blocks over dv as well as over queries: the grid
-// is (query tile of 128, dv chunk, sample). Each block recomputes its
-// queries' scores for its dv chunk, so chunking dv multiplies the QK^T
-// work by dv / chunk. The chunk is as wide as registers allow: 256 (one
-// warp's f32 output accumulator is 16 x 256, 128 registers a thread; the
-// kernel takes 245 without spilling), 128 where d = 512 leaves no shared
-// memory for 256-wide V tiles, or where dv is not a multiple of 256, and 64
-// where dv is not a multiple of 128. At the 64x48 sites that is 1.78x
-// (d = 256) and 1.33x (d = 128) the minimum work, against 2.67x and 1.78x
-// with 128-wide chunks (their times on the card are in PERF.md).
+// is (64 queries, 384 value columns, sample). Each block computes its
+// queries' scores once for its 384 columns, so the QK^T work is ceil(dv /
+// 384) times the minimum: 1.56x at d = 256, dv = 2048 and 2.1x at d = 512,
+// dv = 4096 (the first design's 256- and 128-column blocks: 1.78x, 4.4x).
+// 512 columns a block (1.33x, 1.78x) took two ways on the card, both
+// slower: two warpgroups of 256 columns need 128 f32 output registers a
+// thread beside the scores and the softmax state, about 193 in all, where
+// ptxas budgets 168 (65536 over 384 threads: it counts the copy warp's
+// partial warpgroup whole, and a later setmaxnreg does not raise the
+// budget it compiles to) and spilled; four warpgroups of 128 columns (64
+// registers, the copies issued by thread 0) fit, but their 16-key score
+// products and 512-thread barriers cost more than the QK^T work they
+// saved. Issuing the next tile's scores during the PV products also
+// measured slower, and went.
 //
-// bf16 (the serving dtype): 8 warps, 16 queries each. The block's Q tile
-// stays in shared memory; K and V tiles (64 keys, or 32 where d > 368
-// would overflow shared memory) are double buffered with cp.async. S = Q K^T
-// runs on mma.sync m16n8k16 with f32 accumulation; the masked, running-max
-// shifted exponentials are rounded to bf16 and fed from registers straight
-// into the PV mma.sync as A operands (V via ldmatrix.trans); O accumulates
-// in f32, is divided by the row sum at the end and stored in bf16. The
-// plain version rounds the NORMALISED probabilities to bf16; this kernel
-// rounds them before normalising (ops/fused_attention.py::ATTENTION_TOLERANCE).
+// bf16 (the serving dtype, attention_wgmma), warp specialised, 288
+// threads: two consumer warpgroups and a producer warp. One lane of the
+// producer copies tiles by TMA (tensor maps over q, k, v as (d | dv, N, B),
+// 128-byte swizzled boxes of 64 rows x 64 elements, zero filled past N, d
+// and dv): Q once (resident; or, where d leaves no room, one d-chunk with
+// each K tile), the K tiles of each 64-key tile d-chunk by d-chunk through
+// a ring, and each key tile's V (64 keys x 384 columns) through a 2-deep
+// ring, all on full/empty mbarriers. TMA rather than cp.async to
+// software-swizzled addresses: one instruction a tile from one thread, its
+// bytes counted on the barrier, the zero fill of ragged N, d and dv free.
+// Per key tile, warpgroup w computes S for keys 32w..32w+31 of the tile
+// (wgmma m64n32k16, Q and K K-major from shared memory, d streamed in
+// 64-wide chunks, so any d runs); the two exchange row maxima through
+// shared memory, write P = exp(S - running max), rounded to bf16, into one
+// shared 64 x 64 tile (the 128-byte-swizzled A layout), and each
+// multiplies the whole P tile by its 192 columns of V (wgmma m64n192k16,
+// V the transposed, MN-major B operand): one S tile for 384 columns. The
+// output accumulates in f32 registers (96 a thread), is divided by the
+// row sum at the end and stored in bf16. The plain version rounds the
+// NORMALISED probabilities to bf16; this kernel rounds them before
+// normalising (ops/fused_attention.py::ATTENTION_TOLERANCE). d and dv are
+// taken in multiples of 8 (TMA's 16-byte strides; the wrapper zero-pads
+// other widths, exact), any N.
 //
 // f32 (kept for parity checks): a scalar FMA path, 32 queries x 64 value
-// columns a block, keys in tiles of 32, f32 throughout.
-//
-// Any N is taken: a ragged last key tile is zero filled and its scores are
-// masked with -inf, a ragged last query tile is zero filled and not stored.
-// d must be a multiple of 16 up to 512, dv a multiple of 64. wgmma, TMA and
-// a P tile kept in shared memory across dv chunks are later work.
+// columns a block (the last masked past dv), keys in tiles of 32, d in
+// chunks of 64, f32 throughout; any N, d and dv.
 
 #include <math.h>
 
-#include "sm90_common.cuh"
+#include "tma.cuh"
 
 namespace {
 
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int BQ = 16 * NWARPS;  // queries a block (16 a warp)
-constexpr int PAD = 8;           // row padding (elements): 16-byte rows, conflict-free ldmatrix
-constexpr int MAX_SMEM = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int MAX_SMEM = 232448;
 
-template <int BK, int DVC>
-constexpr size_t smem_bf16(int d) {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)BQ * (d + PAD) + 2 * (size_t)BK * (d + PAD) + 2 * (size_t)BK * (DVC + PAD));
+// D(64x32, f32) += A(64x16 bf16) * B(16x32 bf16), both from shared memory
+// through K-major descriptors.
+__device__ __forceinline__ void wgmma_m64n32k16_bf16_ss(float (&d)[16], uint64_t desc_a,
+                                                        uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
+// D(64x192, f32) += A(64x16 bf16, shared memory, K-major descriptor) *
+// B(16x192 bf16, shared memory, MN-major: the transposed operand).
+__device__ __forceinline__ void wgmma_m64n192k16_bf16_ss_tb(float (&d)[96], uint64_t desc_a,
+                                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// Start copying rows [r0, r0 + rows) x columns [0, cols) of a row-major
-// matrix with leading dimension ld into shared rows of `stride` elements;
-// rows at or beyond N are zero filled. cols is a multiple of 8.
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int stride,
-                                          const __nv_bfloat16* __restrict__ src, int ld, int r0,
-                                          int rows, int cols, int N) {
-  const int cpr = cols / 8;  // 16-byte chunks a row
-  for (int i = threadIdx.x; i < rows * cpr; i += NTHREADS) {
-    const int r = i / cpr, c = 8 * (i % cpr);
-    __nv_bfloat16* d = dst + r * stride + c;
-    if (r0 + r < N)
-      cp_async16(d, src + (size_t)(r0 + r) * ld + c);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+// ------------------------------------------------------------ bf16 (wgmma)
+constexpr int BQ = 64;                 // queries a block
+constexpr int BK = 64;                 // keys a tile
+constexpr int WG_COLS = 192;           // value columns a consumer warpgroup
+constexpr int BLOCK_COLS = 2 * WG_COLS;
+constexpr int CONSUMERS = 256;
+constexpr int NTHREADS_WG = CONSUMERS + 32;  // and a producer warp
+constexpr int PIECE = 64 * 128;        // a TMA box: 64 rows of 64 bf16 (8 KB)
+constexpr int V_STAGE = BLOCK_COLS / 64 * PIECE;  // a key tile's V (48 KB)
+constexpr int NV = 2;                  // V stages
+constexpr int MAX_NK = 8;              // K stages at most
+
+struct AttnArgs {
+  int N, d, dv;
+  int nd;          // 64-wide chunks of d
+  int q_resident;  // Q held for the block, else one chunk streamed with each K chunk
+  int nk;          // K ring stages
+  int kstage;      // bytes a K stage: a K piece (and, streamed, a Q piece)
+};
+
+// Shared memory (1024-byte aligned base): V ring, P tile, K ring, resident
+// Q, barriers, the row statistics the warpgroups exchange.
+struct AttnLayout {
+  static constexpr size_t V = 0;
+  static constexpr size_t P = V + (size_t)NV * V_STAGE;
+  static constexpr size_t K = P + PIECE;
+  static constexpr size_t FIXED = K + 256 + 4 * 64 * sizeof(float) + 1024;
+  __host__ __device__ static size_t q(const AttnArgs& a) { return K + (size_t)a.nk * a.kstage; }
+  __host__ __device__ static size_t bars(const AttnArgs& a) {
+    return q(a) + (a.q_resident ? (size_t)a.nd * PIECE : 0);
   }
+  __host__ __device__ static size_t stats(const AttnArgs& a) { return bars(a) + 256; }
+  __host__ __device__ static size_t bytes(const AttnArgs& a) {
+    return stats(a) + 4 * 64 * sizeof(float) + 1024;
+  }
+};
+
+// Q resident where it leaves two K stages, else streamed (see the header).
+bool attn_args(AttnArgs& a, int N, int d, int dv) {
+  a.N = N;
+  a.d = d;
+  a.dv = dv;
+  a.nd = (d + 63) / 64;
+  const long long room = (long long)MAX_SMEM - (long long)AttnLayout::FIXED;
+  a.q_resident = (long long)(a.nd + 2) * PIECE <= room;
+  a.kstage = a.q_resident ? PIECE : 2 * PIECE;
+  const long long nk = (room - (a.q_resident ? (long long)a.nd * PIECE : 0)) / a.kstage;
+  a.nk = (int)(nk < MAX_NK ? nk : MAX_NK);
+  return a.nk >= 2 && AttnLayout::bytes(a) <= (size_t)MAX_SMEM;
 }
 
-// q, k: (B, N, d); v, o: (B, N, dv); bf16. Block (query tile, dv chunk, sample).
-template <int BK, int DVC>
-__global__ void __launch_bounds__(NTHREADS)
-attention_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int N,
-                      int d, int dv) {
-  constexpr int NT_S = BK / 8;   // score n8 tiles a warp
-  constexpr int NT_O = DVC / 8;  // output n8 tiles a warp
-  constexpr int VS = DVC + PAD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int DS = d + PAD;
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [BQ][DS]
-  __nv_bfloat16* k_s = q_s + BQ * DS;                            // 2 x [BK][DS]
-  __nv_bfloat16* v_s = k_s + 2 * BK * DS;                        // 2 x [BK][VS]
+// MN-major 128-byte-swizzle descriptor of V: 64-column atoms PIECE apart
+// (leading byte offset), 8-key groups 1024 bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t desc_mn_sw128(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(PIECE >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
 
-  const int q0 = blockIdx.x * BQ, c0 = blockIdx.y * DVC, b = blockIdx.z;
-  q += (size_t)b * N * d;
-  k += (size_t)b * N * d;
-  v += (size_t)b * N * dv + c0;
-  o += (size_t)b * N * dv + c0;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  // ldmatrix row addresses of this lane (elements)
-  const int a_row = lane % 16, a_k = 8 * (lane / 16);                 // A (16 x 16)
-  const int b_row = (lane % 8) + 8 * (lane / 16), b_k = 8 * ((lane / 8) % 2);  // B, n-major
-  const int v_row = lane % 16, v_col = 8 * (lane / 16);               // B, k-major (trans)
+// o: (B, N, dv) bf16; q, k, v through their tensor maps. Block (64
+// queries, 384 columns, sample).
+__global__ void __launch_bounds__(NTHREADS_WG, 1)
+attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
+                const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* v_ring = smem + AttnLayout::V;
+  unsigned char* p_s = smem + AttnLayout::P;
+  unsigned char* k_ring = smem + AttnLayout::K;
+  unsigned char* q_s = smem + AttnLayout::q(a);
+  uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + AttnLayout::bars(a));
+  uint64_t* k_empty = k_full + MAX_NK;
+  uint64_t* v_full = k_empty + MAX_NK;
+  uint64_t* v_empty = v_full + NV;
+  uint64_t* q_full = v_empty + NV;
+  float* red_max = reinterpret_cast<float*>(smem + AttnLayout::stats(a));  // [2][64]
+  float* red_sum = red_max + 2 * 64;                                         // [2][64]
 
-  load_rows(q_s, DS, q, d, q0, BQ, d, N);
-  load_rows(k_s, DS, k, d, 0, BK, d, N);
-  load_rows(v_s, VS, v, dv, 0, BK, DVC, N);
-  cp_async_commit();
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
-  float l[2] = {0.f, 0.f};              // this lane's share of their running sums
-
-  const int ntiles = (N + BK - 1) / BK;
-  for (int j = 0; j < ntiles; ++j) {
-    if (j + 1 < ntiles) {
-      const int nxt = (j + 1) & 1;
-      load_rows(k_s + nxt * BK * DS, DS, k, d, (j + 1) * BK, BK, d, N);
-      load_rows(v_s + nxt * BK * VS, VS, v, dv, (j + 1) * BK, BK, DVC, N);
+  const int q0 = blockIdx.x * BQ, col0 = blockIdx.y * BLOCK_COLS, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ntiles = (a.N + BK - 1) / BK;
+  if (tid == 0) {
+    for (int i = 0; i < a.nk; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&k_empty[i], CONSUMERS / 32);
     }
-    cp_async_commit();  // (empty on the last tile: the group count stays uniform)
-    cp_async_wait<1>();  // this tile (and Q) has landed ...
-    __syncthreads();     // ... for every thread
-    const __nv_bfloat16* kt = k_s + (j & 1) * BK * DS;
-    const __nv_bfloat16* vt = v_s + (j & 1) * BK * VS;
+    for (int i = 0; i < NV; ++i) {
+      mbar_init(&v_full[i], 1);
+      mbar_init(&v_empty[i], CONSUMERS / 32);
+    }
+    mbar_init(q_full, 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 queries and the tile's BK keys
-    float s[NT_S][4];
-#pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    for (int kk = 0; kk < d; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_s + (16 * warp + a_row) * DS + kk + a_k);
-#pragma unroll
-      for (int np = 0; np < NT_S / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, kt + (16 * np + b_row) * DS + kk + b_k);
-        mma_bf16(s[2 * np], a, bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], a, bf[2], bf[3]);
+  if (warp == CONSUMERS / 32) {
+    if (lane != 0) return;
+    if (a.q_resident) {
+      mbar_arrive_expect_tx(q_full, a.nd * PIECE);
+      for (int c = 0; c < a.nd; ++c) tma_load_3d(q_s + c * PIECE, &tq, 64 * c, q0, b, q_full);
+    }
+    int kstep = 0;
+    for (int j = 0; j < ntiles; ++j) {
+      for (int c = 0; c < a.nd; ++c, ++kstep) {
+        const int st = kstep % a.nk;
+        unsigned char* stage = k_ring + st * a.kstage;
+        mbar_wait(&k_empty[st], ((kstep / a.nk) & 1) ^ 1);
+        mbar_arrive_expect_tx(&k_full[st], a.kstage);
+        tma_load_3d(stage, &tk, 64 * c, BK * j, b, &k_full[st]);
+        if (!a.q_resident) tma_load_3d(stage + PIECE, &tq, 64 * c, q0, b, &k_full[st]);
       }
+      const int vs = j % NV;
+      mbar_wait(&v_empty[vs], ((j / NV) & 1) ^ 1);
+      mbar_arrive_expect_tx(&v_full[vs], V_STAGE);
+      for (int w = 0; w < BLOCK_COLS / 64; ++w)
+        tma_load_3d(v_ring + vs * V_STAGE + w * PIECE, &tv, col0 + 64 * w, BK * j, b, &v_full[vs]);
     }
-    // element e of n-tile nt: row g + 8 * (e / 2), key j * BK + 8 * nt + 2t + e % 2
-    const int key0 = j * BK;
-    if (key0 + BK > N) {
-#pragma unroll
-      for (int nt = 0; nt < NT_S; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (key0 + 8 * nt + 2 * t + (e & 1) >= N) s[nt][e] = -INFINITY;
-    }
+    return;
+  }
 
-    // online softmax: the new running max (every tile holds a valid key,
-    // so it is finite), the old sums' rescale, the shifted exponentials
-    float mx[2] = {m[0], m[1]};
+  // consumers: warp q of warpgroup wg holds rows 16q + g (+ 8) of the 64
+  // queries (h = 0, 1), S for keys 32wg + 8jj + 2t (+ 1), its 192 output
+  // columns 8jj + 2t (+ 1)
+  const int wg = warp / 4, qw = warp % 4, g = lane / 4, t = lane % 4;
+  float acc[WG_COLS / 2];
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
+  for (int i = 0; i < WG_COLS / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of this thread's rows
+  float l[2] = {0.f, 0.f};              // this thread's share of their running sums
+  if (a.q_resident) mbar_wait(q_full, 0);
+  const uint64_t p_desc = wgmma_desc_sw128(p_s);
+  int kstep = 0;
+  for (int j = 0; j < ntiles; ++j) {
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    // the d-chunks' products one group deep: a K stage is released when
+    // the group after it is issued and it has retired
+    int prev = -1;
+    for (int c = 0; c < a.nd; ++c, ++kstep) {
+      const int st = kstep % a.nk;
+      const unsigned char* stage = k_ring + st * a.kstage;
+      mbar_wait(&k_full[st], (kstep / a.nk) & 1);
+      const uint64_t qd = wgmma_desc_sw128(a.q_resident ? q_s + c * PIECE : stage + PIECE);
+      const uint64_t kd = wgmma_desc_sw128(stage + wg * 32 * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_m64n32k16_bf16_ss(s, qd + 2 * kk, kd + 2 * kk);
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(&k_empty[prev]);
+      }
+      prev = st;
     }
-    float alpha[2];
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (lane == 0) mbar_arrive(&k_empty[prev]);
+    // element i of s: row 16qw + g + 8 * ((i % 4) / 2), key 32wg + 8 * (i / 4) + 2t + i % 2
+    const int key0 = BK * j + 32 * wg;
+    if (BK * j + BK > a.N) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (key0 + 8 * (i / 4) + 2 * t + (i % 2) >= a.N) s[i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) mx[(i % 4) / 2] = fmaxf(mx[(i % 4) / 2], s[i]);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2f((m[h] - mx[h]) * LOG2E);
-      m[h] = mx[h];
+      if (t == 0) red_max[64 * wg + 16 * qw + g + 8 * h] = mx[h];
+    }
+    named_sync(1, CONSUMERS);  // both halves' maxima; both are done with the last P tile
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the tile holds a valid key, so the new running max is finite
+      const float mn = fmaxf(m[h], fmaxf(mx[h], red_max[64 * (1 - wg) + 16 * qw + g + 8 * h]));
+      alpha[h] = exp2f((m[h] - mn) * LOG2E);
+      m[h] = mn;
       l[h] *= alpha[h];
     }
-    // P as bf16 A operands of the PV product: keys 16kk..16kk+15 are the
-    // score n-tiles 2kk (k 0..7) and 2kk + 1 (k 8..15)
-    uint32_t p[NT_S / 2][4];
+    // P, rounded to bf16, into the shared tile: row r, key k at byte r * 128
+    // + ((k / 8) ^ (r % 8)) * 16 + (k % 8) * 2
 #pragma unroll
-    for (int nt = 0; nt < NT_S; ++nt) {
-      const float p0 = exp2f((s[nt][0] - m[0]) * LOG2E);
-      const float p1 = exp2f((s[nt][1] - m[0]) * LOG2E);
-      const float p2 = exp2f((s[nt][2] - m[1]) * LOG2E);
-      const float p3 = exp2f((s[nt][3] - m[1]) * LOG2E);
-      l[0] += p0 + p1;
-      l[1] += p2 + p3;
-      p[nt / 2][2 * (nt % 2)] = pack_bf16(p0, p1);
-      p[nt / 2][2 * (nt % 2) + 1] = pack_bf16(p2, p3);
-    }
+    for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-    for (int nt = 0; nt < NT_O; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-    // O += P V
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT_O / 2; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, vt + (16 * kk + v_row) * VS + 16 * np + v_col);
-        mma_bf16(acc[2 * np], p[kk], bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], p[kk], bf[2], bf[3]);
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = exp2f((s[4 * jj + 2 * h] - m[h]) * LOG2E);
+        const float p1 = exp2f((s[4 * jj + 2 * h + 1] - m[h]) * LOG2E);
+        l[h] += p0 + p1;
+        const int r = 16 * qw + g + 8 * h, kc = 4 * wg + jj;
+        *reinterpret_cast<__nv_bfloat162*>(p_s + r * 128 + ((kc ^ (r % 8)) * 16) + 4 * t) =
+            __floats2bfloat162_rn(p0, p1);
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+#pragma unroll
+    for (int i = 0; i < WG_COLS / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
+    fence_proxy_async();       // P's writes before the products read it
+    named_sync(1, CONSUMERS);  // the whole P tile is written
+    const int vs = j % NV;
+    mbar_wait(&v_full[vs], (j / NV) & 1);
+    const unsigned char* vt = v_ring + vs * V_STAGE + wg * (WG_COLS / 64) * PIECE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n192k16_bf16_ss_tb(acc, p_desc + 2 * kk, desc_mn_sw128(vt + kk * 16 * 128));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&v_empty[vs]);
   }
 
+  // the row sums: this thread's share, its quad's, the other warpgroup's
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    inv[h] = 1.f / l[h];
+    if (t == 0) red_sum[64 * wg + 16 * qw + g + 8 * h] = l[h];
   }
-  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
+  named_sync(1, CONSUMERS);
 #pragma unroll
-  for (int nt = 0; nt < NT_O; ++nt) {
-    const int col = 8 * nt + 2 * t;
-    if (r0 < N) store2(o + (size_t)r0 * dv + col, acc[nt][0] * inv[0], acc[nt][1] * inv[0]);
-    if (r1 < N) store2(o + (size_t)r1 * dv + col, acc[nt][2] * inv[1], acc[nt][3] * inv[1]);
+  for (int h = 0; h < 2; ++h) inv[h] = 1.f / (l[h] + red_sum[64 * (1 - wg) + 16 * qw + g + 8 * h]);
+  const int cbase = col0 + WG_COLS * wg + 2 * t;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 16 * qw + g + 8 * h;
+    if (r >= a.N) continue;
+    __nv_bfloat16* orow = o + ((size_t)b * a.N + r) * a.dv;
+#pragma unroll
+    for (int jj = 0; jj < WG_COLS / 8; ++jj) {
+      const int col = cbase + 8 * jj;
+      if (col < a.dv)
+        store2(orow + col, acc[4 * jj + 2 * h] * inv[h], acc[4 * jj + 2 * h + 1] * inv[h]);
+    }
   }
 }
 
 // ------------------------------------------------------------------ f32
 
+constexpr int NTHREADS = 256;
 constexpr int FQ = 32;    // queries a block
 constexpr int FK = 32;    // keys a tile
 constexpr int FDV = 64;   // value columns a block
-constexpr int FSUB = NTHREADS / FQ;  // threads a query (8), FDV / FSUB columns each
+constexpr int FD = 64;    // d in chunks of this
+constexpr int FSUB = NTHREADS / FQ;  // threads a query (8): keys sub + 8i, FDV / FSUB columns
 
-size_t smem_f32(int d) {
-  return sizeof(float) * ((size_t)FQ * (d + 1) + (size_t)FK * (d + 1) + FK * FDV + FQ * (FK + 1));
+constexpr size_t smem_f32() {
+  return sizeof(float) * ((size_t)FQ * (FD + 1) + FK * (FD + 1) + FK * FDV + FQ * (FK + 1));
 }
 
 __global__ void __launch_bounds__(NTHREADS)
 attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int N, int d, int dv) {
   constexpr int CPT = FDV / FSUB;  // value columns a thread (8)
+  constexpr int KPT = FK / FSUB;   // keys a thread (4)
+  constexpr int DS = FD + 1;       // odd row stride: conflict-free column walks
   extern __shared__ __align__(16) unsigned char smem[];
-  const int DS = d + 1;  // odd row stride: conflict-free column walks
-  float* q_s = reinterpret_cast<float*>(smem);  // [FQ][DS]
+  float* q_s = reinterpret_cast<float*>(smem);  // [FQ][DS], a chunk of d
   float* k_s = q_s + FQ * DS;                   // [FK][DS]
   float* v_s = k_s + FK * DS;                   // [FK][FDV]
   float* s_s = v_s + FK * FDV;                  // [FQ][FK + 1]
@@ -260,36 +389,42 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * FQ, c0 = blockIdx.y * FDV, b = blockIdx.z;
   q += (size_t)b * N * d;
   k += (size_t)b * N * d;
-  v += (size_t)b * N * dv + c0;
-  o += (size_t)b * N * dv + c0;
+  v += (size_t)b * N * dv;
+  o += (size_t)b * N * dv;
   const int tid = threadIdx.x;
   const int qi = tid / FSUB, sub = tid % FSUB;
 
-  for (int i = tid; i < FQ * d; i += NTHREADS) {
-    const int r = i / d, c = i % d;
-    q_s[r * DS + c] = q0 + r < N ? q[(size_t)(q0 + r) * d + c] : 0.f;
-  }
   float acc[CPT];
 #pragma unroll
   for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   for (int j0 = 0; j0 < N; j0 += FK) {
-    __syncthreads();  // the previous tile is no longer read (and Q has landed)
-    for (int i = tid; i < FK * d; i += NTHREADS) {
-      const int r = i / d, c = i % d;
-      k_s[r * DS + c] = j0 + r < N ? k[(size_t)(j0 + r) * d + c] : 0.f;
+    // scores of this thread's query and keys sub + 8i, summed over d in order
+    float sacc[KPT];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) sacc[i] = 0.f;
+    for (int d0 = 0; d0 < d; d0 += FD) {
+      __syncthreads();  // the previous chunk (and tile) is no longer read
+      for (int i = tid; i < FQ * FD; i += NTHREADS) {
+        const int r = i / FD, c = i % FD;
+        q_s[r * DS + c] = q0 + r < N && d0 + c < d ? q[(size_t)(q0 + r) * d + d0 + c] : 0.f;
+        k_s[r * DS + c] = j0 + r < N && d0 + c < d ? k[(size_t)(j0 + r) * d + d0 + c] : 0.f;
+      }
+      __syncthreads();
+      const int dc = min(FD, d - d0);
+#pragma unroll
+      for (int i = 0; i < KPT; ++i)
+        for (int c = 0; c < dc; ++c)
+          sacc[i] = fmaf(q_s[qi * DS + c], k_s[(sub + FSUB * i) * DS + c], sacc[i]);
     }
     for (int i = tid; i < FK * FDV; i += NTHREADS) {
       const int r = i / FDV, c = i % FDV;
-      v_s[i] = j0 + r < N ? v[(size_t)(j0 + r) * dv + c] : 0.f;
+      v_s[i] = j0 + r < N && c0 + c < dv ? v[(size_t)(j0 + r) * dv + c0 + c] : 0.f;
     }
-    __syncthreads();
-    for (int key = sub; key < FK; key += FSUB) {
-      float sacc = 0.f;
-      for (int c = 0; c < d; ++c) sacc = fmaf(q_s[qi * DS + c], k_s[key * DS + c], sacc);
-      s_s[qi * (FK + 1) + key] = j0 + key < N ? sacc : -INFINITY;
-    }
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+      s_s[qi * (FK + 1) + sub + FSUB * i] = j0 + sub + FSUB * i < N ? sacc[i] : -INFINITY;
     __syncthreads();
     float mx = m;
     for (int key = 0; key < FK; ++key) mx = fmaxf(mx, s_s[qi * (FK + 1) + key]);
@@ -307,48 +442,49 @@ attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (q0 + qi < N) {
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) o[(size_t)(q0 + qi) * dv + CPT * sub + c] = acc[c] / l;
+    for (int c = 0; c < CPT; ++c) {
+      const int col = c0 + CPT * sub + c;
+      if (col < dv) o[(size_t)(q0 + qi) * dv + col] = acc[c] / l;
+    }
   }
 }
 
 // ------------------------------------------------------------------ host
 
-template <int BK, int DVC>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int N,
                         int d, int dv, cudaStream_t stream) {
-  const size_t smem = smem_bf16<BK, DVC>(d);
-  cudaError_t err = cudaFuncSetAttribute(attention_bf16_kernel<BK, DVC>,
+  if (d % 8 != 0 || dv % 8 != 0) return cudaErrorInvalidValue;  // TMA strides: 16 bytes
+  AttnArgs a;
+  if (!attn_args(a, N, d, dv)) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  constexpr CUtensorMapDataType BF16_MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle SW128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  const uint32_t box[3] = {64, 64, 1};
+  const uint64_t qk_dims[3] = {(uint64_t)d, (uint64_t)N, (uint64_t)B};
+  const uint64_t qk_strides[2] = {2ull * d, 2ull * d * N};
+  const uint64_t v_dims[3] = {(uint64_t)dv, (uint64_t)N, (uint64_t)B};
+  const uint64_t v_strides[2] = {2ull * dv, 2ull * dv * N};
+  if (!make_tensor_map(&tq, BF16_MAP, q, 3, qk_dims, qk_strides, box, SW128) ||
+      !make_tensor_map(&tk, BF16_MAP, k, 3, qk_dims, qk_strides, box, SW128) ||
+      !make_tensor_map(&tv, BF16_MAP, v, 3, v_dims, v_strides, box, SW128))
+    return cudaErrorInvalidValue;
+  const size_t smem = AttnLayout::bytes(a);
+  cudaError_t err = cudaFuncSetAttribute(attention_wgmma,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + BQ - 1) / BQ, dv / DVC, B);
-  attention_bf16_kernel<BK, DVC><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), N, d, dv);
+  const dim3 grid((N + BQ - 1) / BQ, (dv + BLOCK_COLS - 1) / BLOCK_COLS, B);
+  attention_wgmma<<<grid, NTHREADS_WG, smem, stream>>>(static_cast<__nv_bfloat16*>(o), a, tq,
+                                                       tk, tv);
   return cudaGetLastError();
-}
-
-// The dv chunk of the bf16 kernel (see the header): 256 where dv and
-// shared memory allow, else 128 where dv allows, else 64.
-int value_chunk(int d, int dv) {
-  if (dv % 256 == 0 && smem_bf16<32, 256>(d) <= MAX_SMEM) return 256;
-  return dv % 128 == 0 ? 128 : 64;
-}
-
-template <int DVC>
-cudaError_t launch_bf16_any_d(const void* q, const void* k, const void* v, void* o, int B,
-                              int N, int d, int dv, cudaStream_t stream) {
-  if (smem_bf16<64, DVC>(d) <= MAX_SMEM)
-    return launch_bf16<64, DVC>(q, k, v, o, B, N, d, dv, stream);
-  return launch_bf16<32, DVC>(q, k, v, o, B, N, d, dv, stream);
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int N,
                        int d, int dv, cudaStream_t stream) {
-  const size_t smem = smem_f32(d);
+  constexpr size_t smem = smem_f32();
   cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + FQ - 1) / FQ, dv / FDV, B);
+  const dim3 grid((N + FQ - 1) / FQ, (dv + FDV - 1) / FDV, B);
   attention_f32_kernel<<<grid, NTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), N, d, dv);
@@ -360,28 +496,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
 extern "C" {
 
 // Launches o = softmax(q k^T) v on `stream`; returns a cudaError_t (0 on
-// success). is_bf16 selects bf16 (1) or f32 (0) for q, k, v and o.
+// success). is_bf16 selects bf16 (1; d and dv multiples of 8) or f32 (0;
+// any d and dv) for q, k, v and o.
 int sagan_attention_forward(int is_bf16, const void* q, const void* k, const void* v, void* o,
                             int B, int N, int d, int dv, void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || d < 16 || d > 512 || d % 16 != 0 || dv < 64 ||
-      dv % 64 != 0 || dv / 64 > 65535)
+  if (B < 1 || B > 65535 || N < 1 || d < 1 || dv < 1 || (dv + FDV - 1) / FDV > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (!is_bf16)
-    err = launch_f32(q, k, v, o, B, N, d, dv, s);
-  else if (value_chunk(d, dv) == 256)
-    err = launch_bf16_any_d<256>(q, k, v, o, B, N, d, dv, s);
-  else if (value_chunk(d, dv) == 128)
-    err = launch_bf16_any_d<128>(q, k, v, o, B, N, d, dv, s);
-  else
-    err = launch_bf16_any_d<64>(q, k, v, o, B, N, d, dv, s);
-  return (int)err;
+  return (int)(is_bf16 ? launch_bf16(q, k, v, o, B, N, d, dv, s)
+                       : launch_f32(q, k, v, o, B, N, d, dv, s));
 }
 
-// The dv chunk the bf16 kernel takes for these widths: its QK^T work is
-// dv / chunk times the minimum.
-int sagan_attention_value_chunk(int d, int dv) { return value_chunk(d, dv); }
+// The value columns a bf16 block owns: its QK^T work is ceil(dv / this)
+// times the minimum.
+int sagan_attention_value_chunk(int, int) { return BLOCK_COLS; }
 
 const char* sagan_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

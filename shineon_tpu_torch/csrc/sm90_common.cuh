@@ -196,8 +196,36 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8_rs(int (&d)[64], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 #undef WGMMA_C
 }
+#define WGMMA_OUT32                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "       \
+  "{%32, %33, %34, %35}, %36, p"
+
+// D(64x64, s32) += A(64x32 s8, registers) * B(32x64 s8, shared memory,
+// K-major, descriptor).
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t desc_b) {
+#define WGMMA_C(x) "r"(x)
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WGMMA_OUT32 ";\n}\n"
+      : WGMMA_D16(0), WGMMA_D16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+#undef WGMMA_C
+}
+
+// The s8 product of width N = 64 or 128 (d holds N / 2 sums a thread).
+template <int N>
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t desc_b) {
+  if constexpr (N == 128)
+    wgmma_m64n128k32_s8_rs(d, a, desc_b);
+  else
+    wgmma_m64n64k32_s8_rs(d, a, desc_b);
+}
 #undef WGMMA_D16
 #undef WGMMA_OUT64
+#undef WGMMA_OUT32
 
 // Two consecutive values as f32, and back (8- or 4-byte aligned).
 __device__ __forceinline__ float2 load2(const float* p) {

@@ -8,9 +8,12 @@ of shineon_tpu/ops/fused_attention.py).
   1/sqrt(d): SAGAN takes raw dot products.
 * :func:`sagan_attention` is the wrapper. It takes q, k (B, N, d) and v
   (B, N, dv), the JAX layout. On a CUDA tensor it launches the hand-written
-  kernel of ``csrc/sagan_attention.cu`` at any N, or raises on a shape the
-  kernel does not take; on a CPU tensor it computes the plain version. Each
-  launch adds one to ``sagan_attention.launches``.
+  kernel of ``csrc/sagan_attention.cu`` at any N, d and dv (the bf16 kernel
+  reads q, k and v by tensor-map copies, whose rows must be 16-byte
+  multiples: d and dv are zero-padded here to multiples of 8, exactly: zero
+  features add nothing to a score and zero value columns are dropped), or
+  raises; on a CPU tensor it computes the plain version. Each launch adds
+  one to ``sagan_attention.launches``.
 * Gradients go through :class:`SaganAttention`, whose backward recomputes
   in f32 as the JAX package's ``_bwd`` does (serving never needs it).
 """
@@ -23,9 +26,7 @@ import functools
 import torch
 
 KERNEL_SOURCE = "sagan_attention"
-HEAD_STEP = 16  # the kernel takes d in multiples of this ...
-MAX_HEAD = 512  # ... up to this
-VALUE_STEP = 64  # and dv in multiples of this
+ROW_STEP = 8  # the bf16 kernel takes d and dv in multiples of this (16-byte rows)
 
 # Kernel against plain version, element by element: |kernel - plain| <=
 # tol * (|plain| + rms(plain)). In f32 the two differ only in the order of
@@ -72,10 +73,16 @@ def _library():
 
 
 def value_chunk(d: int, dv: int) -> int:
-    """The dv chunk the bf16 kernel takes for these widths, from the built
-    kernel: each chunk recomputes the scores, so its QK^T work is dv / chunk
-    times the minimum."""
+    """The value columns a bf16 block owns for these widths, from the built
+    kernel: each block computes its queries' scores, so the QK^T work is
+    ceil(dv / chunk) times the minimum."""
     return _library().sagan_attention_value_chunk(d, dv)
+
+
+def _pad_last(t: torch.Tensor, step: int) -> torch.Tensor:
+    """t zero-padded on its last dimension to a multiple of step."""
+    extra = -t.shape[-1] % step
+    return torch.nn.functional.pad(t, (0, extra)) if extra else t
 
 
 def _launch(q, k, v) -> torch.Tensor:
@@ -86,28 +93,27 @@ def _launch(q, k, v) -> torch.Tensor:
     _check(tuple(k.shape) == (B, N, d), f"k has shape {tuple(k.shape)}, expected {(B, N, d)}")
     _check(tuple(v.shape[:2]) == (B, N), f"v has shape {tuple(v.shape)}, expected ({B}, {N}, dv)")
     _check(q.dtype in (torch.float32, torch.bfloat16), f"dtype {q.dtype} not supported")
-    _check(d % HEAD_STEP == 0 and HEAD_STEP <= d <= MAX_HEAD,
-           f"d={d} must be a multiple of {HEAD_STEP} up to {MAX_HEAD}")
-    _check(dv % VALUE_STEP == 0 and dv > 0, f"dv={dv} must be a multiple of {VALUE_STEP}")
-    _check(N >= 1, "no tokens")
+    _check(N >= 1 and d >= 1 and dv >= 1, f"empty shape (N={N}, d={d}, dv={dv})")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t.dtype == q.dtype, f"{name} is {t.dtype}, q is {q.dtype}")
         _check(t.device == q.device, f"{name} is on {t.device}, q on {q.device}")
-        _check(t.is_contiguous(), f"{name} must be contiguous")
-        _check(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
 
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_pad_last(t, ROW_STEP) for t in (q, k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    dp, dvp = q.shape[-1], v.shape[-1]
     lib = _library()
-    o = torch.empty((B, N, dv), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, N, dvp), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.sagan_attention_forward(
             int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), B, N, d, dv, stream)
+            o.data_ptr(), B, N, dp, dvp, stream)
     if err != 0:
         msg = lib.sagan_attention_error_string(err).decode()
         raise RuntimeError(f"sagan_attention kernel launch failed: {msg} ({err})")
     sagan_attention.launches += 1
-    return o
+    return o if dvp == dv else o[..., :dv].contiguous()
 
 
 class SaganAttention(torch.autograd.Function):
@@ -120,7 +126,7 @@ class SaganAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
             return attention_plain(q, k, v)
-        return _launch(q.contiguous(), k.contiguous(), v.contiguous())
+        return _launch(q, k, v)
 
     @staticmethod
     def backward(ctx, g):

@@ -37,12 +37,11 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from shineon_tpu_torch.ops.int8_conv import conv3x3_int8_plain, quantize_weight
+from shineon_tpu_torch.ops.int8_conv import conv3x3_int8_plain, quantize_weight, swizzle_128b
 
 NHID = 128  # hidden width of the SPADE MLP (reference spade.py:68)
-CHANNEL_TILE = 64  # the kernel takes C in multiples of this
-MAX_LABELS = 8
-MAX_LABEL_CHANNELS = 8
+CHANNEL_TILE = 64  # the kernel takes C in multiples of this (other C are zero-padded)
+MAX_LABELS = 8  # a label may have any number of segmap channels
 KERNEL_SOURCE = "fused_multispade"
 
 
@@ -159,54 +158,70 @@ def multispade_modulate_plain_int8(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name
 
 
 class PackedWeights(NamedTuple):
-    """The kernel's weight operands for one chain and compute dtype.
+    """The kernel's weight operands for one chain and compute dtype, at
+    ``Cp = padded_channels(C)`` channels: gamma and beta each zero-padded
+    from C to Cp output channels (zero weights and biases, so a padded
+    channel of x, itself zero, stays zero and is dropped).
 
     bf16 (the serving kernels; see ``csrc/fused_multispade.cu``):
-      wsh (L, 128, HIDDEN_DEPTH) with k = tap * 8 + ci, zero for ci >= cs_l
-      and k >= 72 (each label's segmap is padded to SEG_CHANNELS);
-      wgb (L, 9, C / 64, 16384): one slice image a (label, tap, 64-channel
+      wsh (S, 128, HIDDEN_DEPTH), S the labels' 8-channel segments
+      (ceil(cs_l / 8) a label, label by label): segment s of a label holds
+      its channels 8s..8s+7 at k = tap * 8 + ci - 8s, zero past cs_l and for
+      k >= 72 (each label's segmap is padded to whole segments of
+      SEG_CHANNELS);
+      wgb (L, 9, Cp / 64, 16384): one slice image a (label, tap, 64-channel
       tile j), the [gamma | beta] rows n = 0..127 (n < 64: gamma channel
-      64j + n; n >= 64: beta channel C + 64j + n - 64) K-major in the
+      64j + n; n >= 64: beta channel Cp + 64j + n - 64) K-major in the
       128-byte swizzle the kernel's wgmma descriptor reads: bf16 in two
       K-halves of 64 ([h][n][64]), int8 (quantized) in one ([n][128]).
     f32 (the parity kernels): wsh per label (9, cs_l, 128), labels
-      concatenated, flat; wgb (L, 9, 128, 2C), or quantized (L, 9, 2C, 128)
+      concatenated, flat; wgb (L, 9, 128, 2Cp), or quantized (L, 9, 2Cp, 128)
       int8.
     quantized (either dtype): wgb int8, quantized from the f32 weights, and
-      sgb (L, 2C) f32 its per-output-channel scales.
+      sgb (L, 2Cp) f32 its per-output-channel scales.
     """
 
     cs: tuple  # segmap channels per label
     wsh: torch.Tensor  # values rounded to the compute dtype
     bsh: torch.Tensor  # (L, 128) f32
     wgb: torch.Tensor
-    bgb: torch.Tensor  # (L, 2C) f32
+    bgb: torch.Tensor  # (L, 2Cp) f32
     sgb: Optional[torch.Tensor] = None  # quantized only
 
 
-SEG_CHANNELS = 8  # the bf16 kernels' segmap channels a label, zero padded
-HIDDEN_DEPTH = 80  # the bf16 kernels' hidden-conv depth: 9 * SEG_CHANNELS padded to 16
+SEG_CHANNELS = 8  # the bf16 kernels' segmap channels a segment; a label has ceil(cs / 8)
+HIDDEN_DEPTH = 80  # the bf16 kernels' hidden-conv depth a segment: 9 * SEG_CHANNELS padded to 16
 SLICE_ELEMS = 2 * CHANNEL_TILE * NHID  # elements of a slice image (bf16 or int8)
 
 
-def _packed_shapes(dtype, cs, C, quantized=False):
+def segments(cs: int) -> int:
+    """The bf16 kernels' 8-channel segments of a label of cs channels."""
+    return -(-cs // SEG_CHANNELS)
+
+
+def padded_channels(C: int) -> int:
+    """C rounded up to the kernels' channel tile."""
+    return -(-C // CHANNEL_TILE) * CHANNEL_TILE
+
+
+def _packed_shapes(dtype, cs, Cp, quantized=False):
     L = len(cs)
     if dtype == torch.bfloat16:
-        return (L, NHID, HIDDEN_DEPTH), (L, 9, C // CHANNEL_TILE, SLICE_ELEMS)
+        S = sum(segments(c) for c in cs)
+        return (S, NHID, HIDDEN_DEPTH), (L, 9, Cp // CHANNEL_TILE, SLICE_ELEMS)
     wsh = (9 * sum(cs) * NHID,)
-    wgb = (L, 9, 2 * C, NHID) if quantized else (L, 9, NHID, 2 * C)
+    wgb = (L, 9, 2 * Cp, NHID) if quantized else (L, 9, NHID, 2 * Cp)
     return wsh, wgb
 
 
-def _swizzle_128b(rows: torch.Tensor) -> torch.Tensor:
-    """The 128-byte swizzle of rows of 128 bytes (..., N, E), E = 128 /
-    itemsize: 16-byte chunk p of row n holds chunk p ^ (n % 8). Its own
-    inverse."""
-    *lead, n, e = rows.shape
-    chunks = rows.reshape(*lead, n, 8, e // 8)
-    idx = torch.arange(8)[None, :] ^ (torch.arange(n) % 8)[:, None]  # (N, 8)
-    idx = idx.to(rows.device)[..., None].expand(n, 8, e // 8).expand(*lead, n, 8, e // 8)
-    return chunks.gather(-2, idx).reshape(rows.shape)
+def _pad_gamma_beta(v: torch.Tensor, Cp: int) -> torch.Tensor:
+    """[gamma | beta] along dim 0 (2C, ...) -> (2Cp, ...), each half
+    zero-padded from C to Cp."""
+    C = v.shape[0] // 2
+    if C == Cp:
+        return v
+    pad = v.new_zeros((Cp - C,) + tuple(v.shape[1:]))
+    return torch.cat([v[:C], pad, v[C:], pad])
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,7 +236,7 @@ def slice_index(C: int, int8: bool) -> torch.Tensor:
     n = ids.transpose(0, 1).reshape(T, 2 * CHANNEL_TILE, NHID)  # (T, 128 n, 128 k)
     if not int8:
         n = n.reshape(T, 2 * CHANNEL_TILE, 2, NHID // 2).transpose(1, 2)
-    return _swizzle_128b(n).reshape(-1)
+    return swizzle_128b(n).reshape(-1)
 
 
 def slice_images(wt: torch.Tensor) -> torch.Tensor:
@@ -243,28 +258,37 @@ def unpack_slice_images(img: torch.Tensor) -> torch.Tensor:
 
 def kernel_segmap(segs, dtype) -> torch.Tensor:
     """The labels' segmaps as one kernel operand (B, H, W, ...) in
-    ``dtype``: bf16 pads each label to SEG_CHANNELS channels (16 bytes a
-    position), f32 concatenates them as they are."""
+    ``dtype``: bf16 pads each label to whole segments of SEG_CHANNELS
+    channels (16 bytes a position a segment), f32 concatenates them as they
+    are."""
     if dtype == torch.bfloat16:
-        segs = [F.pad(s.to(dtype), (0, SEG_CHANNELS - s.shape[-1])) for s in segs]
+        segs = [F.pad(s.to(dtype), (0, SEG_CHANNELS * segments(s.shape[-1]) - s.shape[-1]))
+                for s in segs]
     return torch.cat([s.to(dtype) for s in segs], dim=-1).contiguous()
 
 
+def _hidden_segments(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A label's OIHW hidden weight (128, cs, 3, 3) as the bf16 kernels'
+    (segments(cs), 128, HIDDEN_DEPTH) blocks: k = tap * 8 + ci within a
+    segment."""
+    S = segments(w.shape[1])
+    w = F.pad(w.to(dtype), (0, 0, 0, 0, 0, SEG_CHANNELS * S - w.shape[1]))
+    w = w.reshape(NHID, S, SEG_CHANNELS, 9).permute(1, 0, 3, 2).reshape(S, NHID, 9 * SEG_CHANNELS)
+    return F.pad(w, (0, HIDDEN_DEPTH - 9 * SEG_CHANNELS))
+
+
 def pack_weights(wshs, bshs, wgbs, bgbs, dtype, quantized=False) -> PackedWeights:
-    """Rearrange per-label OIHW weights into the kernel's layout; with
-    ``quantized`` the [gamma | beta] weights become int8 with their scales."""
+    """Rearrange per-label OIHW weights into the kernel's layout, at
+    ``padded_channels(C)`` channels; with ``quantized`` the [gamma | beta]
+    weights become int8 with their scales."""
     cs = tuple(int(w.shape[1]) for w in wshs)
     sgb = None
     bf16 = dtype == torch.bfloat16
-    if bf16 and wgbs[0].shape[0] % (2 * CHANNEL_TILE):
-        raise ValueError(f"pack_weights: C={wgbs[0].shape[0] // 2} must be a multiple of "
-                         f"{CHANNEL_TILE} for the bf16 kernels")
+    Cp = padded_channels(wgbs[0].shape[0] // 2)
+    wgbs = [_pad_gamma_beta(w, Cp) for w in wgbs]
+    bgbs = [_pad_gamma_beta(b, Cp) for b in bgbs]
     if bf16:
-        wsh = torch.stack([
-            F.pad(F.pad(w.to(dtype).permute(0, 2, 3, 1), (0, SEG_CHANNELS - w.shape[1]))
-                  .reshape(NHID, 9 * SEG_CHANNELS), (0, HIDDEN_DEPTH - 9 * SEG_CHANNELS))
-            for w in wshs
-        ])
+        wsh = torch.cat([_hidden_segments(w, dtype) for w in wshs])
     else:
         wsh = torch.cat([w.to(dtype).permute(2, 3, 1, 0).reshape(-1) for w in wshs])
     if quantized:
@@ -292,31 +316,47 @@ def _check(cond: bool, msg: str):
         raise ValueError(f"fused_multispade_modulate: {msg}")
 
 
+def pad_channels(x: torch.Tensor, ab: torch.Tensor, Cp: int):
+    """x (B, H, W, C) and ab (B, L, 2C) zero-padded to Cp channels (ab's
+    a and b halves each): a padded channel of x is zero and stays zero
+    through the chain, so the first C channels of its output are exactly the
+    unpadded chain's."""
+    C = x.shape[-1]
+    if C == Cp:
+        return x, ab
+    return (F.pad(x, (0, Cp - C)).contiguous(),
+            _pad_gamma_beta(ab.transpose(0, 2), Cp).transpose(0, 2).contiguous())
+
+
 def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
     """Validate and launch the CUDA kernel (quantized: the pre-pass, then
-    the quantized chain) on the current stream."""
+    the quantized chain) on the current stream, on x and ab zero-padded to
+    the packed weights' channels."""
     quantized = packed.sgb is not None
     _check(act_name == "relu", f"activation {act_name!r} is not ported to the kernel")
     _check(x.dim() == 4, "x must be (B, H, W, C)")
     B, H, W, C = x.shape
+    Cp = padded_channels(C)
     L = len(packed.cs)
     _check(x.dtype in (torch.float32, torch.bfloat16), f"dtype {x.dtype} not supported")
-    _check(C % CHANNEL_TILE == 0, f"C={C} must be a multiple of {CHANNEL_TILE}")
     _check(1 <= L <= MAX_LABELS, f"{L} labels (at most {MAX_LABELS})")
-    _check(all(1 <= c <= MAX_LABEL_CHANNELS for c in packed.cs),
-           f"segmap channels {packed.cs} (1..{MAX_LABEL_CHANNELS} a label)")
-    wsh_shape, wgb_shape = _packed_shapes(x.dtype, packed.cs, C, quantized)
+    _check(all(c >= 1 for c in packed.cs), f"segmap channels {packed.cs} (at least 1 a label)")
+    _check(tuple(ab.shape) == (B, L, 2 * C), f"ab has shape {tuple(ab.shape)}, expected "
+           f"{(B, L, 2 * C)}")
+    x, ab = pad_channels(x, ab, Cp)
+    wsh_shape, wgb_shape = _packed_shapes(x.dtype, packed.cs, Cp, quantized)
+    seg_c = (SEG_CHANNELS * sum(segments(c) for c in packed.cs) if x.dtype == torch.bfloat16
+             else sum(packed.cs))
     expect = {
-        "ab": (ab, (B, L, 2 * C), torch.float32),
-        "seg": (seg, (B, H, W, SEG_CHANNELS * L if x.dtype == torch.bfloat16 else sum(packed.cs)),
-                x.dtype),
+        "ab": (ab, (B, L, 2 * Cp), torch.float32),
+        "seg": (seg, (B, H, W, seg_c), x.dtype),
         "wsh": (packed.wsh, wsh_shape, x.dtype),
         "bsh": (packed.bsh, (L, NHID), torch.float32),
         "wgb": (packed.wgb, wgb_shape, torch.int8 if quantized else x.dtype),
-        "bgb": (packed.bgb, (L, 2 * C), torch.float32),
+        "bgb": (packed.bgb, (L, 2 * Cp), torch.float32),
     }
     if quantized:
-        expect["sgb"] = (packed.sgb, (L, 2 * C), torch.float32)
+        expect["sgb"] = (packed.sgb, (L, 2 * Cp), torch.float32)
     tensors = {"x": x}
     for name, (t, shape, dtype) in expect.items():
         _check(tuple(t.shape) == shape, f"{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -333,16 +373,16 @@ def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
     if not quantized:
         call(lib.multispade_chain_forward, "fused_multispade", x.device, is_bf16, x.data_ptr(),
              ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(), packed.bsh.data_ptr(),
-             packed.wgb.data_ptr(), packed.bgb.data_ptr(), y.data_ptr(), B, H, W, C, L, cs)
+             packed.wgb.data_ptr(), packed.bgb.data_ptr(), y.data_ptr(), B, H, W, Cp, L, cs)
         fused_multispade_modulate.launches += 1
-        return y
+        return y if C == Cp else y[..., :C].contiguous()
     absmax = hidden_absmax(seg, packed)
     call(lib.multispade_chain_forward_int8, "fused_multispade_int8", x.device, is_bf16,
          x.data_ptr(), ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(),
          packed.bsh.data_ptr(), packed.wgb.data_ptr(), packed.sgb.data_ptr(),
-         packed.bgb.data_ptr(), absmax.data_ptr(), y.data_ptr(), B, H, W, C, L, cs)
+         packed.bgb.data_ptr(), absmax.data_ptr(), y.data_ptr(), B, H, W, Cp, L, cs)
     fused_multispade_modulate.int8_launches += 1
-    return y
+    return y if C == Cp else y[..., :C].contiguous()
 
 
 @functools.lru_cache(maxsize=None)

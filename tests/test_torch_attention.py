@@ -130,18 +130,50 @@ def test_sagan_attention_grad_matches_jax():
 
 
 def test_kernel_rejects_unsupported_shapes():
-    """The CUDA path validates before it builds or launches: d not a
-    multiple of 16 (or beyond 512), dv not a multiple of 64, or mixed dtypes
-    raise. There is no fall back to the plain version."""
+    """The CUDA path validates before it builds or launches, and raises (no
+    fall back to the plain version) on what the kernel does not take: mixed
+    dtypes, k or v of another shape than q's, a dtype the kernel does not
+    write, an empty dimension. Any d and dv are taken."""
     z = torch.zeros
-    with pytest.raises(ValueError, match="multiple of 16"):
-        tfa._launch(z(1, 12, 24), z(1, 12, 24), z(1, 12, 64))
-    with pytest.raises(ValueError, match="multiple of 16"):
-        tfa._launch(z(1, 12, 528), z(1, 12, 528), z(1, 12, 64))
-    with pytest.raises(ValueError, match="multiple of 64"):
-        tfa._launch(z(1, 12, 16), z(1, 12, 16), z(1, 12, 96))
     with pytest.raises(ValueError, match="is torch.bfloat16"):
-        tfa._launch(z(1, 12, 16), z(1, 12, 16, dtype=torch.bfloat16), z(1, 12, 64))
+        tfa._launch(z(1, 12, 24), z(1, 12, 24, dtype=torch.bfloat16), z(1, 12, 64))
+    with pytest.raises(ValueError, match="k has shape"):
+        tfa._launch(z(1, 12, 24), z(1, 12, 16), z(1, 12, 64))
+    with pytest.raises(ValueError, match="v has shape"):
+        tfa._launch(z(1, 12, 24), z(1, 12, 24), z(1, 10, 64))
+    with pytest.raises(ValueError, match="not supported"):
+        tfa._launch(*(z(1, 12, 8, dtype=torch.float16) for _ in range(3)))
+    with pytest.raises(ValueError, match="empty"):
+        tfa._launch(z(1, 12, 0), z(1, 12, 0), z(1, 12, 64))
+
+
+@pytest.mark.parametrize("d,dv", [(8, 64), (108, 864)])
+def test_attention_plain_matches_jax_at_repaired_widths(d, dv):
+    """The widths the first kernel refused: d = 8 (SAMS attention at 64
+    channels) and d = 108, dv = 864 (TOM's U-Net attention at 2 frames),
+    f32 and bf16 against _attention_reference with the tolerances of
+    test_attention_plain_matches_jax_reference."""
+    q, k, v = _qkv(d, N=40, d=d, dv=dv)
+    for dtype in ("float32", "bfloat16"):
+        tdt, jdt = _DTYPES[dtype]
+        ref = jfa._attention_reference(*(jnp.asarray(a, jdt) for a in (q, k, v)))
+        ref = torch.from_numpy(np.array(ref.astype(jnp.float32)))
+        out = tfa.sagan_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)))
+        assert error_ratio(out, ref) <= (1e-5 if dtype == "float32" else 2.0 ** -7)
+
+
+@pytest.mark.parametrize("d,dv", [(8, 64), (108, 864), (13, 5)])
+def test_width_padding_is_exact(d, dv):
+    """q, k and v zero-padded to the bf16 kernel's multiples of 8 give the
+    plain version's output in its first dv columns, to f32 rounding (the
+    zero terms may change the order of the matrix products' sums, not
+    their value), and zeros past them."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, N=30, d=d, dv=dv))
+    qp, kp, vp = (tfa._pad_last(t, tfa.ROW_STEP) for t in (q, k, v))
+    assert qp.shape[-1] % 8 == 0 and vp.shape[-1] % 8 == 0
+    out = tfa.attention_plain(qp, kp, vp)
+    assert error_ratio(out[..., :dv], tfa.attention_plain(q, k, v)) <= 1e-6
+    assert not out[..., dv:].any()
 
 
 # ---------------------------------------------------------------- the blocks

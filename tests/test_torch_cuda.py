@@ -182,14 +182,68 @@ def test_cuda_attention_matches_plain(dtype):
 
 @pytest.mark.gpu
 def test_cuda_attention_value_chunk():
-    """The dv chunk the attention kernel takes (each chunk recomputes the
-    scores): 256 where dv and shared memory allow, else 128, else 64."""
+    """The value columns a block of the attention kernel owns (each block
+    computes its queries' scores once): 384 at every width, so the QK^T
+    work is ceil(dv / 384) times the minimum."""
     _cuda_or_skip()
     from shineon_tpu_torch.ops.fused_attention import value_chunk
 
-    assert [value_chunk(256, 2048), value_chunk(128, 1024), value_chunk(496, 4096)] == [256] * 3
-    assert value_chunk(512, 4096) == 128  # 256-wide V tiles overflow shared memory
-    assert (value_chunk(64, 384), value_chunk(16, 64)) == (128, 64)
+    widths = [(256, 2048), (128, 1024), (512, 4096), (640, 5120), (8, 64), (108, 864)]
+    assert [value_chunk(d, dv) for d, dv in widths] == [384] * len(widths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,d,dv", [(192, 8, 64), (100, 108, 864), (192, 640, 5120),
+                                    (150, 64, 320), (130, 64, 512)])
+def test_cuda_attention_repaired_widths(N, d, dv, dtype):
+    """The attention kernel at widths the first kernel refused (d = 8, 108
+    and 640; dv = 864) and at its block edges (dv = 320 fills part of one
+    384-column block, 512 one and a third; N = 150 and 130 leave a ragged
+    query and key tile),
+    peaked score rows, within ATTENTION_TOLERANCE of its plain version."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import fused_attention as fa
+    from shineon_tpu_torch.ops import fused_spade as fs
+
+    g = torch.Generator().manual_seed(N + d + dv)
+    sigma = (8.0 / d ** 0.5) ** 0.5  # raw scores of std about 8
+    q, k = ((sigma * torch.randn(2, N, d, generator=g)).cuda().to(dtype) for _ in range(2))
+    v = torch.randn(2, N, dv, generator=g).cuda().to(dtype)
+    out = fa.sagan_attention(q, k, v)
+    ref = fa.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == (2, N, dv) and out.dtype == dtype
+    assert fs.error_ratio(out, ref) <= fa.ATTENTION_TOLERANCE[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(20, 13, 32, 96), (20, 13, 96, 32), (20, 13, 64, 100),
+                                   (16, 12, 1024, 1024), (9, 7, 3, 5)])
+def test_cuda_int8_conv_repaired_shapes(shape, dtype):
+    """The int8 conv kernel at channel counts off the first kernel's
+    64-channel tiles, at 16x12, 1024 -> 1024 (its K split across blocks at
+    the clip's batch) and at 3 channels (no tensor-map copy: a row of 6
+    bytes), within INT8_CONV_TOLERANCE of its plain version."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import fused_spade as fs
+    from shineon_tpu_torch.ops import int8_conv as ic
+
+    H, W, cin, cout = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.nn.functional.leaky_relu(torch.randn(4, H, W, cin, generator=g), 0.2)
+    x = x.cuda().to(dtype)
+    qw = ic.quantize_weight((torch.randn(cout, cin, 3, 3, generator=g) / (9 * cin) ** 0.5).cuda(),
+                            images=True)
+    b = (0.1 * torch.randn(cout, generator=g)).cuda()
+    if shape == (16, 12, 1024, 1024) and dtype == torch.bfloat16:
+        assert ic.plan(4, H, W, cin, cout)[1] > 1
+    out = ic.conv3x3_int8(x, qw, b, dtype)
+    ref = ic.conv3x3_int8_plain(x, qw, b, dtype)
+    torch.cuda.synchronize()
+    assert out.shape == (4, H, W, cout) and out.dtype == dtype
+    assert fs.error_ratio(out, ref) <= ic.INT8_CONV_TOLERANCE[dtype]
 
 
 # one probe of each kernel family of csrc/probes.cu: movement (K, the
@@ -236,6 +290,10 @@ CHAIN_EDGES = (
     (8, 16, 128, (1,)),  # one pixel tile; L = 1, cs = 1
     (16, 12, 64, (8,) * 8),  # W below the tile width; L = 8, cs = 8
     (24, 40, 192, (2, 8, 1)),  # 9 pixel tiles, 3 channel tiles
+    (20, 13, 64, (12,)),  # a label of two 8-channel segments
+    (20, 13, 64, (18, 3)),  # three segments (cocopose), beside one
+    (20, 13, 96, (4, 3)),  # C off the 64-channel tile (zero-padded to 128)
+    (16, 12, 64, (40,)),  # five segments: streamed through a buffer of four
 )
 
 
@@ -260,8 +318,9 @@ def test_cuda_bf16_chain_edges(case, quantized):
     """The bf16 chain kernels (full precision and quantized) against their
     plain versions at the edges of their tiling, labels and segmap
     channels: an odd count of ragged pixel tiles, one tile, one channel
-    tile, L = 1 and 8, cs = 1 and 8, W below the tile width; within KERNEL_TOLERANCE (full precision) or the int8
-    limits (int8_chain_agrees)."""
+    tile, L = 1 and 8, cs = 1 and 8, W below the tile width, labels of 12,
+    18 and 40 channels, C = 96; within KERNEL_TOLERANCE (full precision) or
+    the int8 limits (int8_chain_agrees)."""
     _cuda_or_skip()
     from shineon_tpu_torch.ops import fused_spade as fs
 

@@ -13,10 +13,12 @@ from shineon_tpu_torch.ops import fused_spade as tfs
 from shineon_tpu_torch.ops import int8_conv as ic
 
 
-def _make_case(B=2, H=20, W=13, C=64, L=4, seed=0):
+def _make_case(B=2, H=20, W=13, C=64, L=4, seed=0, cs_list=None):
     """numpy inputs; weights HWIO as the JAX package takes them."""
     rng = np.random.RandomState(seed)
-    cs_list = [4, 3, 3, 2][:L] if L > 1 else [8]
+    if cs_list is None:
+        cs_list = [4, 3, 3, 2][:L] if L > 1 else [8]
+    L = len(cs_list)
     x = (rng.randn(B, H, W, C) * 0.5).astype(np.float32)
     a = 1.0 + 0.1 * rng.randn(B, L, C)
     b = 0.1 * rng.randn(B, L, C)
@@ -85,6 +87,46 @@ def test_plain_matches_jax_reference_bf16(L):
     out = tfs.multispade_modulate_plain(*_torch_args(case, torch.bfloat16))
     assert out.dtype == torch.bfloat16
     assert _max_rel(out.float().numpy(), ref.astype(jnp.float32)) <= 3e-2
+
+
+# the shapes the first kernels refused: labels of more than 8 segmap
+# channels (a densepose encoder map at 5 frames, cocopose) and a width that
+# is not a multiple of the 64-channel tile
+REPAIRED = [((12,), 64), ((18, 3), 64), ((4, 3), 96)]
+
+
+@pytest.mark.parametrize("cs_list,C", REPAIRED)
+def test_plain_matches_jax_at_repaired_shapes(cs_list, C):
+    """f32 at the repaired shapes: the plain version against the JAX
+    reference and the Pallas kernel in interpret mode, atol 2e-4 as above."""
+    case = _make_case(B=1, H=9, W=7, C=C, seed=11, cs_list=cs_list)
+    x, ab, segs, wshs, bshs, wgbs, bgbs = jargs = _jax_args(case, jnp.float32)
+    out = tfs.multispade_modulate_plain(*_torch_args(case, torch.float32)).numpy()
+    ref = jfs.multispade_modulate_reference(*jargs)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=0, atol=2e-4)
+    packed = jfs._pack_inputs(segs, wshs, bshs, wgbs, bgbs, jnp.float32)
+    ref = jfs._fused_forward(x, ab, *packed, "relu", interpret=True)
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("cs_list,C", REPAIRED)
+def test_channel_padding_is_exact(cs_list, C):
+    """x and ab zero-padded to the channel tile (pad_channels), through the
+    plain chain with gamma/beta weights padded as pack_weights pads them:
+    the first C channels are the unpadded chain's to f32 rounding (more
+    output channels may change the order of the convolution's sums), the
+    rest zero, in full precision and quantized."""
+    x, ab, segs, wshs, bshs, wgbs, bgbs = _torch_args(
+        _make_case(B=1, H=9, W=7, C=C, seed=12, cs_list=cs_list), torch.float32)
+    Cp = tfs.padded_channels(C)
+    xp, abp = tfs.pad_channels(x, ab, Cp)
+    wgbp = [tfs._pad_gamma_beta(w, Cp) for w in wgbs]
+    bgbp = [tfs._pad_gamma_beta(b, Cp) for b in bgbs]
+    for plain in (tfs.multispade_modulate_plain, tfs.multispade_modulate_plain_int8):
+        ref = plain(x, ab, segs, wshs, bshs, wgbs, bgbs)
+        out = plain(xp, abp, segs, wshs, bshs, wgbp, bgbp)
+        assert tuple(out.shape) == (1, 9, 7, Cp)
+        assert tfs.error_ratio(out[..., :C], ref) <= 1e-6 and not out[..., C:].any()
 
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():
@@ -181,35 +223,40 @@ def _kernel_cols(seg, B, H, W):
 def _emulate_kernel(x, ab, segs, packed, bf16_layout):
     """The chain computed from the kernel's packed operands, in f32 torch:
     what the CUDA kernel indexes, so a wrong layout shows on the CPU. bf16:
-    each label's segmap padded to SEG_CHANNELS in the one segmap operand
-    (kernel_segmap), the hidden conv over k = tap * 8 + ci to HIDDEN_DEPTH
-    (past tap 8 the kernel reads tap 8's position against zero weights), the
-    [gamma | beta] weights un-swizzled from their slice images."""
+    each label's segmap padded to whole segments of SEG_CHANNELS in the one
+    segmap operand (kernel_segmap), the hidden conv summed over the label's
+    segments, each over k = tap * 8 + ci to HIDDEN_DEPTH (past tap 8 the
+    kernel reads tap 8's position against zero weights), the [gamma | beta]
+    weights un-swizzled from their slice images. Both: gamma and beta at
+    padded_channels(C), of which the first C are kept."""
     B, H, W, C = x.shape
+    Cp = tfs.padded_channels(C)
     out = x.float()
     seg_all = tfs.kernel_segmap(segs, torch.bfloat16 if bf16_layout else torch.float32)
-    c = tfs.SEG_CHANNELS if bf16_layout else None
-    off = 0
+    c = tfs.SEG_CHANNELS
+    off = soff = 0
     for l, cs in enumerate(packed.cs):
         if bf16_layout:
-            cols = _kernel_cols(seg_all[..., c * l:c * (l + 1)], B, H, W)
-            pad = tfs.HIDDEN_DEPTH - 9 * c
-            cols = torch.cat([cols, cols[:, 8 * c:8 * c + pad]], dim=1)
-            wsh = packed.wsh[l].float()  # (128, HIDDEN_DEPTH)
-            wgb = tfs.unpack_slice_images(packed.wgb[l]).float()  # (9, 2C, 128)
+            hid = 0
+            for s in range(soff, soff + tfs.segments(cs)):
+                cols = _kernel_cols(seg_all[..., c * s:c * (s + 1)], B, H, W)
+                pad = tfs.HIDDEN_DEPTH - 9 * c
+                cols = torch.cat([cols, cols[:, 8 * c:8 * c + pad]], dim=1)
+                hid = hid + torch.einsum("nk,bkp->bnp", packed.wsh[s].float(), cols)
+            soff += tfs.segments(cs)
+            wgb = tfs.unpack_slice_images(packed.wgb[l]).float()  # (9, 2Cp, 128)
         else:
             cols = _kernel_cols(seg_all[..., off:off + cs], B, H, W)
             wsh = packed.wsh[9 * off * tfs.NHID:9 * (off + cs) * tfs.NHID].float()
-            wsh = wsh.reshape(9 * cs, tfs.NHID).t()
-            wgb = packed.wgb[l].float().transpose(1, 2)  # (9, 2C, 128)
+            hid = torch.einsum("nk,bkp->bnp", wsh.reshape(9 * cs, tfs.NHID).t(), cols)
+            wgb = packed.wgb[l].float().transpose(1, 2)  # (9, 2Cp, 128)
         off += cs
-        hid = torch.relu(torch.einsum("nk,bkp->bnp", wsh, cols) + packed.bsh[l][None, :, None])
-        hid = hid.reshape(B, tfs.NHID, H, W)
+        hid = torch.relu(hid + packed.bsh[l][None, :, None]).reshape(B, tfs.NHID, H, W)
         hcols = torch.nn.functional.unfold(hid, 3, padding=1).reshape(B, tfs.NHID, 9, H * W)
         gb = torch.einsum("tmk,bktp->bpm", wgb, hcols) + packed.bgb[l]
-        gb = gb.reshape(B, H, W, 2 * C)
+        gb = gb.reshape(B, H, W, 2 * Cp)
         a, b = ab[:, l, :C][:, None, None], ab[:, l, C:][:, None, None]
-        out = (out * a + b) * (1.0 + gb[..., :C]) + gb[..., C:]
+        out = (out * a + b) * (1.0 + gb[..., :C]) + gb[..., Cp:Cp + C]
     return out
 
 
@@ -228,6 +275,24 @@ def test_packed_layouts_match_plain(dtype):
     segs = [s.to(dtype).float() for s in segs]
     packed = tfs.pack_weights(wshs, bshs, wgbs, bgbs, dtype)
     assert packed.wgb.dtype == packed.wsh.dtype == dtype
+    out = _emulate_kernel(x, ab, segs, packed, dtype == torch.bfloat16)
+    ref = tfs.multispade_modulate_plain(x, ab, segs, wshs, bshs, wgbs, bgbs)
+    assert _max_rel(out.numpy(), ref.numpy()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cs_list,C", REPAIRED)
+def test_packed_layouts_match_plain_at_repaired_shapes(cs_list, C, dtype):
+    """As test_packed_layouts_match_plain, at labels of two and three
+    8-channel segments and at C = 96 (packed at 128 channels)."""
+    x, ab, segs, wshs, bshs, wgbs, bgbs = _torch_args(
+        _make_case(B=1, H=9, W=7, C=C, seed=13, cs_list=cs_list), torch.float32)
+    wshs = [w.to(dtype).float() for w in wshs]
+    wgbs = [w.to(dtype).float() for w in wgbs]
+    segs = [s.to(dtype).float() for s in segs]
+    packed = tfs.pack_weights(wshs, bshs, wgbs, bgbs, dtype)
+    if dtype == torch.bfloat16:
+        assert packed.wsh.shape[0] == sum(tfs.segments(c) for c in cs_list)
     out = _emulate_kernel(x, ab, segs, packed, dtype == torch.bfloat16)
     ref = tfs.multispade_modulate_plain(x, ab, segs, wshs, bshs, wgbs, bgbs)
     assert _max_rel(out.numpy(), ref.numpy()) <= 1e-4

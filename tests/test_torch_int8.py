@@ -59,7 +59,7 @@ def _rel(out, ref):
 # ------------------------------------------------------------ (a) int8 conv
 
 @pytest.mark.parametrize("shape", [(2, 9, 7, 16, 24), (1, 20, 13, 64, 64), (2, 8, 8, 32, 8),
-                                   (1, 5, 3, 128, 64)])
+                                   (1, 5, 3, 128, 64), (1, 6, 5, 32, 96), (1, 6, 5, 96, 32)])
 def test_conv3x3_int8_plain_matches_jax(shape):
     """conv3x3_int8_plain (weights quantized by quantize_weight from f32)
     against _conv_same_int8, f32, including ragged spatial shapes:
@@ -91,15 +91,93 @@ def test_quantize_weight_layout_and_rule():
 
 
 def test_conv_kernel_rejects_unsupported_shapes():
-    """The CUDA path validates before it builds or launches: a channel
-    count that is not a multiple of 64, or a dtype the kernel does not
-    write, raises (no fall back to the plain version)."""
+    """The CUDA path validates before it builds or launches, and raises (no
+    fall back to the plain version) on what the kernel does not take:
+    weights whose Cin is not x's, an x that is not the dtype the kernel
+    writes, a dtype it does not write, mismatched bias or slice images.
+    Any channel count is taken."""
     qw = ic.quantize_weight(torch.randn(64, 32, 3, 3))
-    with pytest.raises(ValueError, match="multiples of 64"):
-        ic._launch(torch.randn(1, 4, 4, 32), qw, None, torch.float32)
-    qw = ic.quantize_weight(torch.randn(64, 64, 3, 3))
+    with pytest.raises(ValueError, match="expected"):
+        ic._launch(torch.randn(1, 4, 4, 48), qw, None, torch.float32)
     with pytest.raises(ValueError, match="reads and writes"):
-        ic._launch(torch.randn(1, 4, 4, 64), qw, None, torch.bfloat16)
+        ic._launch(torch.randn(1, 4, 4, 32), qw, None, torch.bfloat16)
+    with pytest.raises(ValueError, match="not supported"):
+        ic._launch(torch.randn(1, 4, 4, 32).half(), qw, None, torch.float16)
+    with pytest.raises(ValueError, match="bias"):
+        ic._launch(torch.randn(1, 4, 4, 32), qw, torch.zeros(63), torch.float32)
+    other = ic.quantize_weight(torch.randn(64, 128, 3, 3), images=True)
+    bad = qw._replace(images=other.images)
+    with pytest.raises(ValueError, match="images"):
+        ic._launch(torch.randn(1, 4, 4, 32).bfloat16(), bad, None, torch.bfloat16)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 96), (96, 32), (64, 100), (64, 64), (128, 256),
+                                      (200, 130)])
+def test_conv_slice_images_unpack_to_wq(cin, cout):
+    """The bf16 kernel's slice images un-swizzle back to wq exactly, and
+    every byte outside wq (channels past Cin or Cout, the tenth tap of a
+    64-channel chunk) is zero."""
+    qw = ic.quantize_weight(torch.randn(cout, cin, 3, 3), images=True)
+    mode = ic.conv_mode(cin, cout)
+    assert qw.images.shape == (-(-cout // mode.n_t), -(-cin // mode.kc), mode.slices, mode.n_t, 128)
+    assert torch.equal(ic.unpack_conv_slice_images(qw.images, cin, cout), qw.wq)
+    assert qw.images.abs().sum() == qw.wq.abs().sum()
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 96), (64, 100), (160, 64)])
+def test_slice_images_as_the_kernel_reads_them(cin, cout):
+    """The conv computed from the slice images by the bf16 kernel's own
+    indexing, in exact integer arithmetic: for chunk c, slice s and k-step
+    kk (32 bytes), tap = s (kc = 128) or min(2s + kk // 2, 8) (kc = 64),
+    channels c * kc + the k-step's byte offset (32 kk, or 32 (kk % 2));
+    B rows un-swizzled from the image. Equals the integer conv of
+    int8_matmul_conv."""
+    g = torch.Generator().manual_seed(cin + cout)
+    qw = ic.quantize_weight(torch.randn(cout, cin, 3, 3, generator=g), images=True)
+    vq = torch.randint(-127, 128, (1, 5, 6, cin), generator=g).double()
+    mode = ic.conv_mode(cin, cout)
+    nblk, nch = qw.images.shape[:2]
+    xp = torch.nn.functional.pad(vq, (0, nch * mode.kc - cin, 1, 1, 1, 1))  # (1, 7, 8, Cinp)
+    img = ic.swizzle_128b(qw.images).double()  # (nblk, nch, slices, n_t, 128)
+    acc = torch.zeros(1, 5, 6, nblk * mode.n_t, dtype=torch.float64)
+    for c in range(nch):
+        for s in range(mode.slices):
+            for kk in range(4):
+                tap = s if mode.kc == 128 else min(2 * s + kk // 2, 8)
+                cb = 32 * kk if mode.kc == 128 else 32 * (kk % 2)
+                a = xp[:, tap // 3:tap // 3 + 5, tap % 3:tap % 3 + 6,
+                       c * mode.kc + cb:c * mode.kc + cb + 32]
+                b = img[:, c, s, :, 32 * kk:32 * kk + 32].reshape(-1, 32)  # (nblk * n_t, 32)
+                acc += a @ b.t()
+    assert torch.equal(acc[..., :cout].float(), ic.int8_matmul_conv(vq, qw))
+
+
+@pytest.mark.parametrize("cin", [3, 16, 64, 100])
+def test_quantize_pass_plain_is_the_conv_quantization(cin):
+    """The bf16 conv's quantize pass (plain version): the levels
+    conv3x3_int8_plain quantizes x to, in a copy of quantized_channels(Cin)
+    channels whose padding is zero."""
+    x = torch.randn(2, 5, 4, cin, generator=torch.Generator().manual_seed(cin)).bfloat16()
+    absmax = torch.linalg.vector_norm(x, float("inf"), dtype=torch.float32)
+    xq = ic.quantize_int8(x, absmax)
+    assert xq.dtype == torch.int8 and xq.shape == (2, 5, 4, ic.quantized_channels(cin))
+    assert ic.quantized_channels(cin) % 16 == 0 and not xq[..., cin:].any()
+    want = torch.clamp(torch.round(x.float() / ic.activation_scale(x)), -127, 127)
+    assert torch.equal(xq[..., :cin].float(), want)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 96), (96, 32)])
+def test_f32_kernel_padding_is_exact(cin, cout):
+    """The f32 parity kernel's operands zero-padded to 64-channel multiples
+    give exactly the unpadded plain conv in their first Cout channels."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(1, 5, 4, cin, generator=g)
+    qw = ic.quantize_weight(torch.randn(cout, cin, 3, 3, generator=g))
+    bias = torch.randn(cout, generator=g)
+    xp, wq, scale, bp = ic._pad_f32_operands(x, qw, bias)
+    assert xp.shape[-1] % 64 == 0 and wq.shape[1] % 64 == 0
+    out = ic.conv3x3_int8_plain(xp, ic.QuantizedWeight(wq, scale), bp, torch.float32)
+    assert torch.equal(out[..., :cout], ic.conv3x3_int8_plain(x, qw, bias, torch.float32))
 
 
 # ------------------------------------------------------------ (b) the chain

@@ -215,6 +215,32 @@ def test_sams_generator_tiny(train, monkeypatch):
     _assert_stats(tm, upd["batch_stats"], convert.GENERATOR_RENAMES, tol=1e-4)
 
 
+def test_sams_generator_densepose_encoder(monkeypatch):
+    """encoder_input="densepose" at 5 frames: the encoder SPADEs' label has
+    3 x 4 = 12 channels (two 8-channel segments of the bf16 chain kernels,
+    which refused it before), eval with every SPADE site fused, against the
+    JAX generator: rtol 1e-4."""
+    monkeypatch.setenv("SHINEON_FUSED_SPADE", "1")
+    rng = np.random.RandomState(19)
+    B, H, W = 1, 16, 12
+    prev = rng.randn(B, 4, H, W, 3).astype(np.float32)
+    maps = rng.randn(B, 4, H, W, 3).astype(np.float32)
+    cur = {k: rng.randn(B, H, W, c).astype(np.float32) for k, c in LABELS.items()}
+    cfg = dict(ngf_pow_outer=3, ngf_pow_inner=5, num_middle=1, n_frames_total=5,
+               flow_warp=True, encoder_input="densepose", inputs=tuple(LABELS))
+    jm = JSamsGenerator(**cfg)
+    variables = _with_random_stats(
+        _np(jm.init(jax.random.PRNGKey(20), prev, maps, cur, train=True)), 21)
+    ref = jm.apply(variables, prev, maps, cur, train=False)
+    tm = SamsGenerator(**cfg)
+    assert tm.enc_ch * tm.num_prev == 12
+    convert.load_flax(tm, variables, convert.GENERATOR_RENAMES)
+    with torch.no_grad():
+        out = tm(_t(prev), _t(maps), {k: _t(v) for k, v in cur.items()}, train=False)
+    assert out.shape == (B, H, W, 4)
+    _assert_rel(out.numpy(), np.asarray(ref), 1e-4)
+
+
 def test_gmm_128x96():
     """GMM at the smallest fine size its regression takes (128x96), eval
     with random running stats: grid and theta within rtol 1e-4."""
