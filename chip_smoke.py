@@ -121,7 +121,7 @@ ATTENTION_SHAPES = ((192, 512, 4096, 2), (3072, 256, 2048, 2), (3072, 128, 1024,
                     # widths the first kernel refused: SAMS attention at 64
                     # channels (d = 8), TOM's U-Net attention at 2 frames (d =
                     # 108, dv = 864), five 1024-channel labels (d = 640), and
-                    # part of one 384-column block at a ragged query tile
+                    # part of one 512-column block at a ragged query tile
                     (192, 8, 64, 0), (192, 108, 864, 0), (192, 640, 5120, 0), (150, 64, 320, 0))
 SCORE_STDS = {"flat": 0.3, "peaked": 8.0}  # std of the raw scores q.k
 GAMMA_MEAN, GAMMA_STD = 0.5, 0.1  # the attention gammas the clips are run with
@@ -272,13 +272,27 @@ def int8_site_bound(B, H, W, C, seg):
     return ms, by, hid_flops + gb_ops
 
 
-def conv_bound(B, H, W, cin, cout, itemsize=2):
-    """The int8 3x3 conv: its int8 operations against x read and y written
-    once in the activation dtype, int8 weights and f32 scales and bias."""
+def conv_bound(B, H, W, cin, cout, x_bytes):
+    """The int8 3x3 conv at the int8 rate against its bytes moved once: x
+    (x_bytes a pixel), y in bf16, the int8 weights, the f32 scales, bias
+    and abs-max."""
     ops = 2 * 9 * B * H * W * cin * cout
-    nbytes = B * H * W * (cin + cout) * itemsize + 9 * cin * cout + 4 * (2 * cout + 1)
+    nbytes = B * H * W * (x_bytes + 2 * cout) + 9 * cin * cout + 4 * (2 * cout + 1)
     ms, by = bound(ops / H100_INT8_OPS, nbytes)
     return ms, by, ops
+
+
+def conv_kernel_bound(B, H, W, cin, cout):
+    """The bf16 conv kernel alone: it reads the quantize pass's int8 copy
+    of x, Cin rounded up to 16 channels a pixel
+    (ops/int8_conv.py::quantized_channels)."""
+    return conv_bound(B, H, W, cin, cout, -(-cin // 16) * 16)
+
+
+def conv_call_bound(B, H, W, cin, cout):
+    """The whole bf16 call (abs-max, quantize pass and conv as one
+    function): x read once in bf16."""
+    return conv_bound(B, H, W, cin, cout, 2 * cin)
 
 
 def cuda_ms(torch, fn, reps):
@@ -481,7 +495,7 @@ def check_int8_conv(torch, ic, fs):
         x0 = x0.to(DEVICE)
         w = (torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5).to(DEVICE)
         b = (0.1 * torch.randn(cout, generator=g)).to(DEVICE)
-        qw = ic.quantize_weight(w, images=True)
+        qw = ic.quantize_weight(w)
         for dtype in (torch.bfloat16, torch.float32):
             x = x0.to(dtype)
             if dtype == torch.bfloat16:  # the bf16 conv's quantize pass: exact
@@ -529,16 +543,19 @@ def check_int8_conv(torch, ic, fs):
                 log(f"time quantize pass bf16 B={BATCH} H={H} W={W} Cin={cin}: kernel device "
                     f"{qz_dev:.4f} ms (event {qz_ms:.4f}) plain {qz_plain:.4f} ms bound "
                     f"{qz_bound:.4f} ms ({qz_by})")
-                bound_ms, by, ops = conv_bound(BATCH, H, W, cin, cout)
+                bound_ms, by, ops = conv_kernel_bound(BATCH, H, W, cin, cout)
+                call_bound, call_by, _ = conv_call_bound(BATCH, H, W, cin, cout)
                 split = ic.plan(BATCH, H, W, cin, cout)[1]
                 log(f"time conv bf16 B={BATCH} H={H} W={W} {cin}->{cout} x{per_frame}/frame: "
-                    f"kernel device {k_dev:.4f} ms (K split {split}; event {k_ms:.4f} ms, wrapper "
-                    f"and abs-max included) abs-max device {am_ms:.4f} ms plain {p_ms:.4f} ms "
-                    f"bound {bound_ms:.4f} ms ({by}) cuDNN bf16 conv {lib_ms:.4f} ms kernel "
-                    f"{ops / k_dev / 1e9:.2f} Tops/s")
+                    f"kernel device {k_dev:.4f} ms (K split {split}) bound {bound_ms:.4f} ms "
+                    f"({by}, int8 x); the call (abs-max, quantize pass, conv) event "
+                    f"{k_ms:.4f} ms bound {call_bound:.4f} ms ({call_by}, bf16 x); abs-max "
+                    f"device {am_ms:.4f} ms plain {p_ms:.4f} ms cuDNN bf16 conv {lib_ms:.4f} ms "
+                    f"kernel {ops / k_dev / 1e9:.2f} Tops/s")
                 timings[(H, W, cin, cout)] = dict(
-                    ms=k_ms, device_ms=k_dev, absmax_ms=am_ms, plain_ms=p_ms, bound_ms=bound_ms,
-                    bound_by=by, cudnn_bf16_ms=lib_ms, per_frame=per_frame, ops=ops, ksplit=split,
+                    ms=k_dev, call_ms=k_ms, device_ms=k_dev, absmax_ms=am_ms, plain_ms=p_ms,
+                    bound_ms=bound_ms, bound_by=by, call_bound_ms=call_bound,
+                    cudnn_bf16_ms=lib_ms, per_frame=per_frame, ops=ops, ksplit=split,
                     quantize=dict(ms=qz_ms, device_ms=qz_dev, plain_ms=qz_plain,
                                   bound_ms=qz_bound, bound_by=qz_by, bytes=bytes_of(x, xq)))
     if failed:
@@ -630,7 +647,7 @@ def time_attention(torch, fa, F, q, k, v, per_frame):
         p_ms = cuda_ms(torch, lambda: fa.attention_plain(q, k, v), 3)
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], v[:, None], scale=1.0), 10)
-    chunk = fa.value_chunk(d, dv)
+    chunk = fa.BLOCK_COLS
     need, done = attention_work(N, d, dv, chunk)
     bound_ms, by = bound(need / H100_BF16_FLOPS, BATCH * N * (2 * d + 2 * dv) * 2)
     log(f"time attention bf16 B={BATCH} N={N} d={d} dv={dv} x{per_frame}/frame: "
@@ -1098,6 +1115,10 @@ def main() -> int:
         k, b = per_clip(tim, "per_frame_att")
         log(f"{name} per attention clip from the shape timings (device time): {k:.1f} ms, "
             f"bound {b:.2f} ms")
+    call_bound_clip = sum(t["call_bound_ms"] * t["per_frame"] * n_frames
+                          for t in c_timings.values())
+    log(f"int8_conv3x3's whole calls (abs-max, quantize pass, conv) per clip: bound "
+        f"{call_bound_clip:.2f} ms (x read once in bf16)")
     cudnn_clip = sum(t["cudnn_bf16_ms"] * t["per_frame"] * n_frames for t in c_timings.values())
     log(f"cuDNN bf16 conv at the same shapes per clip: {cudnn_clip:.1f} ms")
     absmax_clip = sum(t["absmax_ms"] * t["per_frame"] * n_frames for t in c_timings.values())
@@ -1169,6 +1190,8 @@ def main() -> int:
         "max_abs_err_f32": c_errors[c_top + ("float32",)],
         "ms": ct["ms"],
         "device_ms": ct["device_ms"],
+        "call_ms": ct["call_ms"],
+        "call_bound_ms": ct["call_bound_ms"],
         "plain_ms": ct["plain_ms"],
         "bound_ms": ct["bound_ms"],
         "bound_by": ct["bound_by"],
@@ -1212,6 +1235,7 @@ def main() -> int:
         "bound_by": at["bound_by"],
         "library_ms": at["sdpa_ms"],
         "qk_ratio": at["qk_ratio"],
+        "work_ratio": at["work"],
         "shape": {"B": BATCH, "N": a_top[0], "d": a_top[1], "dv": a_top[2],
                   "dtype": "bfloat16"},
         "clip_ms": med["bf16 attention"],

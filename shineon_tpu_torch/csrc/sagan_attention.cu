@@ -18,29 +18,26 @@
 // (256, N) score tile. A Hopper block has 227 KB, so this kernel streams K
 // and V through shared memory in key tiles with an online softmax (running
 // max and sum in f32), and blocks over dv as well as over queries: the grid
-// is (64 queries, 384 value columns, sample). Each block computes its
-// queries' scores once for its 384 columns, so the QK^T work is ceil(dv /
-// 384) times the minimum: 1.56x at d = 256, dv = 2048 and 2.1x at d = 512,
+// is (64 queries, 512 value columns, sample). Each block computes its
+// queries' scores once for its 512 columns, so the QK^T work is ceil(dv /
+// 512) times the minimum: 1.33x at d = 256, dv = 2048 and 1.78x at d = 512,
 // dv = 4096 (the first design's 256- and 128-column blocks: 1.78x, 4.4x).
-// 512 columns a block (1.33x, 1.78x) took two ways on the card, both
-// slower: two warpgroups of 256 columns need 128 f32 output registers a
-// thread beside the scores and the softmax state, about 193 in all, where
-// ptxas budgets 168 (65536 over 384 threads: it counts the copy warp's
-// partial warpgroup whole, and a later setmaxnreg does not raise the
-// budget it compiles to) and spilled; four warpgroups of 128 columns (64
-// registers, the copies issued by thread 0) fit, but their 16-key score
-// products and 512-thread barriers cost more than the QK^T work they
-// saved. Issuing the next tile's scores during the PV products also
-// measured slower, and went.
+// Each warpgroup holds 256 columns of f32 output (128 registers a thread)
+// beside its scores and softmax state, more than the 168 a thread that a
+// copy warp or warpgroup beside two warpgroups leaves: ptxas compiles to
+// the launch's budget whatever setmaxnreg later grants (a producer
+// warpgroup with setmaxnreg 40 / 232 spilled, and ran slower). So the
+// block is the two warpgroups alone, 255 registers a thread, and thread 0
+// issues the copies between its products.
 //
-// bf16 (the serving dtype, attention_wgmma), warp specialised, 288
-// threads: two consumer warpgroups and a producer warp. One lane of the
-// producer copies tiles by TMA (tensor maps over q, k, v as (d | dv, N, B),
-// 128-byte swizzled boxes of 64 rows x 64 elements, zero filled past N, d
-// and dv): Q once (resident; or, where d leaves no room, one d-chunk with
-// each K tile), the K tiles of each 64-key tile d-chunk by d-chunk through
-// a ring, and each key tile's V (64 keys x 384 columns) through a 2-deep
-// ring, all on full/empty mbarriers. TMA rather than cp.async to
+// bf16 (the serving dtype, attention_wgmma), 256 threads: two
+// warpgroups. Thread 0 copies tiles by TMA (tensor maps over q, k, v as
+// (d | dv, N, B), 128-byte swizzled boxes of 64 rows x 64 elements, zero
+// filled past N, d and dv): Q once (resident; or, where d leaves no room,
+// one d-chunk with each K tile), the K tiles of each 64-key tile d-chunk
+// by d-chunk through a ring, and each key tile's V (64 keys x 512 columns)
+// through a ring of one or two stages, on full mbarriers (a stage is
+// refilled after a block barrier, or on an empty mbarrier; below). TMA rather than cp.async to
 // software-swizzled addresses: one instruction a tile from one thread, its
 // bytes counted on the barrier, the zero fill of ragged N, d and dv free.
 // Per key tile, warpgroup w computes S for keys 32w..32w+31 of the tile
@@ -48,9 +45,9 @@
 // 64-wide chunks, so any d runs); the two exchange row maxima through
 // shared memory, write P = exp(S - running max), rounded to bf16, into one
 // shared 64 x 64 tile (the 128-byte-swizzled A layout), and each
-// multiplies the whole P tile by its 192 columns of V (wgmma m64n192k16,
-// V the transposed, MN-major B operand): one S tile for 384 columns. The
-// output accumulates in f32 registers (96 a thread), is divided by the
+// multiplies the whole P tile by its 256 columns of V (wgmma m64n256k16,
+// V the transposed, MN-major B operand): one S tile for 512 columns. The
+// output accumulates in f32 registers (128 a thread), is divided by the
 // row sum at the end and stored in bf16. The plain version rounds the
 // NORMALISED probabilities to bf16; this kernel rounds them before
 // normalising (ops/fused_attention.py::ATTENTION_TOLERANCE). d and dv are
@@ -85,21 +82,24 @@ __device__ __forceinline__ void wgmma_m64n32k16_bf16_ss(float (&d)[16], uint64_t
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// D(64x192, f32) += A(64x16 bf16, shared memory, K-major descriptor) *
-// B(16x192 bf16, shared memory, MN-major: the transposed operand).
-__device__ __forceinline__ void wgmma_m64n192k16_bf16_ss_tb(float (&d)[96], uint64_t desc_a,
+// D(64x256, f32) += A(64x16 bf16, shared memory, K-major descriptor) *
+// B(16x256 bf16, shared memory, MN-major: the transposed operand).
+__device__ __forceinline__ void wgmma_m64n256k16_bf16_ss_tb(float (&d)[128], uint64_t desc_a,
                                                             uint64_t desc_b) {
   asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %98, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
       "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
       "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
       "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, 1;\n}\n"
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
+      "%126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -115,21 +115,26 @@ __device__ __forceinline__ void wgmma_m64n192k16_bf16_ss_tb(float (&d)[96], uint
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // ------------------------------------------------------------ bf16 (wgmma)
 constexpr int BQ = 64;                 // queries a block
 constexpr int BK = 64;                 // keys a tile
-constexpr int WG_COLS = 192;           // value columns a consumer warpgroup
+constexpr int WG_COLS = 256;           // value columns a consumer warpgroup
 constexpr int BLOCK_COLS = 2 * WG_COLS;
-constexpr int CONSUMERS = 256;
-constexpr int NTHREADS_WG = CONSUMERS + 32;  // and a producer warp
+constexpr int NTHREADS_WG = 256;       // two warpgroups; thread 0 also issues the copies
 constexpr int PIECE = 64 * 128;        // a TMA box: 64 rows of 64 bf16 (8 KB)
-constexpr int V_STAGE = BLOCK_COLS / 64 * PIECE;  // a key tile's V (48 KB)
-constexpr int NV = 2;                  // V stages
-constexpr int MAX_NK = 8;              // K stages at most
+constexpr int V_STAGE = BLOCK_COLS / 64 * PIECE;  // a key tile's V (64 KB)
+constexpr int MAX_NV = 2;              // V stages at most
+constexpr int MAX_NK = 16;             // K stages at most
 
 struct AttnArgs {
   int N, d, dv;
@@ -137,37 +142,46 @@ struct AttnArgs {
   int q_resident;  // Q held for the block, else one chunk streamed with each K chunk
   int nk;          // K ring stages
   int kstage;      // bytes a K stage: a K piece (and, streamed, a Q piece)
+  int nv;          // V ring stages
 };
 
 // Shared memory (1024-byte aligned base): V ring, P tile, K ring, resident
 // Q, barriers, the row statistics the warpgroups exchange.
 struct AttnLayout {
-  static constexpr size_t V = 0;
-  static constexpr size_t P = V + (size_t)NV * V_STAGE;
-  static constexpr size_t K = P + PIECE;
-  static constexpr size_t FIXED = K + 256 + 4 * 64 * sizeof(float) + 1024;
-  __host__ __device__ static size_t q(const AttnArgs& a) { return K + (size_t)a.nk * a.kstage; }
+  static constexpr size_t BARS = 512;
+  static constexpr size_t STATS = 4 * 64 * sizeof(float);
+  __host__ __device__ static size_t p(const AttnArgs& a) { return (size_t)a.nv * V_STAGE; }
+  __host__ __device__ static size_t k(const AttnArgs& a) { return p(a) + PIECE; }
+  __host__ __device__ static size_t fixed(const AttnArgs& a) { return k(a) + BARS + STATS + 1024; }
+  __host__ __device__ static size_t q(const AttnArgs& a) { return k(a) + (size_t)a.nk * a.kstage; }
   __host__ __device__ static size_t bars(const AttnArgs& a) {
     return q(a) + (a.q_resident ? (size_t)a.nd * PIECE : 0);
   }
-  __host__ __device__ static size_t stats(const AttnArgs& a) { return bars(a) + 256; }
-  __host__ __device__ static size_t bytes(const AttnArgs& a) {
-    return stats(a) + 4 * 64 * sizeof(float) + 1024;
-  }
+  __host__ __device__ static size_t stats(const AttnArgs& a) { return bars(a) + BARS; }
+  __host__ __device__ static size_t bytes(const AttnArgs& a) { return stats(a) + STATS + 1024; }
 };
 
-// Q resident where it leaves two K stages, else streamed (see the header).
-bool attn_args(AttnArgs& a, int N, int d, int dv) {
-  a.N = N;
-  a.d = d;
-  a.dv = dv;
-  a.nd = (d + 63) / 64;
-  const long long room = (long long)MAX_SMEM - (long long)AttnLayout::FIXED;
+// The K ring and Q beside a V ring of nv stages: Q resident where it
+// leaves two K stages, else streamed (see the header).
+bool attn_ring(AttnArgs& a, int nv) {
+  a.nv = nv;
+  const long long room = (long long)MAX_SMEM - (long long)AttnLayout::fixed(a);
   a.q_resident = (long long)(a.nd + 2) * PIECE <= room;
   a.kstage = a.q_resident ? PIECE : 2 * PIECE;
   const long long nk = (room - (a.q_resident ? (long long)a.nd * PIECE : 0)) / a.kstage;
   a.nk = (int)(nk < MAX_NK ? nk : MAX_NK);
   return a.nk >= 2 && AttnLayout::bytes(a) <= (size_t)MAX_SMEM;
+}
+
+// Two V stages where the K ring then holds a key tile's d-chunks, else one
+// V stage and a deeper K ring.
+bool attn_args(AttnArgs& a, int N, int d, int dv) {
+  a.N = N;
+  a.d = d;
+  a.dv = dv;
+  a.nd = (d + 63) / 64;
+  if (attn_ring(a, 2) && a.nk >= a.nd) return true;
+  return attn_ring(a, 1);
 }
 
 // MN-major 128-byte-swizzle descriptor of V: 64-column atoms PIECE apart
@@ -178,7 +192,19 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(const void* p) {
 }
 
 // o: (B, N, dv) bf16; q, k, v through their tensor maps. Block (64
-// queries, 384 columns, sample).
+// queries, 512 columns, sample).
+//
+// The copies: thread 0 issues Q, the first K stages and the first nv key
+// tiles' V before the loop, then refills at the first block barrier of
+// each key tile j, when every warp is past tile j's scores and tile j - 1's
+// PV products: K up to nk chunks past tile j's (a tile ahead), V of tile j
+// + nv - 1 into tile j - 1's stage. The V ring has two stages where the K
+// ring then still holds a key tile's d-chunks, else one (d = 512: a ring
+// of 11 K stages rather than 3). Where the K ring is shorter than a tile's
+// chunks all the same (d > 576), a K stage is instead refilled within the
+// scores, once every warp has released it (its empty barrier), just after
+// thread 0's own warp has.
+template <int NV>  // V stages (a.nv)
 __global__ void __launch_bounds__(NTHREADS_WG, 1)
 attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
                 const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -186,15 +212,14 @@ attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* v_ring = smem + AttnLayout::V;
-  unsigned char* p_s = smem + AttnLayout::P;
-  unsigned char* k_ring = smem + AttnLayout::K;
+  unsigned char* v_ring = smem;
+  unsigned char* p_s = smem + AttnLayout::p(a);
+  unsigned char* k_ring = smem + AttnLayout::k(a);
   unsigned char* q_s = smem + AttnLayout::q(a);
   uint64_t* k_full = reinterpret_cast<uint64_t*>(smem + AttnLayout::bars(a));
   uint64_t* k_empty = k_full + MAX_NK;
   uint64_t* v_full = k_empty + MAX_NK;
-  uint64_t* v_empty = v_full + NV;
-  uint64_t* q_full = v_empty + NV;
+  uint64_t* q_full = v_full + MAX_NV;
   float* red_max = reinterpret_cast<float*>(smem + AttnLayout::stats(a));  // [2][64]
   float* red_sum = red_max + 2 * 64;                                         // [2][64]
 
@@ -204,45 +229,53 @@ attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
   if (tid == 0) {
     for (int i = 0; i < a.nk; ++i) {
       mbar_init(&k_full[i], 1);
-      mbar_init(&k_empty[i], CONSUMERS / 32);
+      mbar_init(&k_empty[i], NTHREADS_WG / 32);
     }
-    for (int i = 0; i < NV; ++i) {
-      mbar_init(&v_full[i], 1);
-      mbar_init(&v_empty[i], CONSUMERS / 32);
-    }
+    for (int i = 0; i < NV; ++i) mbar_init(&v_full[i], 1);
     mbar_init(q_full, 1);
     fence_mbarrier_init();
   }
   __syncthreads();
 
-  if (warp == CONSUMERS / 32) {
-    if (lane != 0) return;
+  const int nksteps = ntiles * a.nd;
+  const bool short_ring = a.nk < a.nd;  // K refilled within a tile's scores
+  int issued = 0;                       // K chunks issued (thread 0)
+  // K chunk `ks` (tile ks / nd, d-chunk ks % nd), and with a streamed Q its
+  // Q chunk, into stage ks % nk
+  auto load_k = [&](int ks) {
+    const int st = ks % a.nk, c = ks % a.nd;
+    unsigned char* stage = k_ring + st * a.kstage;
+    mbar_arrive_expect_tx(&k_full[st], a.kstage);
+    tma_load_3d(stage, &tk, 64 * c, BK * (ks / a.nd), b, &k_full[st]);
+    if (!a.q_resident) tma_load_3d(stage + PIECE, &tq, 64 * c, q0, b, &k_full[st]);
+  };
+  // a short ring: this warp is done with K chunk ks; thread 0, once every
+  // warp is, loads chunk ks + nk into its stage
+  auto release_k = [&](int ks) {
+    if (!short_ring) return;
+    if (lane == 0) mbar_arrive(&k_empty[ks % a.nk]);
+    if (tid != 0 || ks + a.nk >= nksteps) return;
+    mbar_wait(&k_empty[ks % a.nk], (ks / a.nk) & 1);
+    load_k(ks + a.nk);
+  };
+  auto load_v = [&](int j) {
+    const int vs = j % NV;
+    mbar_arrive_expect_tx(&v_full[vs], V_STAGE);
+    for (int w = 0; w < BLOCK_COLS / 64; ++w)
+      tma_load_3d(v_ring + vs * V_STAGE + w * PIECE, &tv, col0 + 64 * w, BK * j, b, &v_full[vs]);
+  };
+  if (tid == 0) {
     if (a.q_resident) {
       mbar_arrive_expect_tx(q_full, a.nd * PIECE);
       for (int c = 0; c < a.nd; ++c) tma_load_3d(q_s + c * PIECE, &tq, 64 * c, q0, b, q_full);
     }
-    int kstep = 0;
-    for (int j = 0; j < ntiles; ++j) {
-      for (int c = 0; c < a.nd; ++c, ++kstep) {
-        const int st = kstep % a.nk;
-        unsigned char* stage = k_ring + st * a.kstage;
-        mbar_wait(&k_empty[st], ((kstep / a.nk) & 1) ^ 1);
-        mbar_arrive_expect_tx(&k_full[st], a.kstage);
-        tma_load_3d(stage, &tk, 64 * c, BK * j, b, &k_full[st]);
-        if (!a.q_resident) tma_load_3d(stage + PIECE, &tq, 64 * c, q0, b, &k_full[st]);
-      }
-      const int vs = j % NV;
-      mbar_wait(&v_empty[vs], ((j / NV) & 1) ^ 1);
-      mbar_arrive_expect_tx(&v_full[vs], V_STAGE);
-      for (int w = 0; w < BLOCK_COLS / 64; ++w)
-        tma_load_3d(v_ring + vs * V_STAGE + w * PIECE, &tv, col0 + 64 * w, BK * j, b, &v_full[vs]);
-    }
-    return;
+    for (; issued < a.nk && issued < nksteps; ++issued) load_k(issued);
+    for (int j = 0; j < NV && j < ntiles; ++j) load_v(j);
   }
 
-  // consumers: warp q of warpgroup wg holds rows 16q + g (+ 8) of the 64
-  // queries (h = 0, 1), S for keys 32wg + 8jj + 2t (+ 1), its 192 output
-  // columns 8jj + 2t (+ 1)
+  // warp q of warpgroup wg holds rows 16q + g (+ 8) of the 64 queries (h =
+  // 0, 1), S for keys 32wg + 8jj + 2t (+ 1), its 256 output columns 8jj +
+  // 2t (+ 1)
   const int wg = warp / 4, qw = warp % 4, g = lane / 4, t = lane % 4;
   float acc[WG_COLS / 2];
 #pragma unroll
@@ -271,13 +304,13 @@ attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
       wgmma_commit();
       if (prev >= 0) {
         wgmma_wait<1>();
-        if (lane == 0) mbar_arrive(&k_empty[prev]);
+        release_k(prev);
       }
-      prev = st;
+      prev = kstep;
     }
     wgmma_wait<0>();
     fence_regs(s);
-    if (lane == 0) mbar_arrive(&k_empty[prev]);
+    release_k(prev);
     // element i of s: row 16qw + g + 8 * ((i % 4) / 2), key 32wg + 8 * (i / 4) + 2t + i % 2
     const int key0 = BK * j + 32 * wg;
     if (BK * j + BK > a.N) {
@@ -294,7 +327,14 @@ attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
       mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
       if (t == 0) red_max[64 * wg + 16 * qw + g + 8 * h] = mx[h];
     }
-    named_sync(1, CONSUMERS);  // both halves' maxima; both are done with the last P tile
+    named_sync(1, NTHREADS_WG);  // both halves' maxima; both are done with the last P tile
+    if (tid == 0) {  // every warp is past tile j's scores and tile j - 1's PV products
+      if (!short_ring) {
+        const int upto = min(nksteps, (j + 1) * a.nd + a.nk);
+        for (; issued < upto; ++issued) load_k(issued);
+      }
+      if (j >= 1 && j + NV - 1 < ntiles) load_v(j + NV - 1);
+    }
     float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -320,19 +360,18 @@ attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
     }
 #pragma unroll
     for (int i = 0; i < WG_COLS / 2; ++i) acc[i] *= alpha[(i % 4) / 2];
-    fence_proxy_async();       // P's writes before the products read it
-    named_sync(1, CONSUMERS);  // the whole P tile is written
+    fence_proxy_async();         // P's writes before the products read it
+    named_sync(1, NTHREADS_WG);  // the whole P tile is written
     const int vs = j % NV;
     mbar_wait(&v_full[vs], (j / NV) & 1);
     const unsigned char* vt = v_ring + vs * V_STAGE + wg * (WG_COLS / 64) * PIECE;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n192k16_bf16_ss_tb(acc, p_desc + 2 * kk, desc_mn_sw128(vt + kk * 16 * 128));
+      wgmma_m64n256k16_bf16_ss_tb(acc, p_desc + 2 * kk, desc_mn_sw128(vt + kk * 16 * 128));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    if (lane == 0) mbar_arrive(&v_empty[vs]);
   }
 
   // the row sums: this thread's share, its quad's, the other warpgroup's
@@ -343,7 +382,7 @@ attention_wgmma(__nv_bfloat16* __restrict__ o, const AttnArgs a,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     if (t == 0) red_sum[64 * wg + 16 * qw + g + 8 * h] = l[h];
   }
-  named_sync(1, CONSUMERS);
+  named_sync(1, NTHREADS_WG);
 #pragma unroll
   for (int h = 0; h < 2; ++h) inv[h] = 1.f / (l[h] + red_sum[64 * (1 - wg) + 16 * qw + g + 8 * h]);
   const int cbase = col0 + WG_COLS * wg + 2 * t;
@@ -469,12 +508,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
       !make_tensor_map(&tv, BF16_MAP, v, 3, v_dims, v_strides, box, SW128))
     return cudaErrorInvalidValue;
   const size_t smem = AttnLayout::bytes(a);
-  cudaError_t err = cudaFuncSetAttribute(attention_wgmma,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const auto kernel = a.nv == 2 ? attention_wgmma<2> : attention_wgmma<1>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BQ - 1) / BQ, (dv + BLOCK_COLS - 1) / BLOCK_COLS, B);
-  attention_wgmma<<<grid, NTHREADS_WG, smem, stream>>>(static_cast<__nv_bfloat16*>(o), a, tq,
-                                                       tk, tv);
+  kernel<<<grid, NTHREADS_WG, smem, stream>>>(static_cast<__nv_bfloat16*>(o), a, tq, tk, tv);
   return cudaGetLastError();
 }
 
@@ -507,9 +546,8 @@ int sagan_attention_forward(int is_bf16, const void* q, const void* k, const voi
                        : launch_f32(q, k, v, o, B, N, d, dv, s));
 }
 
-// The value columns a bf16 block owns: its QK^T work is ceil(dv / this)
-// times the minimum.
-int sagan_attention_value_chunk(int, int) { return BLOCK_COLS; }
+// The value columns a bf16 block owns (ops/fused_attention.py:BLOCK_COLS).
+int sagan_attention_block_cols() { return BLOCK_COLS; }
 
 const char* sagan_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

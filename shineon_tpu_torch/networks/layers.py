@@ -50,8 +50,7 @@ class Conv2d(nn.Module):
         cd = compute_dtype(self.dtype)
         if quantize and self.int8:
             qw = self._int8_cache.get((self.weight,), "int8",
-                                      lambda: quantize_weight(self.weight,
-                                                              images=self.weight.is_cuda))
+                                      lambda: quantize_weight(self.weight))
             return conv3x3_int8(x, qw, self.bias, cd)
         return conv2d_nhwc(x, self.weight, self.bias, cd, self.stride, self.padding)
 

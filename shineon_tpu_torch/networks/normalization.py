@@ -119,7 +119,7 @@ class SpectralConv2d(nn.Module):
                 raise ValueError("the int8 conv serves eval only: no update_stats")
             qw = self._eval_cache.get(
                 (self.weight, self.u), "int8",
-                lambda: quantize_weight(self.normalized_weight(False), images=self.weight.is_cuda),
+                lambda: quantize_weight(self.normalized_weight(False)),
             )
             return conv3x3_int8(x, qw, self.bias, cd)
         if update_stats or torch.is_grad_enabled():

@@ -27,6 +27,10 @@ import torch
 
 KERNEL_SOURCE = "sagan_attention"
 ROW_STEP = 8  # the bf16 kernel takes d and dv in multiples of this (16-byte rows)
+# value columns a bf16 block owns (csrc/sagan_attention.cu: BLOCK_COLS): each
+# block computes its queries' scores, so the QK^T work is ceil(dv / this)
+# times the minimum
+BLOCK_COLS = 512
 
 # Kernel against plain version, element by element: |kernel - plain| <=
 # tol * (|plain| + rms(plain)). In f32 the two differ only in the order of
@@ -67,16 +71,9 @@ def _library():
     fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.sagan_attention_error_string.restype = ctypes.c_char_p
     lib.sagan_attention_error_string.argtypes = [ctypes.c_int]
-    lib.sagan_attention_value_chunk.restype = ctypes.c_int
-    lib.sagan_attention_value_chunk.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.sagan_attention_block_cols.restype = ctypes.c_int
+    lib.sagan_attention_block_cols.argtypes = []
     return lib
-
-
-def value_chunk(d: int, dv: int) -> int:
-    """The value columns a bf16 block owns for these widths, from the built
-    kernel: each block computes its queries' scores, so the QK^T work is
-    ceil(dv / chunk) times the minimum."""
-    return _library().sagan_attention_value_chunk(d, dv)
 
 
 def _pad_last(t: torch.Tensor, step: int) -> torch.Tensor:

@@ -37,7 +37,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from shineon_tpu_torch.ops.int8_conv import conv3x3_int8_plain, quantize_weight, swizzle_128b
+from shineon_tpu_torch.ops.int8_conv import conv3x3_int8_plain, quantize_levels, swizzle_128b
 
 NHID = 128  # hidden width of the SPADE MLP (reference spade.py:68)
 CHANNEL_TILE = 64  # the kernel takes C in multiples of this (other C are zero-padded)
@@ -149,7 +149,7 @@ def multispade_modulate_plain_int8(x, ab, segs, wshs, bshs, wgbs, bgbs, act_name
     out = x.float()
     for l in range(len(segs)):
         h = act(_conv3x3(segs[l], wshs[l], bshs[l], cd).float()).to(cd)
-        gb = conv3x3_int8_plain(h, quantize_weight(wgbs[l]), bgbs[l], torch.float32)
+        gb = conv3x3_int8_plain(h, quantize_levels(wgbs[l]), bgbs[l], torch.float32)
         gamma, beta = gb[..., :C], gb[..., C:]
         a = ab[:, l, :C].float()[:, None, None, :]
         b = ab[:, l, C:].float()[:, None, None, :]
@@ -292,7 +292,7 @@ def pack_weights(wshs, bshs, wgbs, bgbs, dtype, quantized=False) -> PackedWeight
     else:
         wsh = torch.cat([w.to(dtype).permute(2, 3, 1, 0).reshape(-1) for w in wshs])
     if quantized:
-        qws = [quantize_weight(w) for w in wgbs]  # from the f32 weights; wq (9, 2C, 128)
+        qws = [quantize_levels(w) for w in wgbs]  # from the f32 weights; wq (9, 2C, 128)
         wgb = torch.stack([slice_images(q.wq) if bf16 else q.wq for q in qws])
         sgb = torch.stack([q.scale for q in qws]).contiguous()
     elif bf16:

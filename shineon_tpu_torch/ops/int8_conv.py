@@ -21,9 +21,9 @@ with the weights quantized once per output channel from their f32 values
   which quantizes as it loads. The abs-max of x is one PyTorch reduction
   before them.
 * The bf16 kernel reads its weights as slice images
-  (:func:`conv_slice_images`), made once per conv where the layers cache
-  the quantized weight (``quantize_weight(w, images=True)``), or on the fly
-  when a caller passes none. Any Cin and Cout are taken: the bf16 kernel
+  (:func:`conv_slice_images`), made once per conv by :func:`quantize_weight`
+  when the weight lies on the card (where the layers cache the quantized
+  weight); a bf16 launch without them raises. Any Cin and Cout are taken: the bf16 kernel
   takes the tails itself; the f32 parity kernel gets channels zero-padded
   to multiples of 64 here (exact: zero inputs and weights add nothing, and
   padded outputs are dropped).
@@ -53,8 +53,9 @@ INT8_CONV_TOLERANCE = {torch.float32: 1e-6, torch.bfloat16: 4e-3}
 class QuantizedWeight(NamedTuple):
     """A 3x3 conv's weight in the kernel's layout: ``wq`` (9, Cout, Cin)
     int8 with tap = 3 * di + dj and the input channel contiguous, and
-    ``scale`` (Cout,) f32; optionally ``images``, wq as the bf16 kernel's
-    slice images (:func:`conv_slice_images`). The plain version reads wq."""
+    ``scale`` (Cout,) f32; for a weight on the card also ``images``, wq as
+    the bf16 kernel's slice images (:func:`conv_slice_images`). The plain
+    version reads wq."""
 
     wq: torch.Tensor
     scale: torch.Tensor
@@ -68,16 +69,23 @@ def int8_scale(absmax: torch.Tensor) -> torch.Tensor:
     return absmax.float() / torch.full((), 127.0, device=absmax.device) + 1e-30
 
 
-def quantize_weight(weight: torch.Tensor, images: bool = False) -> QuantizedWeight:
+def quantize_levels(weight: torch.Tensor) -> QuantizedWeight:
     """Symmetric per-output-channel int8 of an OIHW (Cout, Cin, 3, 3)
-    weight, taken from its f32 values (never from a bf16 cast); with
-    ``images`` also its slice images for the bf16 kernel."""
+    weight, taken from its f32 values (never from a bf16 cast): wq and
+    scale, no slice images (what the plain version reads)."""
     w = weight.detach().float()
     scale = int8_scale(w.abs().amax(dim=(1, 2, 3)))
     wq = torch.clamp(torch.round(w / scale[:, None, None, None]), -127, 127).to(torch.int8)
     cout, cin = w.shape[:2]
     wq = wq.permute(2, 3, 0, 1).reshape(9, cout, cin).contiguous()
-    return QuantizedWeight(wq, scale.contiguous(), conv_slice_images(wq) if images else None)
+    return QuantizedWeight(wq, scale.contiguous())
+
+
+def quantize_weight(weight: torch.Tensor) -> QuantizedWeight:
+    """:func:`quantize_levels`, and for a weight on the card also its slice
+    images for the bf16 kernel."""
+    qw = quantize_levels(weight)
+    return qw._replace(images=conv_slice_images(qw.wq)) if weight.is_cuda else qw
 
 
 def swizzle_128b(rows: torch.Tensor) -> torch.Tensor:
@@ -288,7 +296,9 @@ def _launch(x, qw: QuantizedWeight, bias, dtype) -> torch.Tensor:
         _check(tuple(bias.shape) == (cout,), f"bias has shape {tuple(bias.shape)}")
     images = None
     if dtype == torch.bfloat16:
-        images = qw.images if qw.images is not None else conv_slice_images(qw.wq)
+        images = qw.images
+        _check(images is not None,
+               "the weight has no slice images: quantize_weight makes them for a weight on the card")
         mode = conv_mode(cin, cout)
         want = (-(-cout // mode.n_t), -(-cin // mode.kc), mode.slices, mode.n_t, 128)
         _check(tuple(images.shape) == want and images.dtype == torch.int8,

@@ -94,11 +94,8 @@ def main(argv=None) -> int:
 def time_convs(torch, cs):
     """The int8 conv's kernel at every conv shape of the int8 clip, bf16,
     with cuDNN's bf16 conv of the shape."""
-    import inspect
-
     from shineon_tpu_torch.ops import int8_conv as ic
 
-    images = "images" in inspect.signature(ic.quantize_weight).parameters
     rows = []
     with torch.no_grad():
         for i, (H, W, cin, cout, per_frame) in enumerate(cs.CONVS):
@@ -107,23 +104,27 @@ def time_convs(torch, cs):
             x = x.to(cs.DEVICE, torch.bfloat16)
             w = (torch.randn(cout, cin, 3, 3, generator=g) * (9 * cin) ** -0.5).to(cs.DEVICE)
             b = (0.1 * torch.randn(cout, generator=g)).to(cs.DEVICE)
-            qw = ic.quantize_weight(w, images=True) if images else ic.quantize_weight(w)
+            qw = ic.quantize_weight(w)
             dev = cs.device_times(torch, lambda: ic.conv3x3_int8(x, qw, b, torch.bfloat16), 5,
                                   {"conv": CONV_KERNELS, "all": None})
             ms, all_ms = dev["conv"], dev["all"]
             xn, wb, bb = x.permute(0, 3, 1, 2), w.bfloat16(), b.bfloat16()
             lib = cs.device_ms(torch, lambda: torch.nn.functional.conv2d(xn, wb, bb, padding=1), 5)
-            bound, by, _ = cs.conv_bound(cs.BATCH, H, W, cin, cout)
+            bound, by, _ = cs.conv_kernel_bound(cs.BATCH, H, W, cin, cout)
+            call_bound, call_by, _ = cs.conv_call_bound(cs.BATCH, H, W, cin, cout)
             print(f"conv B={cs.BATCH} H={H} W={W} {cin}->{cout} x{per_frame}/frame: kernel "
-                  f"{ms:.4f} ms (every kernel of the call, abs-max and quantize pass included: "
-                  f"{all_ms:.4f} ms), cuDNN bf16 conv {lib:.4f} ms, bound {bound:.4f} ms ({by})",
-                  flush=True)
+                  f"{ms:.4f} ms (bound {bound:.4f} ms, {by}, reading int8 x), every kernel of "
+                  f"the call, abs-max and quantize pass included: {all_ms:.4f} ms (bound "
+                  f"{call_bound:.4f} ms, {call_by}, x read once in bf16), cuDNN bf16 conv "
+                  f"{lib:.4f} ms", flush=True)
             rows.append(dict(H=H, W=W, Cin=cin, Cout=cout, per_frame=per_frame, ms=ms,
-                             call_ms=all_ms, cudnn_bf16_ms=lib, bound_ms=bound, bound_by=by))
+                             call_ms=all_ms, cudnn_bf16_ms=lib, bound_ms=bound, bound_by=by,
+                             call_bound_ms=call_bound, call_bound_by=call_by))
     clip = {k: sum(r[k] * r["per_frame"] * 5 for r in rows)
-            for k in ("ms", "call_ms", "cudnn_bf16_ms")}
-    print(f"int8 conv per clip: kernel {clip['ms']:.2f} ms, every kernel of the calls "
-          f"{clip['call_ms']:.2f} ms, cuDNN bf16 {clip['cudnn_bf16_ms']:.2f} ms", flush=True)
+            for k in ("ms", "call_ms", "cudnn_bf16_ms", "bound_ms", "call_bound_ms")}
+    print(f"int8 conv per clip: kernel {clip['ms']:.2f} ms (bound {clip['bound_ms']:.2f}), "
+          f"every kernel of the calls {clip['call_ms']:.2f} ms (bound "
+          f"{clip['call_bound_ms']:.2f}), cuDNN bf16 {clip['cudnn_bf16_ms']:.2f} ms", flush=True)
     return dict(per_clip_ms=clip, shapes=rows)
 
 
@@ -148,9 +149,9 @@ def time_attention(torch, cs):
                   f"{ms:.4f} ms, SDPA {lib:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
             rows.append(dict(N=N, d=d, dv=dv, per_frame=per_frame, ms=ms, sdpa_ms=lib,
                              bound_ms=bound, bound_by=by))
-    clip = {k: sum(r[k] * r["per_frame"] * 5 for r in rows) for k in ("ms", "sdpa_ms")}
-    print(f"attention per clip: kernel {clip['ms']:.2f} ms, SDPA {clip['sdpa_ms']:.2f} ms",
-          flush=True)
+    clip = {k: sum(r[k] * r["per_frame"] * 5 for r in rows) for k in ("ms", "sdpa_ms", "bound_ms")}
+    print(f"attention per clip: kernel {clip['ms']:.2f} ms, SDPA {clip['sdpa_ms']:.2f} ms, "
+          f"bound {clip['bound_ms']:.2f} ms", flush=True)
     return dict(per_clip_ms=clip, shapes=rows)
 
 

@@ -183,13 +183,13 @@ def test_cuda_attention_matches_plain(dtype):
 @pytest.mark.gpu
 def test_cuda_attention_value_chunk():
     """The value columns a block of the attention kernel owns (each block
-    computes its queries' scores once): 384 at every width, so the QK^T
-    work is ceil(dv / 384) times the minimum."""
+    computes its queries' scores once), as the built kernel reports them:
+    the wrapper's BLOCK_COLS, 512, so the QK^T work is ceil(dv / 512) times
+    the minimum (1.33x at d = 256, dv = 2048)."""
     _cuda_or_skip()
-    from shineon_tpu_torch.ops.fused_attention import value_chunk
+    from shineon_tpu_torch.ops import fused_attention as fa
 
-    widths = [(256, 2048), (128, 1024), (512, 4096), (640, 5120), (8, 64), (108, 864)]
-    assert [value_chunk(d, dv) for d, dv in widths] == [384] * len(widths)
+    assert fa._library().sagan_attention_block_cols() == fa.BLOCK_COLS == 512
 
 
 @pytest.mark.gpu
@@ -199,8 +199,8 @@ def test_cuda_attention_value_chunk():
 def test_cuda_attention_repaired_widths(N, d, dv, dtype):
     """The attention kernel at widths the first kernel refused (d = 8, 108
     and 640; dv = 864) and at its block edges (dv = 320 fills part of one
-    384-column block, 512 one and a third; N = 150 and 130 leave a ragged
-    query and key tile),
+    512-column block, 512 exactly one, 864 one and most of another; N = 150
+    and 130 leave a ragged query and key tile),
     peaked score rows, within ATTENTION_TOLERANCE of its plain version."""
     _cuda_or_skip()
     from shineon_tpu_torch.ops import fused_attention as fa
@@ -234,8 +234,8 @@ def test_cuda_int8_conv_repaired_shapes(shape, dtype):
     g = torch.Generator().manual_seed(sum(shape))
     x = torch.nn.functional.leaky_relu(torch.randn(4, H, W, cin, generator=g), 0.2)
     x = x.cuda().to(dtype)
-    qw = ic.quantize_weight((torch.randn(cout, cin, 3, 3, generator=g) / (9 * cin) ** 0.5).cuda(),
-                            images=True)
+    qw = ic.quantize_weight((torch.randn(cout, cin, 3, 3, generator=g) / (9 * cin) ** 0.5).cuda())
+    assert qw.images is not None
     b = (0.1 * torch.randn(cout, generator=g)).cuda()
     if shape == (16, 12, 1024, 1024) and dtype == torch.bfloat16:
         assert ic.plan(4, H, W, cin, cout)[1] > 1
@@ -274,7 +274,7 @@ def test_cuda_probe_kernel_matches_plain(name):
     before = wrapper.launches
     ref = wrapper(*args)
     assert wrapper.launches == before
-    cuda_args = tuple(ic.QuantizedWeight(*(t.cuda() for t in a)) if isinstance(a, tuple)
+    cuda_args = tuple(ic.QuantizedWeight(a.wq.cuda(), a.scale.cuda()) if isinstance(a, tuple)
                       else a.cuda() for a in args)
     out = wrapper(*cuda_args)
     torch.cuda.synchronize()

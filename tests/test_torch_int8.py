@@ -94,8 +94,9 @@ def test_conv_kernel_rejects_unsupported_shapes():
     """The CUDA path validates before it builds or launches, and raises (no
     fall back to the plain version) on what the kernel does not take:
     weights whose Cin is not x's, an x that is not the dtype the kernel
-    writes, a dtype it does not write, mismatched bias or slice images.
-    Any channel count is taken."""
+    writes, a dtype it does not write, mismatched bias, slice images of
+    another conv, or none (a weight quantized off the card has none). Any
+    channel count is taken."""
     qw = ic.quantize_weight(torch.randn(64, 32, 3, 3))
     with pytest.raises(ValueError, match="expected"):
         ic._launch(torch.randn(1, 4, 4, 48), qw, None, torch.float32)
@@ -105,9 +106,12 @@ def test_conv_kernel_rejects_unsupported_shapes():
         ic._launch(torch.randn(1, 4, 4, 32).half(), qw, None, torch.float16)
     with pytest.raises(ValueError, match="bias"):
         ic._launch(torch.randn(1, 4, 4, 32), qw, torch.zeros(63), torch.float32)
-    other = ic.quantize_weight(torch.randn(64, 128, 3, 3), images=True)
-    bad = qw._replace(images=other.images)
-    with pytest.raises(ValueError, match="images"):
+    assert qw.images is None
+    with pytest.raises(ValueError, match="no slice images"):
+        ic._launch(torch.randn(1, 4, 4, 32).bfloat16(), qw, None, torch.bfloat16)
+    other = ic.quantize_weight(torch.randn(64, 128, 3, 3))
+    bad = qw._replace(images=ic.conv_slice_images(other.wq))
+    with pytest.raises(ValueError, match="images have shape"):
         ic._launch(torch.randn(1, 4, 4, 32).bfloat16(), bad, None, torch.bfloat16)
 
 
@@ -117,11 +121,12 @@ def test_conv_slice_images_unpack_to_wq(cin, cout):
     """The bf16 kernel's slice images un-swizzle back to wq exactly, and
     every byte outside wq (channels past Cin or Cout, the tenth tap of a
     64-channel chunk) is zero."""
-    qw = ic.quantize_weight(torch.randn(cout, cin, 3, 3), images=True)
+    qw = ic.quantize_weight(torch.randn(cout, cin, 3, 3))
+    images = ic.conv_slice_images(qw.wq)
     mode = ic.conv_mode(cin, cout)
-    assert qw.images.shape == (-(-cout // mode.n_t), -(-cin // mode.kc), mode.slices, mode.n_t, 128)
-    assert torch.equal(ic.unpack_conv_slice_images(qw.images, cin, cout), qw.wq)
-    assert qw.images.abs().sum() == qw.wq.abs().sum()
+    assert images.shape == (-(-cout // mode.n_t), -(-cin // mode.kc), mode.slices, mode.n_t, 128)
+    assert torch.equal(ic.unpack_conv_slice_images(images, cin, cout), qw.wq)
+    assert images.abs().sum() == qw.wq.abs().sum()
 
 
 @pytest.mark.parametrize("cin,cout", [(32, 96), (64, 100), (160, 64)])
@@ -133,12 +138,13 @@ def test_slice_images_as_the_kernel_reads_them(cin, cout):
     B rows un-swizzled from the image. Equals the integer conv of
     int8_matmul_conv."""
     g = torch.Generator().manual_seed(cin + cout)
-    qw = ic.quantize_weight(torch.randn(cout, cin, 3, 3, generator=g), images=True)
+    qw = ic.quantize_weight(torch.randn(cout, cin, 3, 3, generator=g))
+    images = ic.conv_slice_images(qw.wq)
     vq = torch.randint(-127, 128, (1, 5, 6, cin), generator=g).double()
     mode = ic.conv_mode(cin, cout)
-    nblk, nch = qw.images.shape[:2]
+    nblk, nch = images.shape[:2]
     xp = torch.nn.functional.pad(vq, (0, nch * mode.kc - cin, 1, 1, 1, 1))  # (1, 7, 8, Cinp)
-    img = ic.swizzle_128b(qw.images).double()  # (nblk, nch, slices, n_t, 128)
+    img = ic.swizzle_128b(images).double()  # (nblk, nch, slices, n_t, 128)
     acc = torch.zeros(1, 5, 6, nblk * mode.n_t, dtype=torch.float64)
     for c in range(nch):
         for s in range(mode.slices):
