@@ -53,7 +53,22 @@ Phases, each fatal on failure:
      and the int8 conv, and for both clips with attention in the last
      middle block and decoder block 1 (options.ATTENTION_PLACEMENT), every
      gamma drawn nonzero before the warm-up; then time the four clips in
-     turns (median of 5 each after a warm-up call).
+     turns (median of 5 each after a warm-up call);
+  6. the SAMS training step (after the clips are timed, before phase 3e):
+     (a) one small f32 exact step on the card against the same step on the
+     CPU, from the same seeded state, without and with an attention block;
+     (b) at full width (the clip's options, batch 4, bf16, remat on, as
+     shineon_tpu_torch.bench.build_train sets them), for the production
+     options and for ATTENTION_PLACEMENT (every gamma nonzero), 3 exact and
+     3 fast_gan_step steps with every launch count at 0: every metric
+     finite, all three networks' parameters changed; (c) the attention
+     kernel launched once a block a frame in each pass over the clip (5
+     blocks x 5 frames x 3 passes = 75 an exact step: the generator step,
+     its remat recompute, the regeneration; 50 a fast step) and no serving
+     kernel launched; (d) the step times, the peak device memory, and a
+     traced exact attention step's device busy time, idle share and
+     attention kernel time, beside that kernel's phase 3d time for as many
+     calls.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, and prints no
@@ -62,6 +77,7 @@ result, without a CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -864,21 +880,29 @@ def run_probe_tools(pr, ic):
     return tool_launches
 
 
+def set_gammas(torch, model, seed):
+    """Every attention gamma of the model's generator drawn from
+    N(GAMMA_MEAN, GAMMA_STD), seeded: at 0 an attention block is the
+    identity, whatever the kernel computes."""
+    from shineon_tpu_torch.networks.attention import SelfAttention
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.generator.modules():
+            if isinstance(m, SelfAttention):
+                m.gamma.copy_(GAMMA_MEAN + GAMMA_STD * torch.randn(m.gamma.shape, generator=g))
+
+
 def build_attention_clip(torch, batch, device, seed, **overrides):
     """build_inference's steps for the attention clip, with one cut: every
     attention gamma is drawn from N(GAMMA_MEAN, GAMMA_STD) (seeded) before
     the warm-up rollouts. At its init value 0 an attention block is the
     identity whatever the kernel computes, so the clip would check nothing."""
-    from shineon_tpu_torch.networks.attention import SelfAttention
     from shineon_tpu_torch.options import ATTENTION_PLACEMENT
     from shineon_tpu_torch.serving import build_models, make_one_clip, warm_up
 
     warp, sams, raw = build_models(batch, device, seed, **{**ATTENTION_PLACEMENT, **overrides})
-    g = torch.Generator().manual_seed(seed + 2)
-    gammas = [m.gamma for m in sams.generator.modules() if isinstance(m, SelfAttention)]
-    with torch.no_grad():
-        for gamma in gammas:
-            gamma.copy_(GAMMA_MEAN + GAMMA_STD * torch.randn(gamma.shape, generator=g))
+    set_gammas(torch, sams, seed + 2)
     warm_up(sams, raw)
     return make_one_clip(warp, sams), warp, sams, raw, sams.n_frames_total
 
@@ -1008,6 +1032,187 @@ def time_clips(torch, clips, rounds=5):
     return {name: (statistics.median(v), v) for name, v in samples.items()}
 
 
+# phase 6: the training step. The small step's options (f32, card against
+# CPU), and the full-width steps run: TRAIN_STEPS exact steps, then as many
+# fast_gan_step steps, of each configuration, remat on as build_train sets it
+TRAIN_SMALL = dict(fine_height=64, fine_width=48, n_frames_total=3, n_frames_now=3,
+                   ngf_pow_outer=4, ngf_pow_inner=6, num_middle=1, ndf=16, precision=32)
+TRAIN_STEPS = 3
+# passes over the clip that launch attention, remat on: the generator step,
+# its backward recompute and (exact step only) the regeneration
+TRAIN_PASSES = {"exact": 3, "fast": 2}
+STAT_NAMES = ("running_mean", "running_var", ".u", ".sigma")
+
+
+def train_nets(model):
+    return {"generator": model.generator, "d_multi": model.multiscale_discriminator,
+            "d_temporal": model.temporal_discriminator}
+
+
+def state_dicts(model):
+    return {name: {k: v.detach().float().cpu().clone() for k, v in net.state_dict().items()}
+            for name, net in train_nets(model).items()}
+
+
+def step_disagreement(before, out, ref, metrics, ref_metrics, opt):
+    """The card's step against the CPU's from the same state, as the CPU
+    tests hold the port against the JAX step: (the worst metric's
+    |diff| / max(|ref|, 1), the worst statistic's |diff| / max |ref|, the
+    share of each network's parameter entries whose Adam move differs by
+    more than 1e-3 lr: after Adam's first step every entry moves by about
+    lr * sign(g), and entries whose gradient lies within the two devices'
+    f32 difference of zero take either sign)."""
+    m_err = max(abs(metrics[k] - r) / max(abs(r), 1.0) for k, r in ref_metrics.items())
+    s_err, flips = 0.0, {}
+    for net, ref_sd in ref.items():
+        lr = opt.lr if net == "generator" else opt.lr_D
+        flipped = total = 0
+        for key, r in ref_sd.items():
+            o, p0 = out[net][key], before[net][key]
+            if key.endswith(STAT_NAMES):
+                s_err = max(s_err, ((o - r).abs().max() / r.abs().max().clamp_min(1e-12)).item())
+            else:
+                moved = ((o - p0) - (r - p0)).abs() > 1e-3 * lr + 2.4e-7 * p0.abs()
+                flipped += int(moved.sum())
+                total += r.numel()
+        flips[net] = flipped / total
+    return m_err, s_err, flips
+
+
+def check_small_step(torch):
+    """Phase 6a: one small f32 exact step (TRAIN_SMALL, batch 2, remat) on
+    the card against the same step on the CPU, from the same seeded state;
+    then the same with an attention block (decoder block 0, 32x24, 768
+    tokens, every gamma nonzero), whose forward on the card is the kernel.
+    Limits: metrics and statistics within 1e-3, at most 0.5% of the
+    generator's parameter entries and 3% of a discriminator's flipped (the
+    CPU tests hold the port against the JAX step to 0.1% and 3%; the card's
+    convs round otherwise than the CPU's, and a relu kink within that
+    rounding of zero takes the other side: 0.04-0.08% of the generator's
+    entries flipped in the first runs)."""
+    from shineon_tpu_torch.bench import build_train
+    from shineon_tpu_torch.ops.fused_attention import sagan_attention
+
+    for variant, opts in (("plain", {}), ("attention", dict(attention_decoder_indices=("0",)))):
+        runs = []
+        before_launches = sagan_attention.launches
+        for device in (DEVICE, "cpu"):
+            model, state, step, raw, _ = build_train(2, device=device, seed=7,
+                                                     **TRAIN_SMALL, **opts)
+            set_gammas(torch, model, 8)
+            before = state_dicts(model)
+            metrics = {k: float(v) for k, v in step(state, raw).items()}
+            runs.append((state_dicts(model), metrics))
+        launched = sagan_attention.launches - before_launches
+        (out, metrics), (ref, ref_metrics) = runs
+        m_err, s_err, flips = step_disagreement(before, out, ref, metrics, ref_metrics,
+                                                model.opt)
+        finite = all(v == v and abs(v) != float("inf") for v in metrics.values())
+        ok = (finite and m_err <= 1e-3 and s_err <= 1e-3 and flips["generator"] <= 5e-3
+              and max(flips["d_multi"], flips["d_temporal"]) <= 3e-2
+              and (launched > 0) == (variant == "attention"))
+        log(f"small step f32 {variant} (2, 3, 64, 48): card vs CPU worst metric {m_err:.3g}, "
+            f"worst statistic {s_err:.3g}, flipped parameter entries "
+            + ", ".join(f"{k} {v:.2%}" for k, v in flips.items())
+            + f", {launched} attention launches {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the small training step on the card disagrees with the CPU")
+
+
+def traced_step(step, state, raw, names):
+    """One step under torch.profiler (shineon_tpu_torch.bench.traced_step):
+    wall ms, device busy ms, idle share, and the device ms and count of the
+    kernels whose name holds one of ``names``."""
+    from shineon_tpu_torch.bench import traced_step as trace
+
+    wall, kernels, busy = trace(step, state, raw)
+    mine = [e for e in kernels if any(n in e.key for n in names)]
+    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
+                kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
+                kernel_calls=sum(e.count for e in mine))
+
+
+def run_training(torch, label, counters, card, attention):
+    """Phase 6b-d: build the full-width training step (256x192, 5 frames,
+    widths 2^6..2^10, bf16, batch 4, remat, seeded weights; with
+    ``attention`` the clip's ATTENTION_PLACEMENT, every gamma nonzero); with
+    every launch count at 0, run TRAIN_STEPS exact steps, then TRAIN_STEPS
+    fast_gan_step steps; check every metric finite, all three networks'
+    parameters changed, and the launches: attention once a block a frame a
+    pass (TRAIN_PASSES), the first exact step on its own too, no serving
+    kernel; time the steps and read the peak device memory. With
+    ``attention``, trace one exact step (a trace and its reading take
+    about 28 s; shineon_tpu_torch.bench --trace traces the production
+    step). Returns the readings."""
+    from shineon_tpu_torch.bench import TRAIN_BATCH, build_train
+    from shineon_tpu_torch.networks.attention import SelfAttention
+    from shineon_tpu_torch.ops.fused_attention import sagan_attention
+    from shineon_tpu_torch.options import ATTENTION_PLACEMENT
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, state, _, raw, n_frames = build_train(
+        TRAIN_BATCH, **(ATTENTION_PLACEMENT if attention else {}))
+    if attention:
+        set_gammas(torch, model, 422)
+    blocks = sum(isinstance(m, SelfAttention) for m in model.generator.modules())
+    before = {n: [p.detach().clone() for p in net.parameters()]
+              for n, net in train_nets(model).items()}
+    torch.cuda.synchronize()
+    log(f"training {label} built: {time.perf_counter() - t0:.1f} s, {blocks} attention blocks")
+    for owner, attr in counters.values():
+        setattr(owner, attr, 0)
+    times, first_step = {}, None
+    t_steps = time.perf_counter()
+    for kind in ("exact", "fast"):
+        model.opt.fast_gan_step = kind == "fast"
+        step = model.make_train_step()
+        times[kind] = []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, raw)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) * 1e3)
+            if first_step is None:
+                first_step = sagan_attention.launches
+            values = [float(v) for v in metrics.values()]
+            if not all(v == v and abs(v) != float("inf") for v in values):
+                raise SystemExit(f"training {label} {kind}: a metric is not finite: {metrics}")
+    launches = {name: getattr(owner, attr) for name, (owner, attr) in counters.items()}
+    log(f"training {label}: {2 * TRAIN_STEPS} steps {time.perf_counter() - t_steps:.1f} s")
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    changed = {n: any(not torch.equal(a, b) for a, b in zip(ps, train_nets(model)[n].parameters()))
+               for n, ps in before.items()}
+    per_step = {kind: passes * n_frames * blocks for kind, passes in TRAIN_PASSES.items()}
+    want = {name: 0 for name in counters}
+    want["sagan_attention"] = TRAIN_STEPS * (per_step["exact"] + per_step["fast"])
+    log(f"training {label}: loss {loss:.4g}, parameters changed {changed}, launches {launches} "
+        f"(expected {want}; attention in the first exact step {first_step}, expected "
+        f"{per_step['exact']})")
+    if launches != want or first_step != per_step["exact"] or not all(changed.values()):
+        raise SystemExit(f"training {label} failed its checks")
+    med = {kind: statistics.median(v) for kind, v in times.items()}
+    log(f"training {label} step times (batch {TRAIN_BATCH} x {n_frames} frames, remat): exact "
+        f"{[round(v, 1) for v in times['exact']]} ms, fast {[round(v, 1) for v in times['fast']]}"
+        f" ms; medians {med['exact']:.1f} / {med['fast']:.1f} ms; peak memory {peak:.2f} GiB "
+        f"above the {base / 2**30:.2f} GiB held before [{card}]")
+    trace = None
+    if attention:
+        model.opt.fast_gan_step = False
+        trace = traced_step(model.make_train_step(), state, raw, ATTENTION_KERNELS)
+        log(f"training {label} traced exact step: wall {trace['wall_ms']:.1f} ms, device busy "
+            f"{trace['busy_ms']:.1f} ms, idle share {trace['idle_share']:.3f}, attention "
+            f"kernel {trace['kernel_ms']:.3f} ms in {trace['kernel_calls']} calls [{card}]")
+    del model, state, raw, before
+    return dict(times=times, median_ms=med, peak_gib=peak, launches=launches,
+                step_launches=per_step, trace=trace)
+
+
 def main() -> int:
     import torch
 
@@ -1088,6 +1293,22 @@ def main() -> int:
             f"{BATCH * n_frames / ms * 1e3:.2f} frames/s, batch {BATCH} x {n_frames} frames, "
             f"timed in turns [{card}]")
     med = {name: ms for name, (ms, _) in times.items()}
+    del clip, q_clip, a_clip, qa_clip
+
+    # phase 6, the training step, after the clips are timed
+    t0 = time.perf_counter()
+    check_small_step(torch)
+    training = {label: run_training(torch, label, q_counters, card, attention)
+                for label, attention in (("production", False), ("attention", True))}
+    # kernel 3 in the traced attention step against its serving time at the
+    # same shapes (phase 3d), for as many calls
+    at_step = training["attention"]
+    serving_equiv = sum(t["device_ms"] * t["per_frame"] * n_frames for t in a_timings.values()
+                        ) * TRAIN_PASSES["exact"]
+    log(f"attention kernel in the traced exact training step: {at_step['trace']['kernel_ms']:.3f}"
+        f" ms in {at_step['trace']['kernel_calls']} calls, against {serving_equiv:.3f} ms for "
+        f"as many calls at the serving timings of phase 3d [{card}]")
+    log(f"phase 6 (training): {time.perf_counter() - t0:.1f} s")
 
     # phase 3e after the clips are timed: its profiler sessions stay out of them
     t0 = time.perf_counter()
@@ -1240,6 +1461,13 @@ def main() -> int:
                   "dtype": "bfloat16"},
         "clip_ms": med["bf16 attention"],
         "clip_kernel_ms": per_clip(a_timings)[0],
+        # the training path (phase 6): the attention configuration's run of
+        # TRAIN_STEPS exact and fast steps, the launches of one exact step
+        # (remat on), and the kernel's device time in a traced exact step
+        "training_launches": at_step["launches"]["sagan_attention"],
+        "training_exact_step_launches": at_step["step_launches"]["exact"],
+        "training_step_device_ms": at_step["trace"]["kernel_ms"],
+        "training_step_serving_equivalent_ms": serving_equiv,
     }]
     for name in (*pr.SPECS, *pr.CONV_VARIANTS):
         key = name if name in pr.SPECS else (name, conv_probe.SHAPES[0])

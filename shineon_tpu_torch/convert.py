@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's flax variable trees -> this package's
-``state_dict``s, for the SAMS generator and the GMM.
+``state_dict``s, for the SAMS generator, the GMM, the two discriminators
+and the VGG19 features.
 
 Input is ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays (``jax.device_get`` of a flax tree, or an unpacked checkpoint), so
@@ -33,6 +34,11 @@ GMM_RENAMES = (
     (r"SyncBatchNorm_(\d+)", r"bns.\1"),
     (r"Dense_0", "linear"),
 )
+# the discriminators keep flax's scopes (discriminator_i/conv0 .. conv_out);
+# their spectral state SpectralNorm_k/conv*/kernel/{u, sigma} maps to the
+# conv's buffers like the generator's
+DISCRIMINATOR_RENAMES = ()
+VGG_RENAMES = ((r"conv(\d+)", r"convs.\1"),)
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:

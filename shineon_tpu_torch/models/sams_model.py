@@ -1,26 +1,51 @@
-"""SAMS serving model: features and autoregressive clip generation
-(counterpart of the eval and warm-up parts of shineon_tpu/models/sams_model.py).
+"""SAMS model: features, autoregressive clip generation and the 3-optimizer
+GAN training step (counterpart of shineon_tpu/models/sams_model.py).
+
+The step (:meth:`SamsModel.make_train_step`) is the JAX package's fused
+step, run eagerly:
+
+  1. generator update: synthesize the clip frame by frame (the
+     previous-frame window detached at the generator's input, live in the
+     flow-warp composite, as the reference's ``.detach()``), hinge
+     adversarial terms of the multiscale and temporal discriminators, L1
+     and VGG; the gradient covers the generator's parameters only;
+  2. regenerate the clip with the updated generator, without gradient, in
+     training mode (its statistics update a second time), or, with
+     ``fast_gan_step``, reuse the step 1 clip;
+  3. multiscale-discriminator update; 4. temporal-discriminator update,
+     each on one concatenated fake+real pass, then split.
 
 Compute-dtype policy (shineon_tpu/models/base_model.py:88-94): ``precision
 16`` runs the networks in bf16 while parameters stay f32; flows, sampling
-grids and norm statistics stay f32.
+grids, norm statistics and the losses stay f32.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from shineon_tpu_torch.datasets.channels import RGB_CHANNELS, channels_for
+from shineon_tpu_torch.datasets.n_frames_interface import fold_frames_into_channels
 from shineon_tpu_torch.datasets.preprocess import PreprocessConfig, preprocess_batch
 from shineon_tpu_torch.networks.attention import INIT_STD as attention_init_std
 from shineon_tpu_torch.networks.attention import SelfAttention
-from shineon_tpu_torch.networks.init import lecun_normal_, normal_
+from shineon_tpu_torch.networks.discriminator import (
+    MultiscaleDiscriminator,
+    NLayerDiscriminator,
+)
+from shineon_tpu_torch.networks.init import kernel_init_, lecun_normal_, normal_
 from shineon_tpu_torch.networks.layers import Conv2d
+from shineon_tpu_torch.networks.loss import GANLoss, VGGLoss, l1_loss
 from shineon_tpu_torch.networks.normalization import SpectralConv2d
 from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator
+from shineon_tpu_torch.networks.vgg import load_vgg19
 from shineon_tpu_torch.ops import resample2d
+from shineon_tpu_torch.training.optimizers import make_optimizer
+from shineon_tpu_torch.training.state import NetState, TrainState
 
 
 def compute_dtype_of(opt) -> Optional[torch.dtype]:
@@ -28,10 +53,13 @@ def compute_dtype_of(opt) -> Optional[torch.dtype]:
 
 
 class SamsModel:
-    """Owns the generator; ``generate_n_frames`` is the clip loop."""
+    """Owns the generator and, when ``opt.is_train``, the two
+    discriminators and the losses; ``generate_n_frames`` is the clip loop,
+    ``make_train_step`` the training step."""
 
     def __init__(self, opt, device="cuda"):
         self.opt = opt
+        self.remat = bool(opt.remat)
         self.n_frames_total = opt.n_frames_total
         self.n_frames_now = getattr(opt, "n_frames_now", None) or self.n_frames_total
         self.inputs = list(opt.person_inputs) + list(opt.cloth_inputs)
@@ -48,6 +76,20 @@ class SamsModel:
             inputs=tuple(self.inputs), dtype=self.compute_dtype,
             int8=opt.int8_spade, int8_min_channels=opt.int8_min_channels,
         ).to(device)
+        if opt.is_train:
+            # intermediate features follow --no_ganFeat_loss, as in the reference
+            d_kw = dict(ndf=opt.ndf, n_layers=opt.n_layers_D, norm_D=opt.norm_D,
+                        get_intermediate_features=not opt.no_ganFeat_loss,
+                        dtype=self.compute_dtype)
+            self.multiscale_discriminator = MultiscaleDiscriminator(
+                channels_of(self.inputs) + RGB_CHANNELS, num_D=opt.num_D, **d_kw).to(device)
+            temporal_in = self.n_frames_total * (channels_for(opt.encoder_input) + RGB_CHANNELS)
+            self.temporal_discriminator = NLayerDiscriminator(temporal_in, **d_kw).to(device)
+            self.criterion_gan = GANLoss(opt.gan_mode)
+            # with wt_vgg 0 the VGG term is never optimized: random filters are harmless
+            vgg = load_vgg19(allow_random=opt.allow_random_vgg or opt.wt_vgg == 0,
+                             dtype=self.compute_dtype)
+            self.criterion_vgg = VGGLoss(vgg.to(device))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator):
@@ -73,17 +115,73 @@ class SamsModel:
                 m.u.copy_(torch.randn(m.u.shape, generator=generator))
                 m.sigma.fill_(1.0)
 
+    @torch.no_grad()
+    def init_discriminator_weights(self, generator: torch.Generator):
+        """The JAX package's rules: kernels by ``init_type`` with gain
+        ``init_variance`` (xavier, 0.02), zero biases, spectral ``u`` ~
+        N(0, 1); the multiscale discriminator first."""
+        for d in (self.multiscale_discriminator, self.temporal_discriminator):
+            for m in d.modules():
+                if isinstance(m, (Conv2d, SpectralConv2d)):
+                    kernel_init_(m.weight, self.opt.init_type, self.opt.init_variance, generator)
+                    if m.bias is not None:
+                        m.bias.zero_()
+                if isinstance(m, SpectralConv2d):
+                    m.u.copy_(torch.randn(m.u.shape, generator=generator))
+                    m.sigma.fill_(1.0)
+
+    def init_state(self, generator: torch.Generator, steps_per_epoch: int) -> TrainState:
+        """Draw every network's weights from ``generator`` (the generator's
+        first), then :meth:`make_state`."""
+        self.init_weights(generator)
+        self.init_discriminator_weights(generator)
+        return self.make_state(steps_per_epoch)
+
+    def make_state(self, steps_per_epoch: int) -> TrainState:
+        """Step 0 and fresh optimizers over the networks' current weights:
+        Adam at ``lr`` for the generator, ``lr_D`` for each discriminator,
+        on the keep/decay schedule."""
+        opt = self.opt
+
+        def net(module, lr):
+            return NetState(module, make_optimizer(
+                module.parameters(), lr, opt.keep_epochs, opt.decay_epochs, steps_per_epoch,
+                opt.accumulated_batches))
+
+        return TrainState(nets={
+            "generator": net(self.generator, opt.lr),
+            "d_multi": net(self.multiscale_discriminator, opt.lr_D),
+            "d_temporal": net(self.temporal_discriminator, opt.lr_D),
+        })
+
     def features(self, raw_batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """SAMS keeps the frames axis: (B, N, H, W, C) features."""
         return preprocess_batch(raw_batch, self.preprocess_config)
+
+    def _frame(self, window, prev_maps, current_maps, train: bool):
+        """One frame's generator call; in training it updates the running
+        statistics and spectral ``u``. With ``remat`` and gradients on, the
+        frame's activations are recomputed in the backward pass
+        (``jax.checkpoint`` in the JAX package) by :func:`checkpointed`."""
+        g = self.generator
+        if train and self.remat and torch.is_grad_enabled():
+            return checkpointed(g, window, prev_maps, current_maps, train=True,
+                                update_stats=True)
+        return g(window, prev_maps, current_maps, train=train, update_stats=train)
 
     def generate_n_frames(self, feats: Dict[str, torch.Tensor], train: bool):
         """Autoregressive clip synthesis (sams_model.py:244-396 of the JAX
         package; its ``lax.scan`` is a Python loop here).
 
-        In training mode (the serving warm-up) the generator runs with batch
-        statistics and updates its running statistics and spectral ``u`` in
-        place. Returns (fake_frame, current_maps, all_frames (B, N, H, W, 3)).
+        In training mode (the training step, the serving warm-up) the
+        generator runs with batch statistics and updates its running
+        statistics and spectral ``u`` in place. The generator sees the
+        previous-frame window detached, as the JAX package's
+        ``stop_gradient`` (:336) and the reference's ``.detach()``; the
+        flow-warp composite reads the live window, so with gradients on the
+        clip's frames depend on the earlier frames through the warp only.
+        Returns (fake_frame, current_maps, all_frames (B, N, H, W, 3)): what
+        the training losses read.
         """
         opt = self.opt
         N = self.n_frames_total
@@ -95,11 +193,10 @@ class SamsModel:
         if not train and self.compute_dtype is not None:
             labelmap = {k: v.to(self.compute_dtype) for k, v in labelmap.items()}
             enc_maps = enc_maps.to(self.compute_dtype)
-        g = self.generator
 
         if N == 1:
             current_maps = {k: v[:, 0] for k, v in labelmap.items()}
-            out = g(None, None, current_maps, train=train, update_stats=train)
+            out = self._frame(None, None, current_maps, train)
             fake = out[..., :RGB_CHANNELS]
             if opt.flow_warp:
                 wmask = out[..., RGB_CHANNELS:]
@@ -118,7 +215,7 @@ class SamsModel:
                 [torch.zeros_like(enc_maps[:, :k]), enc_maps[:, k:N - 1]], dim=1
             )
             current_maps = {key: v[:, t] for key, v in labelmap.items()}
-            out = g(window, prev_maps, current_maps, train=train, update_stats=train)
+            out = self._frame(window.detach(), prev_maps, current_maps, train)
             fake = out[..., :RGB_CHANNELS]
             if opt.flow_warp:
                 wmask = out[..., RGB_CHANNELS:]
@@ -135,6 +232,164 @@ class SamsModel:
             )
         current_maps = {k: v[:, N - 1] for k, v in labelmap.items()}
         return fakes[-1], current_maps, gen_frames
+
+    # ------------------------------------------------------------ training
+
+    def mask_unused_frames(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Zero the first (total - now) frames (sams_model.py:663-678)."""
+        n_mask = self.n_frames_total - self.n_frames_now
+        if n_mask == 0:
+            return tensor
+        mask = torch.ones_like(tensor)
+        mask[:, :n_mask] = 0
+        return tensor * mask
+
+    @staticmethod
+    def discriminate(disc, sem, fake, real, update_stats: bool = False):
+        """One concatenated fake+real pass, then split (sams_model.py:702-720).
+        ``update_stats`` stores the discriminator's spectral state."""
+        both = torch.cat([torch.cat([sem, fake], dim=-1), torch.cat([sem, real], dim=-1)], dim=0)
+        return split_predictions(disc(both, update_stats=update_stats))
+
+    def _temporal_inputs(self, feats, all_frames):
+        """The temporal discriminator's frame-folded (sem, fake, real)."""
+        sem = fold_frames_into_channels(self.mask_unused_frames(feats[self.opt.encoder_input]))
+        real = fold_frames_into_channels(self.mask_unused_frames(feats["image"]))
+        return sem, fold_frames_into_channels(all_frames), real  # fakes pre-masked
+
+    def generator_losses(self, feats: Dict[str, torch.Tensor], train: bool = True):
+        """The generator's objective (the JAX package's ``_generator_losses``):
+        the clip, the adversarial terms of both discriminators (which store
+        no statistics here), L1 and VGG on the last frame. With
+        ``reference_gan_semantics`` the adversarial terms read the real
+        predictions, as the reference does (sams_model.py:616-620). Returns
+        (loss_G, metrics, fake_frame, all_frames, current_maps)."""
+        opt = self.opt
+        fake_frame, current_maps, all_frames = self.generate_n_frames(feats, train)
+        ground_truth = feats["image"][:, -1]
+        sem = torch.cat([current_maps[k] for k in self.inputs], dim=-1)
+        which = 1 if opt.reference_gan_semantics else 0  # (fake, real)[which]
+        preds = self.discriminate(self.multiscale_discriminator, sem, fake_frame, ground_truth)
+        loss_adv_multi = self.criterion_gan(preds[which], True, for_discriminator=False)
+        loss_adv_multi = loss_adv_multi * opt.wt_multiscale
+        preds_t = self.discriminate(self.temporal_discriminator,
+                                    *self._temporal_inputs(feats, all_frames))
+        loss_adv_temp = self.criterion_gan(preds_t[which], True, for_discriminator=False)
+        loss_adv_temp = loss_adv_temp * opt.wt_temporal
+        loss_l1 = l1_loss(fake_frame, ground_truth) * opt.wt_l1
+        loss_vgg = self.criterion_vgg(fake_frame, ground_truth) * opt.wt_vgg
+        loss_G = loss_l1 + loss_vgg + loss_adv_multi + loss_adv_temp
+        metrics = {
+            "loss": loss_G,
+            "loss/G/adv_multiscale": loss_adv_multi,
+            "loss/G/adv_temporal": loss_adv_temp,
+            "loss/G/l1+vgg": loss_l1 + loss_vgg,
+            "loss/G/l1": loss_l1,
+            "loss/G/vgg": loss_vgg,
+        }
+        return loss_G, metrics, fake_frame, all_frames, current_maps
+
+    def _update_discriminator(self, net: NetState, sem, fake, real):
+        """One discriminator's hinge update on the fake+real pass, which
+        stores its spectral state. Returns (loss, loss_real, loss_fake)."""
+        pred_fake, pred_real = self.discriminate(net.module, sem, fake, real, update_stats=True)
+        loss_fake = self.criterion_gan(pred_fake, False, True)
+        loss_real = self.criterion_gan(pred_real, True, True)
+        loss = (loss_fake + loss_real) / 2
+        net.optimizer.step(gradients(loss, net.optimizer.params))
+        return loss, loss_real, loss_fake
+
+    def make_train_step(self):
+        """The training step ``step(state, raw_batch) -> metrics`` (module
+        docstring); it updates ``state`` in place. The metrics carry the JAX
+        package's names, the losses as 0-d tensors on the device."""
+        fast = self.opt.fast_gan_step
+        if fast:
+            logging.getLogger(__name__).warning(
+                "fast_gan_step: the discriminator updates reuse the pre-update "
+                "generator's frames (an approximation of the reference's "
+                "per-optimizer regeneration)")
+
+        def train_step(state: TrainState, raw_batch: Dict[str, torch.Tensor]):
+            feats = self.features(raw_batch)
+            g_net = state.nets["generator"]
+            lr = g_net.optimizer.schedule(state.step)
+
+            # 1. generator update; the gradient covers G's parameters only
+            loss_G, metrics, fake_frame, all_frames, current_maps = self.generator_losses(feats)
+            g_net.optimizer.step(gradients(loss_G, g_net.optimizer.params))
+            if fast:
+                fake_frame, all_frames = fake_frame.detach(), all_frames.detach()
+            else:
+                # 2. regenerate with the updated generator, its statistics
+                # updated a second time
+                with torch.no_grad():
+                    fake_frame, current_maps, all_frames = self.generate_n_frames(
+                        feats, train=True)
+
+            # 3. multiscale D, 4. temporal D
+            ground_truth = feats["image"][:, -1]
+            sem = torch.cat([current_maps[k] for k in self.inputs], dim=-1)
+            dm = self._update_discriminator(state.nets["d_multi"], sem, fake_frame, ground_truth)
+            dt = self._update_discriminator(state.nets["d_temporal"],
+                                            *self._temporal_inputs(feats, all_frames))
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            for name, (loss, real, fake) in (("multi", dm), ("temporal", dt)):
+                metrics[f"loss/D/{name}"] = loss.detach()
+                metrics[f"loss/D/{name}_fake"] = fake.detach()
+                metrics[f"loss/D/{name}_real"] = real.detach()
+            metrics["lr"] = lr
+            state.step += 1
+            return metrics
+
+        return train_step
+
+
+def gradients(loss: torch.Tensor, params):
+    """d loss / d params, zeros for a parameter the loss does not reach;
+    no ``.grad`` is written."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def checkpointed(module: torch.nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` whose activations are recomputed in the
+    backward pass (``torch.utils.checkpoint``, non-reentrant).
+
+    The forward updates the module's buffers in place (running statistics,
+    spectral ``u``/``sigma``). A plain recompute would update them a second
+    time and, worse, normalise the kernels with the already-updated ``u``:
+    other activations, wrong gradients, no error. So the buffers are
+    snapshotted before the call, and the recompute runs on copies of that
+    snapshot (``torch.func.functional_call``): it sees what the forward saw
+    and writes nothing the module keeps."""
+    before = {name: b.clone() for name, b in module.named_buffers()}
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return module(*a, **kwargs)
+        scratch = {name: b.clone() for name, b in before.items()}
+        return torch.func.functional_call(module, scratch, a, kwargs)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
+def split_predictions(pred):
+    """Split the concatenated fake/real predictions (sams_model.py:696-708
+    of the JAX package): (fake, real), each of the prediction's structure."""
+    if isinstance(pred, (list, tuple)):
+        fake, real = [], []
+        for p in pred:
+            if isinstance(p, (list, tuple)):
+                fake.append([t[: t.shape[0] // 2] for t in p])
+                real.append([t[t.shape[0] // 2:] for t in p])
+            else:
+                fake.append(p[: p.shape[0] // 2])
+                real.append(p[p.shape[0] // 2:])
+        return fake, real
+    return pred[: pred.shape[0] // 2], pred[pred.shape[0] // 2:]
 
 
 def channels_of(names) -> int:

@@ -15,8 +15,19 @@ def swish(x):
     return x * torch.sigmoid(x)
 
 
+def leaky_relu(x, negative_slope: float = 0.01):
+    """``jax.nn.leaky_relu``: x where x >= 0, else slope * x. Its derivative
+    at 0 is 1, where torch's ``F.leaky_relu`` takes the slope; in training
+    the port follows JAX (the first frame's all-zero window makes exact
+    zeros common, and each one would scale a gradient by the slope). Outside
+    autograd the values are the same, so the one-kernel torch op runs."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.where(x >= 0, x, negative_slope * x)
+    return F.leaky_relu(x, negative_slope)
+
+
 def leaky_relu_02(x):
-    return F.leaky_relu(x, negative_slope=0.2)
+    return leaky_relu(x, 0.2)
 
 
 def _gelu(x):

@@ -16,9 +16,11 @@ import torch
 _TRUNC_STD = 0.87962566103423978
 
 
-def _fan_in(weight: torch.Tensor) -> int:
-    """fan_in of an OIHW conv weight or an (out, in) linear weight."""
-    return weight.shape[1] * (weight[0][0].numel() if weight.dim() > 2 else 1)
+def _fans(weight: torch.Tensor):
+    """fan_in, fan_out of an OIHW conv or (out, in) linear weight: the
+    numbers the JAX package reads off the HWIO or (in, out) kernel."""
+    receptive = weight[0][0].numel() if weight.dim() > 2 else 1
+    return weight.shape[1] * receptive, weight.shape[0] * receptive
 
 
 @torch.no_grad()
@@ -36,7 +38,7 @@ def truncated_normal_(t: torch.Tensor, std: float, generator: torch.Generator):
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
     """flax ``nn.initializers.lecun_normal()``: truncated normal with
     variance 1/fan_in."""
-    std = math.sqrt(1.0 / _fan_in(weight)) / _TRUNC_STD
+    std = math.sqrt(1.0 / _fans(weight)[0]) / _TRUNC_STD
     return truncated_normal_(weight, std, generator)
 
 
@@ -46,3 +48,31 @@ def normal_(t: torch.Tensor, std: float, generator: torch.Generator, mean: float
     batch-norm scales (mean 1, std 0.02)."""
     t.copy_(mean + std * torch.randn(t.shape, generator=generator, dtype=t.dtype))
     return t
+
+
+@torch.no_grad()
+def kernel_init_(weight: torch.Tensor, init_type: str, gain: float,
+                 generator: torch.Generator):
+    """The JAX package's ``kernel_init_for(init_type, gain)`` (the reference's
+    torch init of the same name):
+
+    normal         N(0, gain)
+    xavier         N(0, gain * sqrt(2 / (fan_in + fan_out)))
+    xavier_uniform U(+-sqrt(6 / (fan_in + fan_out)))
+    kaiming        N(0, sqrt(2 / fan_in))
+    none           lecun normal (flax's default)
+    """
+    fan_in, fan_out = _fans(weight)
+    if init_type == "normal":
+        return normal_(weight, gain, generator)
+    if init_type == "xavier":
+        return normal_(weight, gain * math.sqrt(2.0 / (fan_in + fan_out)), generator)
+    if init_type == "xavier_uniform":
+        lim = math.sqrt(6.0 / (fan_in + fan_out))
+        u = torch.rand(weight.shape, generator=generator, dtype=weight.dtype)
+        return weight.copy_((2.0 * u - 1.0) * lim)
+    if init_type == "kaiming":
+        return normal_(weight, math.sqrt(2.0 / fan_in), generator)
+    if init_type == "none":
+        return lecun_normal_(weight, generator)
+    raise NotImplementedError(f"initialization method [{init_type}] is not implemented")

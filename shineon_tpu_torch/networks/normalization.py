@@ -83,15 +83,17 @@ class SpectralConv2d(nn.Module):
     until the weight or ``u`` changes. With ``int8`` (3x3 SAME only),
     ``forward(x, quantize=True)`` runs the int8 conv on the normalized
     kernel quantized from its f32 values, as flax ``SpectralNorm`` hands
-    ``Int8Conv`` an f32 kernel."""
+    ``Int8Conv`` an f32 kernel. ``stride`` and ``padding`` are the conv's
+    (the discriminators' k4 s2 pad-2 convs)."""
 
     def __init__(self, cin: int, cout: int, ksize: int, padding: int = 0,
                  bias: bool = True, dtype: Optional[torch.dtype] = None,
-                 eps: float = 1e-12, int8: bool = False):
+                 eps: float = 1e-12, int8: bool = False, stride: int = 1):
         super().__init__()
-        if int8 and (ksize, padding) != (3, 1):
+        if int8 and (ksize, padding, stride) != (3, 1, 1):
             raise ValueError("int8 takes 3x3 SAME convolutions only")
-        self.padding, self.dtype, self.eps, self.int8 = padding, dtype, eps, int8
+        self.stride, self.padding, self.dtype, self.eps, self.int8 = (
+            stride, padding, dtype, eps, int8)
         self.weight = nn.Parameter(torch.empty(cout, cin, ksize, ksize))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.register_buffer("u", torch.empty(1, cout))
@@ -128,4 +130,4 @@ class SpectralConv2d(nn.Module):
             w = self._eval_cache.get(
                 (self.weight, self.u), cd, lambda: self.normalized_weight(False).to(cd)
             )
-        return conv2d_nhwc(x, w, self.bias, cd, padding=self.padding)
+        return conv2d_nhwc(x, w, self.bias, cd, self.stride, self.padding)

@@ -7,9 +7,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from shineon_tpu_torch.networks.activation import leaky_relu
 from shineon_tpu_torch.networks.attention import SelfAttention
 from shineon_tpu_torch.networks.layers import Conv2d
 from shineon_tpu_torch.networks.sams.multispade import MultiSpade
@@ -46,4 +46,4 @@ class AttentiveMultiSpade(MultiSpade):
             outputs = [s(x, labelmaps[k], train=train, hidden=h)
                        for s, k, h in zip(spades, self.keys, hiddens)]
         attended = self.attention_layer(torch.cat(outputs, dim=-1))
-        return F.leaky_relu(self.mlp_final(attended), 0.01)
+        return leaky_relu(self.mlp_final(attended), 0.01)

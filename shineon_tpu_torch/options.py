@@ -1,8 +1,12 @@
-"""The production options of the serving clip, a local copy of the JAX
-package's ``__graft_entry__._sams_opt`` defaults (SAMS at 256x192, 5-frame
-clips, flow warping, spectral SPADE sync-batch, widths 2^6..2^10, three
-middle blocks, bf16) and of the GMM's warp-stage overrides. int8 serving is
-an option (``int8_spade``) rather than an environment variable."""
+"""The production options of the serving clip and the training step, a
+local copy of the JAX package's ``__graft_entry__._sams_opt`` defaults (SAMS
+at 256x192, 5-frame clips, flow warping, spectral SPADE sync-batch, widths
+2^6..2^10, three middle blocks, bf16; two spectral-instance PatchGAN
+discriminators, hinge loss, Adam at 1e-4 / 3e-4, the random-filter VGG
+gate) and of the GMM's warp-stage overrides. int8 serving is an option
+(``int8_spade``) rather than an environment variable; so are the JAX
+package's ``--remat``, ``--fast_gan_step`` and ``--reference_gan_semantics``
+flags."""
 
 from __future__ import annotations
 
@@ -21,6 +25,17 @@ _SAMS_DEFAULTS = dict(
     # which bench.py turns on for its timed clip) and its conv gate's
     # channel floor (SHINEON_INT8_MIN_CH); eval only, off here
     int8_spade=False, int8_min_channels=64,
+    # training: the discriminators, losses and optimizers
+    init_type="xavier", init_variance=0.02, num_D=2, ndf=64, n_layers_D=4,
+    norm_D="spectralinstance", gan_mode="hinge", lr=1e-4, lr_D=3e-4,
+    no_ganFeat_loss=False, wt_l1=1.0, wt_vgg=1.0, wt_multiscale=1.0, wt_temporal=1.0,
+    keep_epochs=5, decay_epochs=5, accumulated_batches=1,
+    # no pretrained VGG19 in the repository: the random-filter perceptual
+    # loss, as the JAX package's dry runs and bench take it
+    allow_random_vgg=True,
+    # per-frame activation recompute; D updates on the G step's frames; the
+    # reference's pred_real in the generator's adversarial terms
+    remat=False, fast_gan_step=False, reference_gan_semantics=False,
 )
 
 

@@ -97,7 +97,7 @@ def build_models(batch_size: int, device="cuda", seed: int = 420, **overrides):
     init rules, and a raw batch; not yet warmed. Runs on the card unless
     ``device`` says otherwise. Returns (warp, sams, raw_batch)."""
     device = resolve_device(device)
-    sams_opt = sams_options(batch_size=batch_size, **overrides)
+    sams_opt = sams_options(**{"batch_size": batch_size, "is_train": False, **overrides})
     warp_opt = warp_options(batch_size=batch_size, **overrides)
     sams = SamsModel(sams_opt, device)
     warp = WarpModel(warp_opt, device)

@@ -1,0 +1,25 @@
+"""Train state (counterpart of shineon_tpu/training/state.py): the step
+count and, for each optimized network, the module (its parameters, and its
+buffers as the statistics: running means and variances, spectral ``u`` and
+``sigma``) with its optimizer. Updated in place by the train step."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+from torch import nn
+
+from shineon_tpu_torch.training.optimizers import Adam
+
+
+@dataclasses.dataclass
+class NetState:
+    module: nn.Module
+    optimizer: Adam
+
+
+@dataclasses.dataclass
+class TrainState:
+    nets: Dict[str, NetState]
+    step: int = 0
