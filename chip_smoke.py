@@ -68,7 +68,27 @@ Phases, each fatal on failure:
      kernel launched; (d) the step times, the peak device memory, and a
      traced exact attention step's device busy time, idle share and
      attention kernel time, beside that kernel's phase 3d time for as many
-     calls.
+     calls;
+  7. GMM and TOM training and SAMS's validation and visual steps (after
+     phase 6, before phase 3e): (a) one small f32 step of the GMM (128x96,
+     ngf 16) and of TOM (64x64, two frames, flow warp, three attention
+     levels, every gamma nonzero) on the card against the same step on the
+     CPU, from one seeded state; (b) at their documented configurations
+     (256x192, batch 8, bf16: the GMM on agnostic + cocopose, TOM with
+     --self_attn --num_attn 3 --activation swish, gammas nonzero) 3
+     training steps, one validation and one visual step with every launch
+     count at 0: every metric finite, every parameter tensor changed, the
+     attention kernel launched 6 times a TOM step and no other kernel; (c)
+     the production SAMS model's validation and visual steps (warmed
+     statistics), the fused chain kernel launched 150 times each (225, and
+     25 attention launches, with ATTENTION_PLACEMENT), checkpoint_on
+     finite; (d) the GMM and TOM step times (median of 3 windows of 8), the
+     peak memory, and a traced step of each: device busy time, idle share,
+     the attention kernel's time and the top kernels.
+
+Phase 3d also holds the attention kernel at TOM's shapes: one frame and
+five frames at TOM's batch of 8, each timed, and the small step's shapes
+of phase 7a (N = 1 among them).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}. Exits non-zero, and prints no
@@ -139,6 +159,16 @@ ATTENTION_SHAPES = ((192, 512, 4096, 2), (3072, 256, 2048, 2), (3072, 128, 1024,
                     # 108, dv = 864), five 1024-channel labels (d = 640), and
                     # part of one 512-column block at a ragged query tile
                     (192, 8, 64, 0), (192, 108, 864, 0), (192, 640, 5120, 0), (150, 64, 320, 0))
+# (N tokens, d, dv, launches a step) of TOM's U-Net attention at 256x192
+# (tom_options: 3 levels, C = 8 ngf at the inner levels, 4 ngf at the
+# (4, 8) level's up side; d = C // 8, dv = C), from the innermost level out:
+# one frame (ngf 64), the batch 8 its training runs at, launched in every
+# train and val step; and five frames (ngf 167: widths off every tile)
+TOM_BATCH = 8
+TOM_ATTENTION_SHAPES = ((12, 64, 512, 1), (48, 64, 512, 2), (192, 64, 512, 2),
+                        (768, 32, 256, 1))
+TOM5_ATTENTION_SHAPES = ((12, 167, 1336, 0), (48, 167, 1336, 0), (192, 167, 1336, 0),
+                         (768, 83, 668, 0))
 SCORE_STDS = {"flat": 0.3, "peaked": 8.0}  # std of the raw scores q.k
 GAMMA_MEAN, GAMMA_STD = 0.5, 0.1  # the attention gammas the clips are run with
 # (H, W, Cin, Cout, launches a frame) of every int8 3x3 conv of the int8 clip
@@ -579,14 +609,14 @@ def check_int8_conv(torch, ic, fs):
     return errors, timings
 
 
-def attention_inputs(torch, N, d, dv, dtype, score_std, seed):
-    """q, k (BATCH, N, d) and v (BATCH, N, dv) on the card from a seed, with
+def attention_inputs(torch, N, d, dv, dtype, score_std, seed, batch=BATCH):
+    """q, k (batch, N, d) and v (batch, N, dv) on the card from a seed, with
     raw scores q.k of std about ``score_std``."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     sigma = (score_std / d ** 0.5) ** 0.5
     rn = lambda *shape: torch.randn(shape, generator=g, device=DEVICE)  # noqa: E731
-    return (sigma * rn(BATCH, N, d)).to(dtype), (sigma * rn(BATCH, N, d)).to(dtype), \
-        rn(BATCH, N, dv).to(dtype)
+    return (sigma * rn(batch, N, d)).to(dtype), (sigma * rn(batch, N, d)).to(dtype), \
+        rn(batch, N, dv).to(dtype)
 
 
 def attention_over_queries(torch, q, k, v):
@@ -595,36 +625,41 @@ def attention_over_queries(torch, q, k, v):
     return torch.bmm(attn.float(), v.float()).to(q.dtype)
 
 
-def attention_work(N, d, dv, chunk):
+def attention_work(B, N, d, dv, chunk):
     """(the operations the function needs, the operations the kernel does:
-    QK^T once per block of ``chunk`` value columns) at the clips' batch."""
-    need = 2 * BATCH * N * N * (d + dv)
-    done = 2 * BATCH * N * N * (d * -(-dv // chunk) + dv)
+    QK^T once per block of ``chunk`` value columns) at batch B."""
+    need = 2 * B * N * N * (d + dv)
+    done = 2 * B * N * N * (d * -(-dv // chunk) + dv)
     return need, done
 
 
-def check_attention(torch, fa, fs):
+def check_attention(torch, fa, fs, shapes=ATTENTION_SHAPES, batch=BATCH, time_all=False):
     """Phase 3d: the attention kernel against its plain version at every
     shape of the attention clip, a ragged one and a tiny one, at the clips'
-    batch, bf16 and f32, at flat and at peaked score rows, element by
-    element (fa.ATTENTION_TOLERANCE). At every peaked case two controls must
-    FAIL the limit, or it could not tell a fault from rounding: the kernel
-    on 1/sqrt(d)-scaled scores (q / sqrt(d), a library's default scale) and
+    batch (then, called again, at TOM's shapes and batch), bf16 and f32, at
+    flat and at peaked score rows, element by element
+    (fa.ATTENTION_TOLERANCE). At every peaked case two controls must FAIL
+    the limit, or it could not tell a fault from rounding: the kernel on
+    1/sqrt(d)-scaled scores (q / sqrt(d), a library's default scale) and
     the plain version's softmax over the query axis. Each bf16 clip shape
-    is timed against its plain version, its bound and
-    scaled_dot_product_attention with scale 1 (heads a unit dimension)."""
+    (with ``time_all`` every shape) is timed against its plain version, its
+    bound and scaled_dot_product_attention with scale 1 (heads a unit
+    dimension)."""
     F = torch.nn.functional
     errors, timings, failed = {}, {}, []
-    for i, (N, d, dv, per_frame) in enumerate(ATTENTION_SHAPES):
+    for i, (N, d, dv, per_frame) in enumerate(shapes):
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).split(".")[-1]
             tol = fa.ATTENTION_TOLERANCE[dtype]
             for rows, std in SCORE_STDS.items():
-                q, k, v = attention_inputs(torch, N, d, dv, dtype, std, seed=300 + i)
+                q, k, v = attention_inputs(torch, N, d, dv, dtype, std, seed=300 + i,
+                                           batch=batch)
                 out = fa.sagan_attention(q, k, v)
                 ref = fa.attention_plain(q, k, v)
                 controls = {}
-                if rows == "peaked":
+                # at N = 1 a softmax is 1 on any scale and either axis: the
+                # controls compute the same function there
+                if rows == "peaked" and N > 1:
                     scaled = fa.sagan_attention((q.float() / d ** 0.5).to(dtype), k, v)
                     controls = {"1/sqrt(d) scores": fs.error_ratio(scaled, ref),
                                 "query-axis softmax": fs.error_ratio(
@@ -635,14 +670,14 @@ def check_attention(torch, fa, fs):
                 ok = (bool(torch.isfinite(out.float()).all()) and ratio <= tol
                       and all(c > tol for c in controls.values()))
                 must_fail = ", ".join(f"{c} {r:.3g}" for c, r in controls.items())
-                log(f"check attention {name:8s} B={BATCH} N={N} d={d} dv={dv} {rows}: "
+                log(f"check attention {name:8s} B={batch} N={N} d={d} dv={dv} {rows}: "
                     f"max_abs_err={err:.4g} max|d|/(|ref|+rms)={ratio:.3g} (limit {tol:g})"
                     f"{'; must fail: ' + must_fail if must_fail else ''} "
                     f"{'ok' if ok else 'FAIL'}")
                 errors[(N, d, dv, name, rows)] = (err, ratio, controls)
                 if not ok:
                     failed.append(f"{(N, d, dv)} {name} {rows}")
-                elif dtype == torch.bfloat16 and per_frame and rows == "flat":
+                elif dtype == torch.bfloat16 and (per_frame or time_all) and rows == "flat":
                     timings[(N, d, dv)] = time_attention(torch, fa, F, q, k, v, per_frame)
                 del q, k, v, out, ref
     if failed:
@@ -651,11 +686,16 @@ def check_attention(torch, fa, fs):
     return errors, timings
 
 
+def shape_times(t):
+    """The numbers of one attention shape's timing for the kernels line."""
+    return {k: t[k] for k in ("ms", "device_ms", "plain_ms", "sdpa_ms", "bound_ms", "bound_by")}
+
+
 def time_attention(torch, fa, F, q, k, v, per_frame):
     """Kernel, plain version and SDPA (scale 1) on the same bf16 operands,
     with the bound: the operations at the bf16 peak against q, k, v and o
     moved once."""
-    _, N, d = q.shape
+    B, N, d = q.shape
     dv = v.shape[-1]
     with torch.no_grad():
         k_ms = cuda_ms(torch, lambda: fa.sagan_attention(q, k, v), 10)
@@ -664,9 +704,9 @@ def time_attention(torch, fa, F, q, k, v, per_frame):
         lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q[:, None], k[:, None], v[:, None], scale=1.0), 10)
     chunk = fa.BLOCK_COLS
-    need, done = attention_work(N, d, dv, chunk)
-    bound_ms, by = bound(need / H100_BF16_FLOPS, BATCH * N * (2 * d + 2 * dv) * 2)
-    log(f"time attention bf16 B={BATCH} N={N} d={d} dv={dv} x{per_frame}/frame: "
+    need, done = attention_work(B, N, d, dv, chunk)
+    bound_ms, by = bound(need / H100_BF16_FLOPS, B * N * (2 * d + 2 * dv) * 2)
+    log(f"time attention bf16 B={B} N={N} d={d} dv={dv} x{per_frame}: "
         f"kernel device {k_dev:.4f} ms (event {k_ms:.4f}) plain {p_ms:.4f} ms SDPA {lib_ms:.4f} "
         f"ms bound {bound_ms:.4f} ms ({by}) kernel {need / k_dev / 1e9:.2f} TFLOP/s "
         f"({done / k_dev / 1e9:.2f} TFLOP/s of the {done / need:.2f}x work it does; QK^T "
@@ -880,15 +920,15 @@ def run_probe_tools(pr, ic):
     return tool_launches
 
 
-def set_gammas(torch, model, seed):
-    """Every attention gamma of the model's generator drawn from
-    N(GAMMA_MEAN, GAMMA_STD), seeded: at 0 an attention block is the
-    identity, whatever the kernel computes."""
+def set_gammas(torch, network, seed):
+    """Every attention gamma of ``network`` drawn from N(GAMMA_MEAN,
+    GAMMA_STD), seeded: at 0 an attention block is the identity, whatever
+    the kernel computes."""
     from shineon_tpu_torch.networks.attention import SelfAttention
 
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for m in model.generator.modules():
+        for m in network.modules():
             if isinstance(m, SelfAttention):
                 m.gamma.copy_(GAMMA_MEAN + GAMMA_STD * torch.randn(m.gamma.shape, generator=g))
 
@@ -902,7 +942,7 @@ def build_attention_clip(torch, batch, device, seed, **overrides):
     from shineon_tpu_torch.serving import build_models, make_one_clip, warm_up
 
     warp, sams, raw = build_models(batch, device, seed, **{**ATTENTION_PLACEMENT, **overrides})
-    set_gammas(torch, sams, seed + 2)
+    set_gammas(torch, sams.generator, seed + 2)
     warm_up(sams, raw)
     return make_one_clip(warp, sams), warp, sams, raw, sams.n_frames_total
 
@@ -1054,7 +1094,7 @@ def state_dicts(model):
             for name, net in train_nets(model).items()}
 
 
-def step_disagreement(before, out, ref, metrics, ref_metrics, opt):
+def step_disagreement(before, out, ref, metrics, ref_metrics, lrs):
     """The card's step against the CPU's from the same state, as the CPU
     tests hold the port against the JAX step: (the worst metric's
     |diff| / max(|ref|, 1), the worst statistic's |diff| / max |ref|, the
@@ -1065,7 +1105,7 @@ def step_disagreement(before, out, ref, metrics, ref_metrics, opt):
     m_err = max(abs(metrics[k] - r) / max(abs(r), 1.0) for k, r in ref_metrics.items())
     s_err, flips = 0.0, {}
     for net, ref_sd in ref.items():
-        lr = opt.lr if net == "generator" else opt.lr_D
+        lr = lrs[net]
         flipped = total = 0
         for key, r in ref_sd.items():
             o, p0 = out[net][key], before[net][key]
@@ -1099,14 +1139,15 @@ def check_small_step(torch):
         for device in (DEVICE, "cpu"):
             model, state, step, raw, _ = build_train(2, device=device, seed=7,
                                                      **TRAIN_SMALL, **opts)
-            set_gammas(torch, model, 8)
+            set_gammas(torch, model.generator, 8)
             before = state_dicts(model)
             metrics = {k: float(v) for k, v in step(state, raw).items()}
             runs.append((state_dicts(model), metrics))
         launched = sagan_attention.launches - before_launches
         (out, metrics), (ref, ref_metrics) = runs
-        m_err, s_err, flips = step_disagreement(before, out, ref, metrics, ref_metrics,
-                                                model.opt)
+        lrs = {"generator": model.opt.lr, "d_multi": model.opt.lr_D,
+               "d_temporal": model.opt.lr_D}
+        m_err, s_err, flips = step_disagreement(before, out, ref, metrics, ref_metrics, lrs)
         finite = all(v == v and abs(v) != float("inf") for v in metrics.values())
         ok = (finite and m_err <= 1e-3 and s_err <= 1e-3 and flips["generator"] <= 5e-3
               and max(flips["d_multi"], flips["d_temporal"]) <= 3e-2
@@ -1119,17 +1160,20 @@ def check_small_step(torch):
             raise SystemExit("the small training step on the card disagrees with the CPU")
 
 
-def traced_step(step, state, raw, names):
+def traced_step(step, state, raw, names, top=5):
     """One step under torch.profiler (shineon_tpu_torch.bench.traced_step):
-    wall ms, device busy ms, idle share, and the device ms and count of the
-    kernels whose name holds one of ``names``."""
+    wall ms, device busy ms, idle share, the device ms and count of the
+    kernels whose name holds one of ``names``, and the ``top`` kernels by
+    device time (name, ms, calls)."""
     from shineon_tpu_torch.bench import traced_step as trace
 
     wall, kernels, busy = trace(step, state, raw)
     mine = [e for e in kernels if any(n in e.key for n in names)]
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
                 kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
-                kernel_calls=sum(e.count for e in mine))
+                kernel_calls=sum(e.count for e in mine),
+                top=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in ranked])
 
 
 def run_training(torch, label, counters, card, attention):
@@ -1157,7 +1201,7 @@ def run_training(torch, label, counters, card, attention):
     model, state, _, raw, n_frames = build_train(
         TRAIN_BATCH, **(ATTENTION_PLACEMENT if attention else {}))
     if attention:
-        set_gammas(torch, model, 422)
+        set_gammas(torch, model.generator, 422)
     blocks = sum(isinstance(m, SelfAttention) for m in model.generator.modules())
     before = {n: [p.detach().clone() for p in net.parameters()]
               for n, net in train_nets(model).items()}
@@ -1213,6 +1257,195 @@ def run_training(torch, label, counters, card, attention):
                 step_launches=per_step, trace=trace)
 
 
+# phase 7: GMM and TOM training, and SAMS's validation and visual steps. The
+# small steps (f32, card against CPU): the GMM at 128x96, the smallest fine
+# size its regression tower takes (a correlation map of 8x6), ngf 16; TOM
+# at 64x64, two frames, the flow warp, its three attention levels
+SMALL_GMM = dict(fine_height=128, fine_width=96, ngf=16, precision=32)
+SMALL_TOM = dict(fine_height=64, fine_width=64, n_frames_total=2, flow_warp=True, precision=32)
+# the small TOM's attention shapes at batch 2 (ngf 108: C = 864 inside, 432
+# at the (4, 8) level's up side), N = 1 at the innermost level
+SMALL_TOM_ATTENTION_SHAPES = ((1, 108, 864, 0), (4, 108, 864, 0), (16, 108, 864, 0),
+                              (64, 54, 432, 0))
+# share of a network's parameter entries whose Adam move may differ between
+# card and CPU (Adam's first step is lr * sign(g)): a GMM sample point that
+# straddles a pixel edge within the two devices' f32 difference moves the
+# TPS gradient by percents at random weights (the CPU tests see 0.7% of
+# the entries flip against the JAX package); TOM at 64x64 has a 1x1
+# innermost map, whose upconv's centre tap (1.1% of the entries) and the
+# biases that feed a norm have an exact gradient of 0
+STAGE_FLIP_LIMIT = 0.02
+STAGE_STEPS = 3
+STAGE_ATTENTION = {"warp": 0, "unet_mask": 6}  # attention launches a step, one frame
+
+
+def module_state(module):
+    return {k: v.detach().float().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def check_small_stage_steps(torch):
+    """Phase 7a: one small f32 training step of the GMM (SMALL_GMM) and of
+    TOM (SMALL_TOM, every gamma nonzero) on the card against the same step
+    on the CPU, from the same seeded state (batch 2). Limits: every metric
+    and the GMM's running statistics within 1e-3; at most STAGE_FLIP_LIMIT
+    of the parameter entries flipped; TOM's step on the card launches the
+    attention kernel once a block (6), the GMM's none."""
+    from shineon_tpu_torch.bench import build_train
+    from shineon_tpu_torch.ops.fused_attention import sagan_attention
+
+    for kind, opts in (("warp", SMALL_GMM), ("unet_mask", SMALL_TOM)):
+        runs = []
+        for device in (DEVICE, "cpu"):
+            model, state, step, raw, _ = build_train(2, device=device, seed=7, model=kind,
+                                                     **opts)
+            (name, net), = state.nets.items()
+            if kind == "unet_mask":
+                set_gammas(torch, net.module, 8)
+            before = {name: module_state(net.module)}
+            launches = sagan_attention.launches
+            metrics = {k: float(v) for k, v in step(state, raw).items()}
+            runs.append(({name: module_state(net.module)}, metrics,
+                         sagan_attention.launches - launches))
+        (out, metrics, launched), (ref, ref_metrics, _) = runs
+        m_err, s_err, flips = step_disagreement(before, out, ref, metrics, ref_metrics,
+                                                {name: model.opt.lr})
+        finite = all(v == v and abs(v) != float("inf") for v in metrics.values())
+        ok = (finite and m_err <= 1e-3 and s_err <= 1e-3 and flips[name] <= STAGE_FLIP_LIMIT
+              and launched == STAGE_ATTENTION[kind])
+        log(f"small step f32 {kind} (batch 2, {opts['fine_height']}x{opts['fine_width']}): "
+            f"card vs CPU worst metric {m_err:.3g}, worst statistic {s_err:.3g}, flipped "
+            f"parameter entries {flips[name]:.2%} (limit {STAGE_FLIP_LIMIT:.0%}), {launched} "
+            f"attention launches {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the small {kind} training step on the card disagrees with the CPU")
+
+
+def finite_metrics(metrics):
+    values = [float(v) for v in metrics.values()]
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def run_stage_training(torch, kind, counters, card):
+    """Phase 7b and 7d for ``kind`` ("warp", the GMM; "unet_mask", TOM) at
+    its documented configuration (256x192, batch 8, bf16, seeded weights;
+    TOM's gammas drawn nonzero): with every launch count at 0, STAGE_STEPS
+    training steps, then one validation and one visual step; every metric
+    finite, every parameter tensor changed, the attention kernel launched
+    STAGE_ATTENTION times a step (train, val and visual alike) and no other
+    kernel. Then the step time (shineon_tpu_torch.bench.time_train_steps:
+    median, min and max of 3 windows of 8 steps), the peak device memory
+    and one traced training step. Returns the readings."""
+    from shineon_tpu_torch.bench import build_train, time_train_steps
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, state, step, raw, _ = build_train(TOM_BATCH, model=kind)
+    (name, net), = state.nets.items()
+    if kind == "unet_mask":
+        set_gammas(torch, net.module, 423)
+    before = {n: p.detach().clone() for n, p in net.module.named_parameters()}
+    torch.cuda.synchronize()
+    log(f"training {kind} built: {time.perf_counter() - t0:.1f} s, "
+        f"{sum(p.numel() for p in before.values())} parameters")
+    for owner, attr in counters.values():
+        setattr(owner, attr, 0)
+    read = lambda: {n: getattr(owner, attr) for n, (owner, attr) in counters.items()}  # noqa: E731
+    metrics = [step(state, raw) for _ in range(STAGE_STEPS)]
+    torch.cuda.synchronize()
+    train_launches = read()
+    val = model.make_val_step()(state, raw)
+    torch.cuda.synchronize()
+    val_launches = read()
+    visuals = model.make_visual_step()(state, raw)
+    torch.cuda.synchronize()
+    vis_launches = read()
+    finite = (all(finite_metrics(m) for m in metrics) and finite_metrics(val)
+              and all(bool(torch.isfinite(v.float()).all()) for v in visuals.values()))
+    unchanged = [n for n, p in net.module.named_parameters() if torch.equal(p, before[n])]
+    per_step = STAGE_ATTENTION[kind]
+    want = [{**{n: 0 for n in counters}, "sagan_attention": per_step * calls}
+            for calls in (STAGE_STEPS, STAGE_STEPS + 1, STAGE_STEPS + 2)]
+    loss_key = "loss/G"
+    log(f"training {kind}: losses {[round(float(m[loss_key]), 5) for m in metrics]}, val "
+        f"checkpoint_on {float(val['checkpoint_on']):.5g}, launches after the train steps "
+        f"{train_launches}, after the val step {val_launches}, after the visual step "
+        f"{vis_launches} (expected {want}), unchanged parameter tensors {unchanged}")
+    if not finite or unchanged or [train_launches, val_launches, vis_launches] != want:
+        raise SystemExit(f"training {kind} failed its checks")
+    median, lo, hi = time_train_steps(step, state, raw, repeats=3, loss_key=loss_key)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f"training {kind} step time (batch {TOM_BATCH}, 256x192, bf16): median {median * 1e3:.2f}"
+        f" ms (min {lo * 1e3:.2f}, max {hi * 1e3:.2f}) of 3 windows of 8 steps; peak memory "
+        f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before [{card}]")
+    trace = traced_step(step, state, raw, ATTENTION_KERNELS)
+    log(f"training {kind} traced step: wall {trace['wall_ms']:.2f} ms, device busy "
+        f"{trace['busy_ms']:.2f} ms, idle share {trace['idle_share']:.3f}, attention kernel "
+        f"{trace['kernel_ms']:.4f} ms in {trace['kernel_calls']} calls; top device time "
+        + "; ".join(f"{name} {ms:.3f} ms x{n}" for name, ms, n in trace["top"]) + f" [{card}]")
+    del model, state, step, raw, metrics, val, visuals, before
+    return dict(median_ms=median * 1e3, min_ms=lo * 1e3, max_ms=hi * 1e3, peak_gib=peak,
+                launches=vis_launches, step_launches=per_step, trace=trace)
+
+
+def run_sams_val(torch, label, counters, card, expected, attention):
+    """Phase 7c: the production SAMS model (batch 4, bf16; with
+    ``attention`` ATTENTION_PLACEMENT, every gamma nonzero), its running
+    statistics warmed by serving.warm_up's train-mode rollouts, then one
+    validation step and one visual step, each with every launch count at 0:
+    the fused chain kernel (and attention) launched as often as the clip
+    has sites, no other kernel; the metrics and checkpoint_on finite, the
+    visual clip finite and (B, 5, 256, 192, 3). Times the val step (median
+    of 3 after the checked call). Returns the readings."""
+    from shineon_tpu_torch.bench import TRAIN_BATCH, build_train
+    from shineon_tpu_torch.options import ATTENTION_PLACEMENT
+    from shineon_tpu_torch.serving import warm_up
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, state, _, raw, n_frames = build_train(
+        TRAIN_BATCH, **(ATTENTION_PLACEMENT if attention else {}))
+    if attention:
+        set_gammas(torch, model.generator, 424)
+    warm_up(model, raw)
+    launches = []
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for owner, attr in counters.values():
+            setattr(owner, attr, 0)
+        out = fn(state, raw)
+        torch.cuda.synchronize()
+        launches.append({n: getattr(owner, attr) for n, (owner, attr) in counters.items()})
+        return out
+
+    val = counted(model.make_val_step())
+    frames = counted(model.make_visual_step())["all_gen_frames"]
+    want = {n: expected.get(n, 0) * n_frames for n in counters}
+    shape = (TRAIN_BATCH, n_frames) + FRAME + (3,)
+    ok = (finite_metrics(val) and bool(torch.isfinite(frames).all())
+          and tuple(frames.shape) == shape and launches == [want, want])
+    val_step = model.make_val_step()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(val_step(state, raw)["checkpoint_on"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"SAMS {label} val step: checkpoint_on {float(val['checkpoint_on']):.5g}, loss "
+        f"{float(val['loss']):.5g}, launches {launches[0]}; visual step: frames "
+        f"{tuple(frames.shape)}, launches {launches[1]} (expected {want} each); val step "
+        f"{statistics.median(times):.1f} ms (median of {[round(t, 1) for t in times]}) "
+        f"[{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the SAMS {label} val or visual step failed its checks")
+    del model, state, raw, val, frames
+    return dict(launches=launches[0], val_ms=statistics.median(times))
+
+
+
 def main() -> int:
     import torch
 
@@ -1257,6 +1490,11 @@ def main() -> int:
     q_errors, q_timings = check_int8_chain(torch, fs)
     c_errors, c_timings = check_int8_conv(torch, ic, fs)
     a_errors, a_timings = check_attention(torch, fa, fs)
+    t_errors, t_timings = check_attention(torch, fa, fs, TOM_ATTENTION_SHAPES, TOM_BATCH,
+                                          time_all=True)
+    t5_errors, t5_timings = check_attention(torch, fa, fs, TOM5_ATTENTION_SHAPES, TOM_BATCH,
+                                            time_all=True)
+    check_attention(torch, fa, fs, SMALL_TOM_ATTENTION_SHAPES, 2)
     check_small_clip(torch)
 
     fmm, att = fs.fused_multispade_modulate, fa.sagan_attention
@@ -1309,6 +1547,25 @@ def main() -> int:
         f" ms in {at_step['trace']['kernel_calls']} calls, against {serving_equiv:.3f} ms for "
         f"as many calls at the serving timings of phase 3d [{card}]")
     log(f"phase 6 (training): {time.perf_counter() - t0:.1f} s")
+
+    # phase 7, GMM and TOM training and SAMS's val and visual steps
+    t0 = time.perf_counter()
+    check_small_stage_steps(torch)
+    stages = {kind: run_stage_training(torch, kind, q_counters, card)
+              for kind in ("warp", "unet_mask")}
+    tom = stages["unet_mask"]
+    tom_equiv = sum(t["device_ms"] * t["per_frame"] for t in t_timings.values())
+    log(f"attention kernel in the traced TOM training step: {tom['trace']['kernel_ms']:.4f} ms in "
+        f"{tom['trace']['kernel_calls']} calls, against {tom_equiv:.4f} ms for as many calls at "
+        f"the timings of phase 3d [{card}]")
+    sams_val = {
+        "production": run_sams_val(torch, "production", q_counters, card,
+                                   {"fused_multispade": n_sites}, attention=False),
+        "attention": run_sams_val(torch, "attention", q_counters, card,
+                                  {"fused_multispade": n_att_sites, "sagan_attention": n_att},
+                                  attention=True)}
+    log(f"phase 7 (GMM and TOM training, SAMS val and visual steps): "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # phase 3e after the clips are timed: its profiler sessions stay out of them
     t0 = time.perf_counter()
@@ -1378,6 +1635,12 @@ def main() -> int:
         "site": site(top),
         "clip_ms": med["bf16"],
         "clip_kernel_ms": per_clip(timings)[0],
+        # phase 7: the production SAMS val step (and its visual step), and
+        # with attention
+        "sams_val_step_launches": sams_val["production"]["launches"]["fused_multispade"],
+        "sams_attention_val_step_launches": sams_val["attention"]["launches"][
+            "fused_multispade"],
+        "sams_val_step_ms": sams_val["production"]["val_ms"],
     }, {
         "name": "fused_multispade_int8",
         "route": "cuda",
@@ -1468,6 +1731,18 @@ def main() -> int:
         "training_exact_step_launches": at_step["step_launches"]["exact"],
         "training_step_device_ms": at_step["trace"]["kernel_ms"],
         "training_step_serving_equivalent_ms": serving_equiv,
+        # phase 7: TOM's training (one frame, batch 8): launches a train,
+        # val or visual step, all of phase 7b's, the kernel's device time in
+        # a traced step; its time at TOM's shapes (phase 3d) at one frame
+        # and at five; and the SAMS attention val step's launches
+        "tom_step_launches": tom["step_launches"],
+        "tom_launches": tom["launches"]["sagan_attention"],
+        "tom_step_device_ms": tom["trace"]["kernel_ms"],
+        "tom_shapes": {f"{k[0]}x{k[1]}x{k[2]}": shape_times(t) for k, t in t_timings.items()},
+        "tom5_shapes": {f"{k[0]}x{k[1]}x{k[2]}": shape_times(t) for k, t in t5_timings.items()},
+        "tom_max_abs_err": max(e[0] for e in t_errors.values()),
+        "tom5_max_abs_err": max(e[0] for e in t5_errors.values()),
+        "sams_val_step_launches": sams_val["attention"]["launches"]["sagan_attention"],
     }]
     for name in (*pr.SPECS, *pr.CONV_VARIANTS):
         key = name if name in pr.SPECS else (name, conv_probe.SHAPES[0])

@@ -1,5 +1,6 @@
 """The port's bench, training half (counterpart of bench.py::build_train and
-bench.py::measure_train; the inference half is still to come).
+bench.py::measure_train; the inference half is still to come), and the
+training entry point of the three models (:func:`build_train`).
 
     python3 -m shineon_tpu_torch.bench [--no-remat] [--attention] [--trace]
 
@@ -39,23 +40,35 @@ PEAK_FLOPS = 989e12  # H100 SXM, dense bf16
 
 
 def build_train(batch_size: int, device="cuda", seed: int = 420, steps_per_epoch: int = 1000,
-                **overrides):
-    """The SAMS training step at the production options (``overrides``
-    replace any of them; ``remat`` is on unless overridden), every network
-    drawn from a ``torch.Generator`` seeded with ``seed`` by the JAX
-    package's init rules, and a raw batch. Runs on the card unless
+                model: str = "sams", **overrides):
+    """A training step at a documented configuration: ``model`` "sams" the
+    production SAMS options (``remat`` on unless overridden), "warp" the
+    GMM's (options.gmm_options), "unet_mask" TOM's (options.tom_options);
+    ``overrides`` replace any option. Every network is drawn from a
+    ``torch.Generator`` seeded with ``seed`` by the JAX package's init
+    rules, and the raw batch from ``seed`` 0. Runs on the card unless
     ``device`` says otherwise. Returns (model, state, step, raw_batch,
     n_frames): ``step(state, raw_batch)`` updates ``state`` in place and
     returns the metrics."""
     from shineon_tpu_torch.models.sams_model import SamsModel
+    from shineon_tpu_torch.models.unet_mask_model import UnetMaskModel
+    from shineon_tpu_torch.models.warp_model import WarpModel
+    from shineon_tpu_torch.options import gmm_options, tom_options
 
     device = resolve_device(device)
-    opt = sams_options(**{"batch_size": batch_size, "is_train": True, "remat": True,
-                          **overrides})
-    model = SamsModel(opt, device)
-    state = model.init_state(torch.Generator().manual_seed(seed), steps_per_epoch)
+    base = {"batch_size": batch_size, "is_train": True}
+    if model == "sams":
+        opt, cls = sams_options(**{**base, "remat": True, **overrides}), SamsModel
+    elif model == "warp":
+        opt, cls = gmm_options(**{**base, **overrides}), WarpModel
+    elif model == "unet_mask":
+        opt, cls = tom_options(**{**base, **overrides}), UnetMaskModel
+    else:
+        raise ValueError(f"unknown model: {model!r}")
+    net = cls(opt, device)
+    state = net.init_state(torch.Generator().manual_seed(seed), steps_per_epoch)
     raw = synthetic_raw_batch(opt, batch_size, device=device)
-    return model, state, model.make_train_step(), raw, opt.n_frames_total
+    return net, state, net.make_train_step(), raw, opt.n_frames_total
 
 
 def analytic_generator_flops(batch: int, h: int = 256, w: int = 192) -> float:
@@ -89,11 +102,12 @@ def analytic_generator_flops(batch: int, h: int = 256, w: int = 192) -> float:
     return total
 
 
-def time_train_steps(step, state, batch, repeats: int = REPEATS, steps: int = TRAIN_STEPS):
+def time_train_steps(step, state, batch, repeats: int = REPEATS, steps: int = TRAIN_STEPS,
+                     loss_key: str = "loss"):
     """Seconds a step: (median, min, max) over ``repeats`` windows of
     ``steps`` chained steps, after one warm-up step; each window ends in a
-    synchronize and a fetch of the loss."""
-    float(step(state, batch)["loss"])
+    synchronize and a fetch of the loss (metric ``loss_key``)."""
+    float(step(state, batch)[loss_key])
     times = []
     for _ in range(repeats):
         torch.cuda.synchronize()
@@ -101,7 +115,7 @@ def time_train_steps(step, state, batch, repeats: int = REPEATS, steps: int = TR
         for _ in range(steps):
             metrics = step(state, batch)
         torch.cuda.synchronize()
-        loss = float(metrics["loss"])
+        loss = float(metrics[loss_key])
         times.append((time.perf_counter() - t0) / steps)
     if loss != loss or abs(loss) == float("inf"):
         raise RuntimeError(f"the train step gave loss={loss}")

@@ -1,6 +1,7 @@
 """Weight bridge: the JAX package's flax variable trees -> this package's
-``state_dict``s, for the SAMS generator, the GMM, the two discriminators
-and the VGG19 features.
+``state_dict``s, for the SAMS generator, the GMM (its running statistics
+too, as a training step leaves them), the two discriminators, the VGG19
+features and TOM's U-Net.
 
 Input is ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
 arrays (``jax.device_get`` of a flax tree, or an unpacked checkpoint), so
@@ -39,6 +40,11 @@ GMM_RENAMES = (
 # conv's buffers like the generator's
 DISCRIMINATOR_RENAMES = ()
 VGG_RENAMES = ((r"conv(\d+)", r"convs.\1"),)
+# the U-Net's flax tree nests each level's variables under its parent's
+# ``submodule`` (model/submodule/.../downconv, upconv, down_attn, up_attn),
+# as UnetGenerator's modules are nested: no renames. Its instance norms
+# carry no variables
+UNET_RENAMES = ()
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator:

@@ -50,12 +50,10 @@ def preprocess_batch(raw: Dict[str, torch.Tensor], config: PreprocessConfig):
     """Raw batch (any leading dims) -> normalized feature dict.
 
     Produced keys (as applicable): image, prev_image, cloth, cloth_mask,
-    silhouette, im_head, im_cloth, agnostic, densepose, flow, flow_image,
-    grid_vis. ``cocopose`` inputs are not ported yet and raise.
+    silhouette, im_head, im_cloth, agnostic, cocopose, im_cocopose,
+    densepose, flow, flow_image, grid_vis.
     """
     cfg = config
-    if "cocopose" in cfg.person_inputs:
-        raise NotImplementedError("cocopose heatmaps are not ported yet")
     out: Dict[str, torch.Tensor] = {}
 
     image = image_ops.normalize_rgb(raw["image_u8"])
@@ -80,6 +78,10 @@ def preprocess_batch(raw: Dict[str, torch.Tensor], config: PreprocessConfig):
     if "agnostic" in cfg.person_inputs:
         # [silhouette, im_head] channel order (tryon_dataset.py:225-228)
         out["agnostic"] = torch.cat([silhouette, im_head], dim=-1)
+
+    if "cocopose" in cfg.person_inputs:
+        out["cocopose"], out["im_cocopose"] = image_ops.pose_keypoint_heatmaps(
+            raw["cocopose_kp"], cfg.fine_height, cfg.fine_width, cfg.radius)
 
     if "densepose" in cfg.person_inputs:
         dp = image_ops.normalize_rgb(raw["densepose_u8"])

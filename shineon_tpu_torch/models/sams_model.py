@@ -15,6 +15,11 @@ step, run eagerly:
   3. multiscale-discriminator update; 4. temporal-discriminator update,
      each on one concatenated fake+real pass, then split.
 
+The validation step (:meth:`SamsModel.make_val_step`) runs the same
+objective in eval mode without gradient; the visual step
+(:meth:`SamsModel.make_visual_step`) returns the generated clip beside its
+inputs.
+
 Compute-dtype policy (shineon_tpu/models/base_model.py:88-94): ``precision
 16`` runs the networks in bf16 while parameters stay f32; flows, sampling
 grids, norm statistics and the losses stay f32.
@@ -23,14 +28,15 @@ grids, norm statistics and the losses stay f32.
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from shineon_tpu_torch.datasets.channels import RGB_CHANNELS, channels_for
 from shineon_tpu_torch.datasets.n_frames_interface import fold_frames_into_channels
-from shineon_tpu_torch.datasets.preprocess import PreprocessConfig, preprocess_batch
+from shineon_tpu_torch.datasets.preprocess import preprocess_batch
+from shineon_tpu_torch.models.base_model import BaseModel, channels_of, gradients
 from shineon_tpu_torch.networks.attention import INIT_STD as attention_init_std
 from shineon_tpu_torch.networks.attention import SelfAttention
 from shineon_tpu_torch.networks.discriminator import (
@@ -44,27 +50,19 @@ from shineon_tpu_torch.networks.normalization import SpectralConv2d
 from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator
 from shineon_tpu_torch.networks.vgg import load_vgg19
 from shineon_tpu_torch.ops import resample2d
-from shineon_tpu_torch.training.optimizers import make_optimizer
 from shineon_tpu_torch.training.state import NetState, TrainState
 
 
-def compute_dtype_of(opt) -> Optional[torch.dtype]:
-    return torch.bfloat16 if getattr(opt, "precision", 32) == 16 else None
-
-
-class SamsModel:
+class SamsModel(BaseModel):
     """Owns the generator and, when ``opt.is_train``, the two
     discriminators and the losses; ``generate_n_frames`` is the clip loop,
     ``make_train_step`` the training step."""
 
     def __init__(self, opt, device="cuda"):
-        self.opt = opt
+        super().__init__(opt, device)
         self.remat = bool(opt.remat)
-        self.n_frames_total = opt.n_frames_total
         self.n_frames_now = getattr(opt, "n_frames_now", None) or self.n_frames_total
         self.inputs = list(opt.person_inputs) + list(opt.cloth_inputs)
-        self.compute_dtype = compute_dtype_of(opt)
-        self.preprocess_config = PreprocessConfig.from_opt(opt)
         self.generator = SamsGenerator(
             norm_G=opt.norm_G, ngf_base=opt.ngf_base, ngf_pow_outer=opt.ngf_pow_outer,
             ngf_pow_inner=opt.ngf_pow_inner, ngf_pow_step=opt.ngf_pow_step,
@@ -142,16 +140,11 @@ class SamsModel:
         Adam at ``lr`` for the generator, ``lr_D`` for each discriminator,
         on the keep/decay schedule."""
         opt = self.opt
-
-        def net(module, lr):
-            return NetState(module, make_optimizer(
-                module.parameters(), lr, opt.keep_epochs, opt.decay_epochs, steps_per_epoch,
-                opt.accumulated_batches))
-
         return TrainState(nets={
-            "generator": net(self.generator, opt.lr),
-            "d_multi": net(self.multiscale_discriminator, opt.lr_D),
-            "d_temporal": net(self.temporal_discriminator, opt.lr_D),
+            "generator": self.net_state(self.generator, opt.lr, steps_per_epoch),
+            "d_multi": self.net_state(self.multiscale_discriminator, opt.lr_D, steps_per_epoch),
+            "d_temporal": self.net_state(self.temporal_discriminator, opt.lr_D,
+                                         steps_per_epoch),
         })
 
     def features(self, raw_batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -344,12 +337,42 @@ class SamsModel:
 
         return train_step
 
+    def make_val_step(self):
+        """``step(state, raw_batch) -> metrics``: the generator's objective
+        in eval mode (running statistics, no update of any state), without
+        gradient, and ``checkpoint_on``: L1 + VGG of the last frame with their
+        weights (sams_model.py:610-626 of the JAX package). On the card its
+        SPADE chains run the fused chain kernel."""
 
-def gradients(loss: torch.Tensor, params):
-    """d loss / d params, zeros for a parameter the loss does not reach;
-    no ``.grad`` is written."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        @torch.no_grad()
+        def val_step(state: TrainState, raw_batch: Dict[str, torch.Tensor]):
+            feats = self.features(raw_batch)
+            _, metrics, fake_frame, _, _ = self.generator_losses(feats, train=False)
+            ground_truth = feats["image"][:, -1]
+            metrics["checkpoint_on"] = (
+                l1_loss(fake_frame, ground_truth) * self.opt.wt_l1
+                + self.criterion_vgg(fake_frame, ground_truth) * self.opt.wt_vgg)
+            return metrics
+
+        return val_step
+
+    def make_visual_step(self):
+        """``step(state, raw_batch) -> tensors``: the eval-mode clip
+        ``all_gen_frames`` (B, N, H, W, 3) beside the frames, the cloth and
+        the person inputs that are displayed (sams_model.py:628-643)."""
+
+        @torch.no_grad()
+        def visual_step(state: TrainState, raw_batch: Dict[str, torch.Tensor]):
+            feats = self.features(raw_batch)
+            _, _, all_frames = self.generate_n_frames(feats, train=False)
+            out = {"all_gen_frames": all_frames, "image": feats["image"],
+                   "cloth": feats["cloth"]}
+            for name in ("silhouette", "im_head", "im_cocopose", "densepose", "flow_image"):
+                if name in feats:
+                    out[name] = feats[name]
+            return out
+
+        return visual_step
 
 
 def checkpointed(module: torch.nn.Module, *args, **kwargs):
@@ -390,7 +413,3 @@ def split_predictions(pred):
                 real.append(p[p.shape[0] // 2:])
         return fake, real
     return pred[: pred.shape[0] // 2], pred[pred.shape[0] // 2:]
-
-
-def channels_of(names) -> int:
-    return sum(channels_for(n) for n in names)

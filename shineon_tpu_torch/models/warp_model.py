@@ -1,27 +1,39 @@
-"""GMM warp stage at eval (counterpart of shineon_tpu/models/warp_model.py:44-57)."""
+"""GMM warp model: the serving clip's warp stage and the GMM's training,
+validation and visual steps (counterpart of shineon_tpu/models/warp_model.py).
+
+The step: device features -> GMM (batch statistics, the running ones
+updated, as flax's ``mutable=["batch_stats"]``) -> TPS grid -> border
+``grid_sample`` of the cloth -> L1 to ``im_cloth`` -> Adam. The gradient
+reaches theta through ``grid_sample``'s backward (the JAX package's VJP)
+and the TPS basis products.
+"""
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
-from shineon_tpu_torch.models.sams_model import channels_of, compute_dtype_of
+from shineon_tpu_torch.models.base_model import BaseModel, get_and_cat_inputs, gradients
 from shineon_tpu_torch.networks.cpvton.warp import GMM
 from shineon_tpu_torch.networks.init import normal_
 from shineon_tpu_torch.networks.layers import Conv2d, Dense
+from shineon_tpu_torch.networks.loss import l1_loss
 from shineon_tpu_torch.networks.normalization import SyncBatchNorm
+from shineon_tpu_torch.ops import grid_sample
+from shineon_tpu_torch.training.state import TrainState
 
 
-class WarpModel:
+class WarpModel(BaseModel):
     """Owns the GMM at the options' fine size, grid size and width."""
 
     def __init__(self, opt, device="cuda"):
-        self.opt = opt
-        self.compute_dtype = compute_dtype_of(opt)
+        super().__init__(opt, device)
         self.gmm = GMM(
-            channels_of(opt.person_inputs), channels_of(opt.cloth_inputs),
+            self.person_channels, self.cloth_channels,
             fine_height=opt.fine_height, fine_width=opt.fine_width,
             grid_size=opt.grid_size, ngf=opt.ngf, dtype=self.compute_dtype,
-        ).to(device)
+        ).to(self.device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator, gain: float = 0.02):
@@ -34,3 +46,69 @@ class WarpModel:
             elif isinstance(m, SyncBatchNorm):
                 m.weight.copy_(normal_(torch.empty(m.weight.shape), gain, generator, mean=1.0))
                 m.bias.zero_()
+
+    def init_state(self, generator: torch.Generator, steps_per_epoch: int) -> TrainState:
+        """The GMM's weights from ``generator``, then :meth:`make_state`."""
+        self.init_weights(generator)
+        return self.make_state(steps_per_epoch)
+
+    def make_state(self, steps_per_epoch: int) -> TrainState:
+        """Step 0 and Adam at ``lr`` over the GMM's current weights."""
+        return TrainState(nets={"gmm": self.net_state(self.gmm, self.opt.lr, steps_per_epoch)})
+
+    def forward_loss(self, feats: Dict[str, torch.Tensor], train: bool):
+        """(loss, grid, theta, warped_cloth): with ``train`` the GMM's norms
+        take batch statistics and update their running ones."""
+        person = get_and_cat_inputs(feats, self.opt.person_inputs)
+        cloth_in = get_and_cat_inputs(feats, self.opt.cloth_inputs)
+        grid, theta = self.gmm(person, cloth_in, train=train)
+        warped_cloth = grid_sample(feats["cloth"], grid, padding_mode="border")
+        return l1_loss(warped_cloth, feats["im_cloth"]), grid, theta, warped_cloth
+
+    def make_train_step(self):
+        """``step(state, raw_batch) -> metrics``, updating ``state`` in place."""
+
+        def train_step(state: TrainState, raw_batch: Dict[str, torch.Tensor]):
+            feats = self.features(raw_batch)
+            net = state.nets["gmm"]
+            lr = net.optimizer.schedule(state.step)
+            loss, *_ = self.forward_loss(feats, train=True)
+            net.optimizer.step(gradients(loss, net.optimizer.params))
+            state.step += 1
+            return {"loss/G": loss.detach(), "lr": lr}
+
+        return train_step
+
+    def make_val_step(self):
+        """``step(state, raw_batch) -> metrics``: the loss in eval mode;
+        ``checkpoint_on`` is the loss."""
+
+        @torch.no_grad()
+        def val_step(state: TrainState, raw_batch: Dict[str, torch.Tensor]):
+            loss, *_ = self.forward_loss(self.features(raw_batch), train=False)
+            return {"loss/G": loss, "checkpoint_on": loss}
+
+        return val_step
+
+    def make_visual_step(self):
+        """``step(state, raw_batch) -> tensors``: the warped cloth, the grid
+        image warped with zeros padding (``warped_grid``), and the inputs
+        that are displayed."""
+
+        @torch.no_grad()
+        def visual_step(state: TrainState, raw_batch: Dict[str, torch.Tensor]):
+            feats = self.features(raw_batch)
+            _, grid, _, warped_cloth = self.forward_loss(feats, train=False)
+            out = {
+                "warped_cloth": warped_cloth,
+                "warped_grid": grid_sample(feats["grid_vis"], grid, padding_mode="zeros"),
+                "cloth": feats["cloth"],
+                "im_cloth": feats["im_cloth"],
+                "image": feats["image"],
+            }
+            for name in ("silhouette", "im_head", "im_cocopose", "densepose"):
+                if name in feats:
+                    out[name] = feats[name]
+            return out
+
+        return visual_step

@@ -119,3 +119,30 @@ def segment_cloths_from_image(image: torch.Tensor, parse: torch.Tensor) -> torch
 def normalize_flow(flow: torch.Tensor) -> torch.Tensor:
     """Affine flow normalization (x - 0.5) / 0.5."""
     return flow * 2.0 - 1.0
+
+
+def pose_keypoint_heatmaps(keypoints: torch.Tensor, fine_height: int = 256,
+                           fine_width: int = 192, radius: int = 5):
+    """COCO keypoints (..., K, 3) of (x, y, confidence) in pixels -> the
+    K-channel square-stamp heatmaps (..., H, W, K) and their union
+    ``im_cocopose`` (..., H, W, 1), both -1 (background) / +1 (stamp).
+
+    Each joint is the filled square PIL draws for the rectangle (x-r, y-r,
+    x+r, y+r): pixels p with floor(x-r) <= p <= floor(x+r) on each axis
+    (tryon_dataset.py:369-448). Joints with x <= 1 or y <= 1 are skipped.
+    Like the JAX package, every channel is its joint's stamp: the
+    reference's pose-map channels come out constant (it copies each map
+    before drawing it), which is not followed."""
+    x, y = keypoints[..., 0], keypoints[..., 1]  # (..., K)
+    valid = (x > 1) & (y > 1)
+    dev = keypoints.device
+    px = torch.arange(fine_width, dtype=torch.float32, device=dev)
+    py = torch.arange(fine_height, dtype=torch.float32, device=dev)
+    x0, x1 = torch.floor(x - radius), torch.floor(x + radius)
+    y0, y1 = torch.floor(y - radius), torch.floor(y + radius)
+    in_x = (px >= x0[..., None]) & (px <= x1[..., None])  # (..., K, W)
+    in_y = (py >= y0[..., None]) & (py <= y1[..., None]) & valid[..., None]  # (..., K, H)
+    inside = in_y[..., :, None] & in_x[..., None, :]  # (..., K, H, W)
+    pose_map = torch.where(inside, 1.0, -1.0).movedim(-3, -1)
+    vis = torch.where(inside.any(dim=-3), 1.0, -1.0)[..., None]
+    return pose_map, vis

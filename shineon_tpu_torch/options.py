@@ -3,7 +3,8 @@ local copy of the JAX package's ``__graft_entry__._sams_opt`` defaults (SAMS
 at 256x192, 5-frame clips, flow warping, spectral SPADE sync-batch, widths
 2^6..2^10, three middle blocks, bf16; two spectral-instance PatchGAN
 discriminators, hinge loss, Adam at 1e-4 / 3e-4, the random-filter VGG
-gate) and of the GMM's warp-stage overrides. int8 serving is an option
+gate) and of the GMM's warp-stage overrides; and of the documented GMM and
+TOM training configurations (docs/3_train.md). int8 serving is an option
 (``int8_spade``) rather than an environment variable; so are the JAX
 package's ``--remat``, ``--fast_gan_step`` and ``--reference_gan_semantics``
 flags."""
@@ -47,10 +48,7 @@ ATTENTION_PLACEMENT = dict(attention_middle_indices=("-1",), attention_decoder_i
 
 def sams_options(**overrides) -> argparse.Namespace:
     """The SAMS generator's options; keyword arguments override defaults."""
-    unknown = set(overrides) - set(_SAMS_DEFAULTS)
-    if unknown:
-        raise ValueError(f"unknown options: {sorted(unknown)}")
-    return argparse.Namespace(**{**_SAMS_DEFAULTS, **overrides})
+    return _options(_SAMS_DEFAULTS, overrides)
 
 
 def warp_options(**overrides) -> argparse.Namespace:
@@ -59,3 +57,49 @@ def warp_options(**overrides) -> argparse.Namespace:
     base = dict(model="warp", person_inputs=["agnostic", "densepose"], flow_warp=False,
                 grid_size=5)
     return sams_options(**{**base, **overrides})
+
+
+# The GMM's training configuration (docs/3_train.md, "1. Warp"): `--model
+# warp`, batch 8, 256x192, agnostic + cocopose person inputs (the warp
+# model's defaults), a 5x5 TPS grid, ngf 64, bf16 compute with f32
+# parameters, Adam at 1e-4 on the keep/decay schedule
+_GMM_DEFAULTS = dict(
+    model="warp", dataset="viton", datamode="train", is_train=True,
+    person_inputs=["agnostic", "cocopose"], cloth_inputs=["cloth"],
+    fine_height=256, fine_width=192, radius=5, cloth_mask_threshold=240,
+    visualize_flow=False, n_frames_total=1, flow_warp=False, batch_size=8,
+    ngf=64, grid_size=5, precision=16,
+    lr=1e-4, keep_epochs=5, decay_epochs=5, accumulated_batches=1,
+)
+
+# TOM's training configuration (docs/3_train.md, "2. Try-on"): `--model
+# unet_mask --self_attn --num_attn 3 --activation swish`, batch 8, 256x192,
+# one frame, agnostic + densepose person inputs, pen_flow_mask 1, bf16, the
+# same Adam. Its U-Net width is not --ngf but int(64 (ln n_frames + 1)). No
+# pretrained VGG19 in the repository: the random-filter perceptual loss
+_TOM_DEFAULTS = dict(
+    model="unet_mask", dataset="viton", datamode="train", is_train=True,
+    person_inputs=["agnostic", "densepose"], cloth_inputs=["cloth"],
+    fine_height=256, fine_width=192, radius=5, cloth_mask_threshold=240,
+    visualize_flow=False, n_frames_total=1, flow_warp=False, batch_size=8,
+    self_attn=True, num_attn=3, activation="swish", pen_flow_mask=1.0, precision=16,
+    lr=1e-4, keep_epochs=5, decay_epochs=5, accumulated_batches=1,
+    allow_random_vgg=True,
+)
+
+
+def _options(defaults, overrides) -> argparse.Namespace:
+    unknown = set(overrides) - set(defaults)
+    if unknown:
+        raise ValueError(f"unknown options: {sorted(unknown)}")
+    return argparse.Namespace(**{**defaults, **overrides})
+
+
+def gmm_options(**overrides) -> argparse.Namespace:
+    """The GMM's training options; keyword arguments override defaults."""
+    return _options(_GMM_DEFAULTS, overrides)
+
+
+def tom_options(**overrides) -> argparse.Namespace:
+    """TOM's training options; keyword arguments override defaults."""
+    return _options(_TOM_DEFAULTS, overrides)

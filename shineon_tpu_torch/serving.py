@@ -38,7 +38,10 @@ def resolve_device(device) -> torch.device:
 
 def synthetic_raw_batch(opt, batch: int, seed: int = 0, device="cpu") -> Dict[str, torch.Tensor]:
     """A raw batch in the VVT n-frames layout, drawn with numpy from
-    ``seed`` in the same order as the JAX package's ``_raw_batch``."""
+    ``seed`` in the same order as the JAX package's ``_raw_batch``; then,
+    when the options ask for them, COCO keypoints (``cocopose`` person
+    inputs: x, y uniform over the frame, confidence in [0, 1)) and the
+    GMM's grid image (``model="warp"``)."""
     rng = np.random.RandomState(seed)
     H, W, N = opt.fine_height, opt.fine_width, opt.n_frames_total
 
@@ -56,6 +59,11 @@ def synthetic_raw_batch(opt, batch: int, seed: int = 0, device="cpu") -> Dict[st
         "flow_raw": rng.randn(batch, N, H, W, 2).astype(np.float32),
         "flow_valid": np.ones((batch, N), np.float32),
     }
+    if "cocopose" in opt.person_inputs:
+        scale = np.array([W, H, 1.0], np.float32)
+        raw["cocopose_kp"] = (rng.rand(batch, N, 18, 3) * scale).astype(np.float32)
+    if opt.model == "warp":
+        raw["grid_vis_u8"] = u8(batch, N, H, W, 3)
     return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
 
 
