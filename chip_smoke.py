@@ -84,7 +84,22 @@ Phases, each fatal on failure:
      25 attention launches, with ATTENTION_PLACEMENT), checkpoint_on
      finite; (d) the GMM and TOM step times (median of 3 windows of 8), the
      peak memory, and a traced step of each: device busy time, idle share,
-     the attention kernel's time and the top kernels.
+     the attention kernel's time and the top kernels;
+  8. FlowNet2 flow annotation (after phase 3e; no hand kernel: the JAX
+     package computes it in XLA): (a) seeded random weights built once on
+     the CPU and copied to the card, a 64x64 pair at batch 1, f32: the
+     card's flow with TF32 off against the CPU port's, |d| <= FLOW_TOL *
+     (|ref| + rms(ref)), a control with one value moved that must fail, and
+     the error with TF32 on; (b) FlowNet.__call__ on uint8 pairs at
+     256x192, batch 4 and 8, with PyTorch's default TF32 and every launch
+     count at 0 (none may move): median (min, max) of 5 calls, TFLOP/s
+     against the analytic count from the convs and the cost volume, peak
+     memory, a traced call (device busy, idle share, top kernels), the cost
+     volume alone (device time, share) and the call's convs alone in
+     channels_last against NCHW; (c) the chain: five flows of six
+     synthetic frames a sample (batch 4) through write_flow and read_flow
+     (the same bits), then the flow_raw of one production bf16 serving
+     clip in the VVT dataset's order: finite frames, 150 chain launches.
 
 Phase 3d also holds the attention kernel at TOM's shapes: one frame and
 five frames at TOM's batch of 8, each timed, and the small step's shapes
@@ -1446,6 +1461,257 @@ def run_sams_val(torch, label, counters, card, expected, attention):
 
 
 
+# phase 8: FlowNet2 flow annotation. The path holds no Pallas kernel (the JAX
+# package computes it in XLA), so it runs PyTorch's and cuDNN's kernels and
+# launches none of the hand-written ones. 8a holds the card against the CPU
+# port with TF32 off: |card - CPU| <= FLOW_TOL * (|ref| + rms(ref)).
+FLOW_SEED = 420
+FLOW_TOL = 1e-4
+FLOW_BATCHES = (4, 8)  # generate_flow_annotations' default batch, and twice it
+FLOW_CALLS = 5  # timed calls a batch, after a warm-up call
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak, H100 SXM data sheet
+
+
+def cudnn_defaults(torch, allow_tf32):
+    """PyTorch's default cuDNN settings, TF32 as asked, for the block it
+    wraps (main turns TF32 off for the kernel phases)."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                      allow_tf32=allow_tf32)
+
+
+def flow_disagreement(out, ref):
+    """max |out - ref| / (|ref| + rms(ref)), elementwise."""
+    rms = ref.pow(2).mean().sqrt()
+    return ((out - ref).abs() / (ref.abs() + rms)).max().item()
+
+
+def check_flownet_card(torch):
+    """Phase 8a: seeded random FlowNet2 weights built once on the CPU and
+    copied to the card; a 64x64 uint8 pair at batch 1, f32. The card's flow
+    with TF32 off against the CPU port's, a control with one flow value
+    moved by ten times its tolerance that must fail, and the card's error
+    with TF32 on, for information."""
+    import copy
+
+    import numpy as np
+
+    from shineon_tpu_torch.models.flownet import build_flownet2
+
+    cpu_net = build_flownet2(FLOW_SEED, "cpu")
+    card_net = copy.deepcopy(cpu_net).to(DEVICE)
+    rng = np.random.RandomState(FLOW_SEED)
+    im1, im2 = (torch.from_numpy(rng.randint(0, 256, (1, 64, 64, 3)).astype(np.float32))
+                for _ in range(2))
+    with torch.no_grad():
+        ref = cpu_net(im1, im2)
+        outs = {}
+        for tf32 in (False, True):
+            with cudnn_defaults(torch, tf32):
+                outs[tf32] = card_net(im1.to(DEVICE), im2.to(DEVICE)).cpu()
+    err, err_tf32 = flow_disagreement(outs[False], ref), flow_disagreement(outs[True], ref)
+    perturbed = outs[False].clone()
+    rms = ref.pow(2).mean().sqrt()
+    perturbed[0, 31, 17, 1] += 10 * FLOW_TOL * (ref[0, 31, 17, 1].abs() + rms)
+    control = flow_disagreement(perturbed, ref)
+    finite = bool(torch.isfinite(outs[False]).all())
+    log(f"flownet2 card against CPU (64x64, batch 1, f32, TF32 off): max |d|/(|ref| + rms) "
+        f"{err:.3g} (tolerance {FLOW_TOL:g}), max |ref| {ref.abs().max().item():.4g}, rms "
+        f"{rms.item():.4g}; control with one value moved {control:.3g} (must exceed it); "
+        f"TF32 on: {err_tf32:.3g}")
+    if ref.shape != (1, 64, 64, 2) or not finite or err > FLOW_TOL or control <= FLOW_TOL:
+        raise SystemExit("FlowNet2 on the card disagrees with the CPU port")
+    return {"max_rel_err": err, "control": control, "max_rel_err_tf32": err_tf32}
+
+
+def flownet_work(torch, model, im1, im2):
+    """The analytic operations of one FlowNet2 forward at these inputs (2 per
+    multiply-add): every conv and deconv by its shapes, read off forward
+    hooks, plus the cost volume (2 * C * D^2 at each pixel of FlowNetC's
+    conv3 map). Also returns the cost volume's share of them, that conv3
+    map's two frames (NHWC, for timing the cost volume alone) and each conv
+    with its input shape."""
+    import torch.nn as nn
+
+    total, feats, convs = [0], {}, []
+
+    def conv_hook(m, inputs, out):
+        taps = m.kernel_size[0] * m.kernel_size[1] * m.in_channels // m.groups
+        pixels = (inputs[0].numel() // m.in_channels if m.transposed
+                  else out.numel() // m.out_channels)
+        total[0] += 2 * pixels * taps * m.out_channels
+        convs.append((m, tuple(inputs[0].shape)))
+
+    def corr_hook(m, inputs, out):
+        feats["c"] = out.permute(0, 2, 3, 1)
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d))]
+    hooks.append(model.flownetc.conv3.register_forward_hook(corr_hook))
+    try:
+        with torch.no_grad():
+            model(im1, im2)
+    finally:
+        for h in hooks:
+            h.remove()
+    c = feats["c"]
+    B = im1.shape[0]
+    D = 2 * (model.flownetc.max_displacement // model.flownetc.corr_stride) + 1
+    corr_ops = 2 * B * c.shape[1] * c.shape[2] * c.shape[3] * D * D
+    return total[0] + corr_ops, corr_ops, c[:B], c[B:], convs
+
+
+def conv_layout_ms(torch, convs, memory_format, reps=3):
+    """Event time of every conv and deconv of one FlowNet2 call, run alone
+    on random inputs of its shape, input and weight in ``memory_format``
+    (channels_last or contiguous NCHW): the layout the network should keep."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(FLOW_SEED)
+    calls = []
+    for m, shape in convs:
+        x = torch.randn(shape, generator=gen, device=DEVICE).contiguous(memory_format=memory_format)
+        w = m.weight.detach().contiguous(memory_format=memory_format)
+        if m.transposed:
+            calls.append((F.conv_transpose2d, x, w, m.bias, m.stride, m.padding))
+        else:
+            calls.append((F.conv2d, x, w, m.bias, m.stride, m.padding))
+
+    def run():
+        for fn, *args in calls:
+            fn(*args)
+
+    with torch.no_grad():
+        return cuda_ms(torch, run, reps)
+
+
+def run_flownet(torch, net, batch, counters, card):
+    """Phase 8b at one batch: FlowNet.__call__ on uint8 pairs at 256x192 with
+    PyTorch's default TF32, every launch count at 0 (none may move): the
+    median (min, max) of FLOW_CALLS calls after a warm-up, TFLOP/s against
+    the analytic count, peak memory, one traced call (device busy, idle
+    share, top kernels), the cost volume alone at its shapes (device time
+    and share of the call's device time) and the call's convs alone in
+    channels_last and in NCHW (event time: host-bound where the convs are
+    small)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shineon_tpu_torch.ops.correlation import cost_volume
+
+    H, W = FRAME
+    gen = torch.Generator().manual_seed(FLOW_SEED + batch)
+    im1, im2 = (torch.randint(0, 256, (batch, H, W, 3), generator=gen, dtype=torch.uint8
+                              ).to(DEVICE) for _ in range(2))
+    with cudnn_defaults(torch, True):
+        ops, corr_ops, c1, c2, convs = flownet_work(torch, net.model, im1.float(), im2.float())
+        layouts = {name: conv_layout_ms(torch, convs, fmt) for name, fmt in (
+            ("channels_last", torch.channels_last), ("NCHW", torch.contiguous_format))}
+        for owner, attr in counters.values():
+            setattr(owner, attr, 0)
+        flow, conf = net(im1, im2)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        samples = []
+        for _ in range(FLOW_CALLS):
+            t0 = time.perf_counter()
+            flow, conf = net(im1, im2)
+            torch.cuda.synchronize()
+            samples.append(1e3 * (time.perf_counter() - t0))
+        peak = torch.cuda.max_memory_allocated()
+        launches = {name: getattr(owner, attr) for name, (owner, attr) in counters.items()}
+        for _ in range(2):  # the first session pays the profiler's start-up
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                net(im1, im2)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+        kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        busy = sum(e.self_device_time_total for e in kernels) / 1e3
+        cv_ms = device_ms(torch, lambda: cost_volume(c1, c2, 20, 2), 3)
+    ms = statistics.median(samples)
+    finite = bool(torch.isfinite(flow).all())
+    shapes_ok = tuple(flow.shape) == (batch, H, W, 2) and tuple(conf.shape) == (batch, H, W, 1)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"flownet2 batch {batch} ({H}x{W}, f32, TF32 on): median {ms:.2f} ms "
+        f"(min {min(samples):.2f}, max {max(samples):.2f}) of {[round(v, 2) for v in samples]}, "
+        f"{ms / batch:.3f} ms a pair; {ops / 1e9:.2f} GFLOP a call ({ops / batch / 1e9:.2f} a "
+        f"pair, cost volume {corr_ops / batch / 1e9:.3f}), {ops / ms / 1e9:.1f} TFLOP/s, "
+        f"{ops / ms / 1e9 / (H100_TF32_FLOPS / 1e12):.3f} of the TF32 peak; peak memory "
+        f"{peak / 2**30:.3f} GiB ({(peak - held) / 2**30:.3f} above the {held / 2**30:.3f} held); "
+        f"flow finite={finite}, max|flow| {flow.abs().max().item():.4g}, confident share "
+        f"{conf.mean().item():.4f}; hand-kernel launches {launches} [{card}]")
+    log(f"  traced call: wall {wall:.2f} ms, device busy {busy:.3f} ms, idle share "
+        f"{1 - busy / wall:.3f} ({1 - busy / ms:.3f} of the untraced median), "
+        f"{sum(e.count for e in kernels)} kernels; the cost volume alone {cv_ms:.3f} ms device "
+        f"time, {cv_ms / busy:.3f} of the call's device time [{card}]")
+    log(f"  its {len(convs)} convs and deconvs alone (event time, TF32): "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in layouts.items()) + f" [{card}]")
+    for e in top:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:100]}")
+    if not (finite and shapes_ok) or any(launches.values()):
+        raise SystemExit(f"FlowNet at batch {batch} failed its checks")
+    return dict(ms=ms, samples=samples, ops=ops, peak=peak, held=held, wall=wall, busy=busy,
+                cv_ms=cv_ms, layouts=layouts)
+
+
+def run_flow_chain(torch, net, counters, expected, card):
+    """Phase 8c: six synthetic frames a sample (batch 4, 256x192: a seeded
+    image drifting one pixel a frame, with noise); the five flows of
+    consecutive frames from FlowNet go through write_flow into a temporary
+    directory and read_flow must give back the same bits; they become the
+    flow_raw of one production bf16 serving clip in the VVT dataset's order
+    (frame t's flow is the .flo named after it: from frame t to t + 1),
+    whose frames must be finite and of the clip's shape, with the chain
+    kernel launched as phase 5 counts it."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from shineon_tpu_torch.datasets.flow_utils import read_flow, write_flow
+    from shineon_tpu_torch.serving import build_inference
+
+    one_clip, _, _, raw, n_frames = build_inference(BATCH)
+    H, W = FRAME
+    rng = np.random.RandomState(FLOW_SEED)
+    base = rng.randint(0, 256, (BATCH, H, W + n_frames, 3))
+    video = np.stack([np.clip(base[:, :, t:t + W] + rng.randint(-6, 7, (BATCH, H, W, 3)), 0, 255)
+                      for t in range(n_frames + 1)], axis=1).astype(np.uint8)
+    frames = torch.from_numpy(video).to(DEVICE)
+    for owner, attr in counters.values():
+        setattr(owner, attr, 0)
+    flows, exact = [], True
+    with tempfile.TemporaryDirectory() as tmp, cudnn_defaults(torch, True):
+        for t in range(n_frames):
+            flow, _ = net(frames[:, t], frames[:, t + 1])
+            flow = flow.cpu().numpy()
+            read = []
+            for b in range(BATCH):
+                path = os.path.join(tmp, f"video{b}", f"frame_{t:03d}.flo")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                write_flow(path, flow[b])
+                read.append(read_flow(path))
+                exact = exact and read[-1].tobytes() == flow[b].tobytes()
+            flows.append(np.stack(read))
+    flow_launches = {name: getattr(owner, attr) for name, (owner, attr) in counters.items()}
+    raw = {**raw, "image_u8": frames[:, :n_frames].contiguous(),
+           "flow_raw": torch.from_numpy(np.stack(flows, axis=1)).to(DEVICE)}
+    out = one_clip(raw)
+    torch.cuda.synchronize()
+    launches = {name: getattr(owner, attr) for name, (owner, attr) in counters.items()}
+    want = {name: n_frames * expected.get(name, 0) for name in counters}
+    finite = bool(torch.isfinite(out.float()).all())
+    shape = (BATCH, n_frames) + FRAME + (3,)
+    log(f"flow chain: {n_frames} flows of batch {BATCH} written and read back, bits equal "
+        f"{exact}; max|flow| {max(np.abs(f).max() for f in flows):.4g}; the clip on them: "
+        f"frames {tuple(out.shape)} {out.dtype} finite={finite}; launches while flowing "
+        f"{flow_launches}, in the clip {launches} (expected {want}) [{card}]")
+    if (not exact or not finite or tuple(out.shape) != shape or any(flow_launches.values())
+            or launches != want):
+        raise SystemExit("the flow annotation chain failed its checks")
+    return {"exact": exact, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1461,6 +1727,7 @@ def main() -> int:
     from shineon_tpu_torch.ops import fused_attention as fa
     from shineon_tpu_torch.ops import fused_spade as fs
     from shineon_tpu_torch.ops import int8_conv as ic
+    from shineon_tpu_torch.models.flownet import FlowNet
     from shineon_tpu_torch.ops import probes as pr
     from shineon_tpu_torch.serving import build_inference
     from shineon_tpu_torch.tools import conv_probe
@@ -1573,6 +1840,16 @@ def main() -> int:
     p_launches = run_probe_tools(pr, ic)
     log(f"phase 3e (probes and their tools): {time.perf_counter() - t0:.1f} s")
 
+    # phase 8, FlowNet2 flow annotation, after every kernel phase
+    t0 = time.perf_counter()
+    flow_card = check_flownet_card(torch)
+    flownet = FlowNet(seed=FLOW_SEED)
+    flow_runs = {batch: run_flownet(torch, flownet, batch, q_counters, card)
+                 for batch in FLOW_BATCHES}
+    run_flow_chain(torch, flownet, q_counters, {"fused_multispade": n_sites}, card)
+    del flownet
+    log(f"phase 8 (FlowNet2 flow annotation): {time.perf_counter() - t0:.1f} s")
+
     # the int8 models' own count of int8 convs, against the list above
     log(f"int8 convs in the built generators: {built}, with attention {a_built} "
         f"(expected {n_convs} a frame)")
@@ -1608,6 +1885,10 @@ def main() -> int:
     log(f"SDPA (scale 1) at the same shapes per attention clip: {sdpa_clip:.1f} ms")
     log("clip latency " + ", ".join(f"{name} {ms:.1f} ms" for name, ms in med.items())
         + f" [{card}]")
+    log("flownet2 (256x192, TF32 on) " + ", ".join(
+        f"batch {b}: {r['ms']:.2f} ms, {r['ms'] / b:.3f} ms a pair, "
+        f"{r['ops'] / r['ms'] / 1e9:.1f} TFLOP/s" for b, r in flow_runs.items())
+        + f"; card against CPU {flow_card['max_rel_err']:.3g} (TF32 off) [{card}]")
 
     top = max(timings, key=lambda k: timings[k]["flops"])
     q_top = max(q_timings, key=lambda k: q_timings[k]["ops"])

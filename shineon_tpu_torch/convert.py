@@ -13,6 +13,10 @@ map in tools/convert_lightning_checkpoint.py:
   ``bias``, ``running_mean``, ``running_var``;
 * flax ``nn.SpectralNorm`` state ``SpectralNorm_k/<conv>/kernel/{u, sigma}``
   -> the conv's ``u`` and ``sigma`` buffers.
+
+FlowNet2 has its own map, :func:`flownet2_state_dict`, the inverse of the
+JAX package's ``convert_torch_flownet2_state_dict``: its torch names are the
+published checkpoint's.
 """
 
 from __future__ import annotations
@@ -93,3 +97,44 @@ def load_flax(module: torch.nn.Module, variables: Mapping, renames) -> None:
     """Load converted flax variables into ``module``; every entry of the
     module's state_dict must be covered and every variable used."""
     module.load_state_dict(flax_to_state_dict(variables, renames), strict=True)
+
+
+# FlowNet2: flax sub-network scope -> the checkpoint's submodule name
+FLOWNET2_NETS = {"flownetc": "flownetc", "flownets1": "flownets_1", "flownets2": "flownets_2",
+                 "flownets_d": "flownets_d", "flownetfusion": "flownetfusion"}
+
+
+def flownet2_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX FlowNet2's ``params`` -> a ``state_dict`` with the key layout
+    of the published flownet2-pytorch checkpoint
+    (:class:`shineon_tpu_torch.networks.flownet.FlowNet2`):
+
+    * ``flownets1`` / ``flownets2`` -> ``flownets_1`` / ``flownets_2``, and
+      the ``refine`` scope of FlowNetC/S -> the sub-network's top level;
+    * ``conv*``, ``deconv*`` and ``inter_conv*`` are the first layer of a
+      ``Sequential`` (``conv1.0.weight``); ``predict_flow*`` and
+      ``upsampled_flow*`` are bare layers;
+    * conv kernels HWIO -> OIHW; deconv kernels (kh, kw, in, out) -> torch's
+      (in, out, kh, kw) with the taps flipped back;
+    * the ``upsampled_flow*`` deconvs have no bias in the checkpoint: their
+      flax biases are dropped if they are exactly zero (as flax initialises
+      them) and raise otherwise.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(params):
+        net, *scope, layer, leaf = path
+        if scope not in ([], ["refine"]):
+            raise ValueError(f"unexpected FlowNet2 scope {'/'.join(path)}")
+        transposed = layer.startswith(("deconv", "upsampled_flow"))
+        if layer.startswith("upsampled_flow") and leaf == "bias":
+            if np.any(value != 0):
+                raise ValueError(f"{'/'.join(path)} is nonzero; the checkpoint's "
+                                 f"{layer} has no bias")
+            continue
+        if leaf == "kernel":
+            value = (value.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1] if transposed
+                     else value.transpose(3, 2, 0, 1))
+        sequential = layer.startswith(("conv", "deconv", "inter_conv"))
+        name = ".".join([FLOWNET2_NETS[net], layer] + (["0"] if sequential else []) + [_LEAF[leaf]])
+        out[name] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+    return out

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # LIP 20-class human-parse labels (reference: datasets/tryon_dataset.py:21-41).
 LIP_BACKGROUND = 0
@@ -119,6 +120,31 @@ def segment_cloths_from_image(image: torch.Tensor, parse: torch.Tensor) -> torch
 def normalize_flow(flow: torch.Tensor) -> torch.Tensor:
     """Affine flow normalization (x - 0.5) / 0.5."""
     return flow * 2.0 - 1.0
+
+
+def channel_norm(x: torch.Tensor, eps: float = 0.0) -> torch.Tensor:
+    """Per-pixel L2 norm over the trailing channel axis, in f32 (flownet2's
+    ChannelNorm): (..., C) -> (..., 1)."""
+    return torch.sqrt(torch.sum(x.float() ** 2, dim=-1, keepdim=True) + eps)
+
+
+def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
+    """Resize an NHWC tensor to ``size`` = (H', W') as
+    ``jax.image.resize(method="linear")`` does: a triangle kernel on
+    half-pixel centres, widened by the scale when it downsamples
+    (antialiased), with the weights renormalised at the borders (which,
+    upsampling, is PyTorch's clamp of the source coordinate to the edge).
+    An axis whose size does not change is left untouched. f32 result.
+    Unlike ``_resize_linear``, which builds JAX's own weights on the host
+    (the silhouette's uint8 rounding needs them: this resize's last-bit
+    differences flip its rounding), it is one device call, agreeing with
+    JAX to f32 rounding."""
+    x = x.float()
+    if tuple(size) == tuple(x.shape[1:3]):
+        return x
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
+                        align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
 
 
 def pose_keypoint_heatmaps(keypoints: torch.Tensor, fine_height: int = 256,
