@@ -99,7 +99,30 @@ Phases, each fatal on failure:
      channels_last against NCHW; (c) the chain: five flows of six
      synthetic frames a sample (batch 4) through write_flow and read_flow
      (the same bits), then the flow_raw of one production bf16 serving
-     clip in the VVT dataset's order: finite frames, 150 chain launches.
+     clip in the VVT dataset's order: finite frames, 150 chain launches;
+  9. the training runtime and the host data, read from disk (after phase
+     8): synthetic trees at 256x192 (tools/synthetic_data.py) in a
+     temporary directory; (a) the production SAMS options (remat) through
+     Trainer.fit over VVT with flows, 4 train batches, validation and a
+     step save every 2 steps, images every 2, 4 decode threads, every
+     launch count at 0: finite losses, hparams.json, 2 top-k saves, the
+     step saves 2 and 4, FINAL, board events, the fused chain kernel 150
+     times for each eval-mode clip (2 train image calls, 2 validation
+     batches and their images) and no other kernel, the peak memory;
+     (b) FINAL loaded with weights_only=True into a fresh model on the
+     card equals the state bit for bit, and one more fit step from it
+     gives a finite loss (the checkpoint's size, save and load seconds);
+     (c) the GMM at gmm_options over VITON with a loader that raises at
+     step 2: the fault propagates and interrupted_by_<its class> equals
+     the state after step 1 bit for bit; (d) Trainer.test exports one
+     PNG for each test clip (150 chain launches a batch) and, run again,
+     writes and launches nothing; (e) tools/two_stage_chain.py at the
+     documented GMM and TOM options (batch 8, over VVT): stage 1's files
+     one a sample, its second export skipped, the attention kernel 6
+     times for each TOM forward, SSIM and PSNR printed; (f) the trainer's
+     step (synchronized, median of the steps after the first) against
+     bench.time_train_steps on the same model, SAMS at 4 decode threads,
+     the GMM and TOM at 0 and 4, and the loader alone in samples/s.
 
 Phase 3d also holds the attention kernel at TOM's shapes: one frame and
 five frames at TOM's batch of 8, each timed, and the small step's shapes
@@ -1712,6 +1735,409 @@ def run_flow_chain(torch, net, counters, expected, card):
     return {"exact": exact, "launches": launches}
 
 
+# phase 9: the training runtime and the host data, read from disk. Trees
+# at 256x192 from tools/synthetic_data.py: VVT, two videos of
+# RUNTIME_FRAMES frames (the train split the first, 6 SAMS batches of 4;
+# the val split the second), a VVT test tree of one video of
+# RUNTIME_TEST_FRAMES frames, and VITON, RUNTIME_VITON samples
+RUNTIME_FRAMES = 24
+RUNTIME_TEST_FRAMES = 6
+RUNTIME_VITON = 64
+# 9a's cadence: 4 train batches, validation (one batch) and a step save
+# every 2 steps, scalars and images every 2 steps, one epoch, 4 threads
+SAMS_RUNTIME = dict(limit_train_batches="4", val_check_interval="2", display_count=2,
+                    save_count=2, keep_epochs=1, decay_epochs=0, workers=4, limit_val_batches="1")
+# the runs that time steps: no validation, images at step 0 only, no step save
+QUIET = dict(display_count=10**6, val_check_interval="1000000", save_count=10**6)
+
+
+def launch_counts(counters):
+    return {n: getattr(owner, attr) for n, (owner, attr) in counters.items()}
+
+
+def zero_counts(counters):
+    for owner, attr in counters.values():
+        setattr(owner, attr, 0)
+
+
+def record_steps(torch, model, sync):
+    """Wrap the model's train step (its class's, so wrappers never nest):
+    every step's metrics, left on the device, and with ``sync`` the host
+    clock after a synchronize at the end of each step."""
+    rec = {"metrics": [], "marks": []}
+    make = type(model).make_train_step.__get__(model)
+
+    def make_train_step():
+        step = make()
+
+        def recorded(state, batch):
+            metrics = step(state, batch)
+            if sync:
+                torch.cuda.synchronize()
+                rec["marks"].append(time.perf_counter())
+            rec["metrics"].append(metrics)
+            return metrics
+
+        return recorded
+
+    model.make_train_step = make_train_step
+    return rec
+
+
+def interval_ms(marks):
+    """(median, min, max) ms between consecutive step ends: each step after
+    the first with what the trainer did before it (loader wait, copies)."""
+    d = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return statistics.median(d), min(d), max(d)
+
+
+def state_tensors(state):
+    """Every tensor of a train state by name, and its counts."""
+    out = {"step": state.step}
+    for name, net in state.nets.items():
+        out.update({f"{name}.{k}": v for k, v in net.module.state_dict().items()})
+        out.update({f"{name}.mu.{i}": t for i, t in enumerate(net.optimizer.mu)})
+        out.update({f"{name}.nu.{i}": t for i, t in enumerate(net.optimizer.nu)})
+        out[f"{name}.count"] = net.optimizer.count
+    return out
+
+
+def payload_tensors(payload):
+    """state_tensors' names over a checkpoint's raw dict."""
+    out = {"step": payload["step"]}
+    for name, net in payload["nets"].items():
+        out.update({f"{name}.{k}": v for k, v in net["module"].items()})
+        for key in ("mu", "nu"):
+            out.update({f"{name}.{key}.{i}": t for i, t in enumerate(net["optimizer"][key])})
+        out[f"{name}.count"] = net["optimizer"]["count"]
+    return out
+
+
+def differing(torch, a, b):
+    """The names whose values differ between two state_tensors maps, bit for
+    bit (a tensor's bytes, on the first one's device)."""
+    if sorted(a) != sorted(b):
+        return ["the names differ"]
+    bad = []
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, torch.Tensor):
+            same = v.dtype == w.dtype and v.shape == w.shape and torch.equal(v, w.to(v.device))
+        else:
+            same = v == w
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def finite_losses(records, key):
+    values = [float(m[key]) for m in records]
+    return values, bool(values) and all(v == v and abs(v) != float("inf") for v in values)
+
+
+def run_runtime(torch, counters, clip_sites, card):
+    """Phase 9 (module docstring); ``clip_sites`` is the fused chain's
+    launches in one eval-mode production clip. Returns the readings."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from shineon_tpu_torch.bench import time_train_steps
+    from shineon_tpu_torch.datasets import find_dataset_using_name
+    from shineon_tpu_torch.datasets.loader import DataLoader
+    from shineon_tpu_torch.datasets.tryon_dataset import GRID_VIS_PATH
+    from shineon_tpu_torch.models.sams_model import SamsModel
+    from shineon_tpu_torch.models.unet_mask_model import UnetMaskModel
+    from shineon_tpu_torch.models.warp_model import WarpModel
+    from shineon_tpu_torch.options import gmm_options, sams_options, tom_options
+    from shineon_tpu_torch.serving import synthetic_raw_batch
+    from shineon_tpu_torch.tools import synthetic_data
+    from shineon_tpu_torch.tools.two_stage_chain import run_chain
+    from shineon_tpu_torch.training.checkpointing import load_checkpoint, save_checkpoint
+    from shineon_tpu_torch.training.loop import Trainer
+
+    tmp = tempfile.mkdtemp(prefix="shineon_runtime_")
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        vvt, viton, exp = (os.path.join(tmp, d) for d in ("vvt", "viton", "exp"))
+        synthetic_data.make_vvt_tree(vvt, n_videos=2, frames=RUNTIME_FRAMES, seed=1)
+        synthetic_data.make_vvt_tree(vvt, n_videos=1, frames=RUNTIME_TEST_FRAMES,
+                                     datamode="test", seed=2)
+        synthetic_data.make_viton_tree(viton, n=RUNTIME_VITON, seed=3)
+        log(f"phase 9 trees written: {time.perf_counter() - t0:.1f} s")
+
+        # 9a: SAMS through the trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        opt = sams_options(vvt_dataroot=vvt, experiments_dir=exp, name="sams", remat=True,
+                           **SAMS_RUNTIME)
+        t0 = time.perf_counter()
+        model = SamsModel(opt, DEVICE)
+        rec = record_steps(torch, model, sync=False)
+        zero_counts(counters)
+        state = Trainer(opt).fit(model)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        losses, finite = finite_losses(rec["metrics"], "loss")
+        ckpt = os.path.join(exp, "sams", "checkpoints")
+        listing = {d: sorted(os.listdir(os.path.join(ckpt, d))) for d in ("topk", "steps", "named")}
+        events = glob.glob(os.path.join(exp, "sams", "tb", "events.*"))
+        # eval-mode generator calls: the train images at steps 0 and 2; at
+        # steps 2 and 4 a validation batch and its images
+        calls = 2 + 2 * 2
+        want = {n: 0 for n in counters}
+        want["fused_multispade"] = calls * clip_sites
+        final = os.path.join(ckpt, "named", "FINAL_step=4")
+        size_gib = os.path.getsize(os.path.join(final, "state.pt")) / 2**30
+        ok = (finite and len(losses) == 4 and state.step == 4 and launches == want
+              and os.path.exists(os.path.join(ckpt, "hparams.json"))
+              and len(listing["topk"]) == 2 and listing["steps"] == ["2", "4"]
+              and listing["named"] == ["FINAL_step=4"] and events
+              and all(os.path.getsize(e) > 0 for e in events))
+        log(f"9a SAMS trainer (production options, 256x192, batch 4, remat, 4 decode threads): "
+            f"fit {fit_s:.1f} s, losses {[round(v, 4) for v in losses]}, checkpoints {listing}, "
+            f"hparams.json, board events {[os.path.getsize(e) for e in events]} bytes, launches "
+            f"{launches} (expected {want}: {calls} eval-mode clips of {clip_sites}); peak memory "
+            f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before the build "
+            f"[{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("9a: the SAMS trainer failed its checks")
+        out["fit"] = dict(launches=launches["fused_multispade"], calls=calls, fit_s=fit_s,
+                          peak_gib=peak)
+        shutil.rmtree(os.path.join(ckpt, "topk"))
+        shutil.rmtree(os.path.join(ckpt, "steps"))
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "timed_save"), state)
+        save_s = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(tmp, "timed_save"))
+
+        # 9b: FINAL into a fresh model on the card, bit for bit; one more step
+        opt_r = sams_options(vvt_dataroot=vvt, experiments_dir=exp, name="sams_resumed",
+                             remat=True, limit_train_batches="0.1", keep_epochs=1,
+                             decay_epochs=0, workers=4, **QUIET)
+        fresh = SamsModel(opt_r, DEVICE)
+        template = fresh.make_state(4)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint(final, template, map_location=DEVICE)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = differing(torch, state_tensors(state), state_tensors(template))
+        n_tensors = len(state_tensors(state))
+        del model, state, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = record_steps(torch, fresh, sync=False)
+        trainer = Trainer(opt_r)
+        template = trainer.fit(fresh, template)
+        losses, finite = finite_losses(rec["metrics"], "loss")
+        ok = not bad and finite and len(losses) == 1 and template.step == 5
+        log(f"9b resume: FINAL_step=4 ({size_gib:.3f} GiB) loaded with weights_only=True into a "
+            f"fresh model on the card in {load_s:.2f} s; {n_tensors} tensors and counts, "
+            f"differing bit for bit: {bad or 'none'}; saved in {save_s:.2f} s; one more fit step "
+            f"from step 4: loss {losses}, step {template.step} [{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("9b: the resume failed its checks")
+        out["checkpoint"] = dict(gib=size_gib, save_s=save_s, load_s=load_s)
+
+        # 9f (SAMS): the trainer's step against the bare step, same model
+        opt_t = sams_options(vvt_dataroot=vvt, experiments_dir=exp, name="sams_timed",
+                             remat=True, limit_train_batches="0.84", keep_epochs=1,
+                             decay_epochs=0, workers=4, **QUIET)
+        fresh.override_hparams(opt_t)
+        rec = record_steps(torch, fresh, sync=True)
+        template = Trainer(opt_t).fit(fresh, template)
+        trainer_ms = interval_ms(rec["marks"])
+        bare = time_train_steps(type(fresh).make_train_step(fresh), template,
+                                synthetic_raw_batch(opt_t, opt_t.batch_size, device=DEVICE),
+                                repeats=2, steps=3)
+        out["sams"] = dict(trainer_ms=trainer_ms, bare_ms=bare[0] * 1e3, workers=4)
+        log(f"9f SAMS step (batch 4, remat): trainer {trainer_ms[0]:.1f} ms (min "
+            f"{trainer_ms[1]:.1f}, max {trainer_ms[2]:.1f}; {len(rec['marks']) - 1} steps after "
+            f"the first, synchronized, 4 decode threads) against the bare step "
+            f"(bench.time_train_steps, median of 2 windows of 3) {bare[0] * 1e3:.1f} ms (min "
+            f"{bare[1] * 1e3:.1f}, max {bare[2] * 1e3:.1f}): "
+            f"{trainer_ms[0] / (bare[0] * 1e3):.3f}x [{card}]")
+
+        # 9d: SAMS's test export of the test tree, then again
+        opt_x = sams_options(vvt_dataroot=vvt, is_train=False, name="sams", workers=4,
+                             experiments_dir=exp, result_dir=os.path.join(tmp, "results"))
+        fresh.override_hparams(opt_x)
+        runs = []
+        for _ in range(2):
+            zero_counts(counters)
+            Trainer(opt_x).test(fresh, template)
+            torch.cuda.synchronize()
+            files = sorted(glob.glob(os.path.join(tmp, "results", "**", "*.png"), recursive=True))
+            runs.append((launch_counts(counters), {f: os.stat(f).st_mtime_ns for f in files}))
+        batches = -(-RUNTIME_TEST_FRAMES // opt_x.batch_size)
+        want = [{**{n: 0 for n in counters}, "fused_multispade": batches * clip_sites},
+                {n: 0 for n in counters}]
+        ok = (len(runs[0][1]) == RUNTIME_TEST_FRAMES and runs[1][1] == runs[0][1]
+              and [r[0] for r in runs] == want)
+        log(f"9d test export: {len(runs[0][1])} PNGs for {RUNTIME_TEST_FRAMES} clips "
+            f"({batches} batches, the last ragged), launches {runs[0][0]}; run again: files "
+            f"unchanged {runs[1][1] == runs[0][1]}, launches {runs[1][0]} (expected {want}) "
+            f"[{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("9d: the test export failed its checks")
+        del fresh, template, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 9c: the loader raises at step 2; the GMM at gmm_options on VITON
+        class LoaderFault(OSError):
+            """The fault 9c plants in the loader."""
+
+        class FaultyLoader(DataLoader):
+            def __iter__(self):
+                for i, batch in enumerate(super().__iter__()):
+                    if i == 2:
+                        raise LoaderFault("planted at step 2")
+                    yield batch
+
+        opt_g = gmm_options(viton_dataroot=viton, experiments_dir=exp, name="gmm_interrupt",
+                            workers=4, keep_epochs=1, decay_epochs=0, **QUIET)
+        gmm = WarpModel(opt_g, DEVICE)
+        snaps = []
+        make = type(gmm).make_train_step.__get__(gmm)
+
+        def snapshot_steps():
+            step = make()
+
+            def recorded(state, batch):
+                metrics = step(state, batch)
+                snaps.append({k: v.clone() if isinstance(v, torch.Tensor) else v
+                              for k, v in state_tensors(state).items()})
+                return metrics
+
+            return recorded
+
+        gmm.make_train_step = snapshot_steps
+        loader = type(gmm).train_dataloader.__get__(gmm)
+
+        def faulty():
+            built = loader()
+            built.__class__ = FaultyLoader
+            return built
+
+        gmm.train_dataloader = faulty
+        raised = None
+        try:
+            Trainer(opt_g).fit(gmm)
+        except LoaderFault as exc:
+            raised = exc
+        saved = os.path.join(exp, "gmm_interrupt", "checkpoints", "named",
+                             "interrupted_by_LoaderFault")
+        bad = (differing(torch, snaps[-1], payload_tensors(load_checkpoint(saved)))
+               if os.path.isdir(saved) else ["no checkpoint"])
+        ok = raised is not None and len(snaps) == 2 and not bad
+        log(f"9c interrupt: the loader raised {raised!r} at step 2 and it propagated; "
+            f"{len(snaps)} steps done; interrupted_by_LoaderFault against the state after step 1, "
+            f"differing bit for bit: {bad or 'none'} [{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("9c: the interrupt save failed its checks")
+        del gmm, snaps
+
+        # 9e: the two-stage chain, GMM -> TOM at their documented options
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        chain = run_chain(FRAME[0], FRAME[1], frames_per_video=8, batch_size=TOM_BATCH,
+                          workdir=os.path.join(tmp, "chain"), device=DEVICE)
+        torch.cuda.synchronize()
+        launches = launch_counts(counters)
+        # TOM's train steps, its images at step 0 and its test batches
+        calls = chain["tom_train_steps"] + 1 + chain["tom_test_batches"]
+        want = {**{n: 0 for n in counters}, "sagan_attention": STAGE_ATTENTION["unet_mask"] * calls}
+        ok = (chain["stage1_warp_cloth_files"] == chain["stage1_samples"] > 0
+              and chain["stage1_resume_skipped_all"] and launches == want
+              and chain["frames_scored"] == chain["stage1_samples"]
+              and 0 <= chain["ssim_tryon"] <= 1 and chain["psnr_tryon"] == chain["psnr_tryon"])
+        log(f"9e two-stage chain (VVT, 256x192, batch 8): {time.perf_counter() - t0:.1f} s; "
+            f"stage 1 {chain['stage1_warp_cloth_files']} warp cloths for "
+            f"{chain['stage1_samples']} samples, the second export skipped all {chain['stage1_resume_skipped_all']}; stage 2 "
+            f"{chain['tom_train_steps']} TOM steps, {chain['frames_scored']} frames scored: SSIM "
+            f"{chain['ssim_tryon']:.4f}, PSNR {chain['psnr_tryon']:.2f} dB (random weights: not "
+            f"quality numbers); launches {launches} (expected {want}: {calls} TOM forwards) "
+            f"[{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("9e: the two-stage chain failed its checks")
+        out["chain"] = dict(launches=launches["sagan_attention"], calls=calls,
+                            ssim=chain["ssim_tryon"], psnr=chain["psnr_tryon"])
+
+        # 9f: GMM (VITON) and TOM (VVT, one frame, both videos) trainer
+        # steps at 0 and 4 decode threads against the bare step
+        for kind, cls, builder, data in (
+                ("warp", WarpModel, gmm_options, dict(viton_dataroot=viton)),
+                ("unet_mask", UnetMaskModel, tom_options,
+                 dict(dataset="vvt", vvt_dataroot=vvt, val_fraction=0))):
+            net, st, readings = None, None, {}
+            for workers in (0, 4):
+                o = builder(experiments_dir=exp, name=f"{kind}_w{workers}", workers=workers,
+                            keep_epochs=1, decay_epochs=0, **data, **QUIET)
+                if net is None:
+                    net = cls(o, DEVICE)
+                else:
+                    net.override_hparams(o)
+                rec = record_steps(torch, net, sync=True)
+                st = Trainer(o).fit(net, st)
+                readings[workers] = interval_ms(rec["marks"])
+            bare = time_train_steps(type(net).make_train_step(net), st,
+                                    synthetic_raw_batch(o, TOM_BATCH, device=DEVICE),
+                                    loss_key="loss/G")
+            out[kind] = dict(trainer_ms={w: r[0] for w, r in readings.items()},
+                             bare_ms=bare[0] * 1e3, steps=len(rec["marks"]) - 1)
+            log(f"9f {kind} step (batch 8, 256x192, bf16): trainer " + ", ".join(
+                f"{w} threads {r[0]:.2f} ms (min {r[1]:.2f}, max {r[2]:.2f}), "
+                f"{r[0] / (bare[0] * 1e3):.3f}x" for w, r in readings.items())
+                + f" ({len(rec['marks']) - 1} steps after the first, synchronized) against the "
+                f"bare step (bench.time_train_steps) {bare[0] * 1e3:.2f} ms [{card}]")
+            del net, st
+
+        # 9f: the loader alone
+        rates = {}
+        sets = (("VVT 5-frame clips", find_dataset_using_name("vvt")(opt), 4),
+                ("VITON", find_dataset_using_name("viton")(gmm_options(viton_dataroot=viton)), 8))
+        for name, dataset, batch in sets:
+            for workers in (0, 4):
+                t0 = time.perf_counter()
+                n = sum(len(b["image_name"]) for b in DataLoader(dataset, batch, workers=workers))
+                rates[(name, workers)] = n / (time.perf_counter() - t0)
+        log("9f loader alone, samples/s: " + ", ".join(
+            f"{name} at {w} threads {r:.1f}" for (name, w), r in rates.items()) + f" [{card}]")
+        out["loader"] = {f"{name}, {w} threads": r for (name, w), r in rates.items()}
+        # what a sample's decode spends, one thread: ms a file of each kind
+        clips, images = sets[0][1], sets[1][1]
+        kinds = {
+            "person JPEG (VITON)": lambda i: images.open_image_u8(images.get_person_image_path(i)),
+            "label PNG (VITON)": lambda i: images.open_label_u8(images.get_person_parsed_path(i)),
+            "keypoint JSON (VITON)": images.get_cocopose_keypoints,
+            "grid PNG (the GMM's, every sample)": lambda i: images.open_image_u8(GRID_VIS_PATH),
+            "frame PNG (VVT)": lambda i: clips.open_image_u8(clips.get_person_image_path(i)),
+            "densepose PNG (VVT)": lambda i: clips.open_image_u8(
+                clips.get_person_densepose_path(i)),
+            "flow .flo (VVT)": clips.get_flow_raw,
+        }
+        per_file = {}
+        for name, fn in kinds.items():
+            t0 = time.perf_counter()
+            for i in range(RUNTIME_FRAMES):
+                fn(i)
+            per_file[name] = (time.perf_counter() - t0) * 1e3 / RUNTIME_FRAMES
+        log("9f decode, ms a file (one thread, 24 files each): " + ", ".join(
+            f"{name} {ms:.3f}" for name, ms in per_file.items()) + f" [{card}]")
+        out["decode_ms"] = per_file
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1850,6 +2276,11 @@ def main() -> int:
     del flownet
     log(f"phase 8 (FlowNet2 flow annotation): {time.perf_counter() - t0:.1f} s")
 
+    # phase 9, the training runtime and the host data, after every kernel phase
+    t0 = time.perf_counter()
+    runtime = run_runtime(torch, q_counters, n_sites * n_frames, card)
+    log(f"phase 9 (training runtime and host data): {time.perf_counter() - t0:.1f} s")
+
     # the int8 models' own count of int8 convs, against the list above
     log(f"int8 convs in the built generators: {built}, with attention {a_built} "
         f"(expected {n_convs} a frame)")
@@ -1922,6 +2353,8 @@ def main() -> int:
         "sams_attention_val_step_launches": sams_val["attention"]["launches"][
             "fused_multispade"],
         "sams_val_step_ms": sams_val["production"]["val_ms"],
+        # phase 9a: the trainer's SAMS fit (its validation and image calls)
+        "trainer_sams_launches": runtime["fit"]["launches"],
     }, {
         "name": "fused_multispade_int8",
         "route": "cuda",
@@ -2024,6 +2457,8 @@ def main() -> int:
         "tom_max_abs_err": max(e[0] for e in t_errors.values()),
         "tom5_max_abs_err": max(e[0] for e in t5_errors.values()),
         "sams_val_step_launches": sams_val["attention"]["launches"]["sagan_attention"],
+        # phase 9e: TOM's steps, images and test export in the two-stage chain
+        "chain_tom_launches": runtime["chain"]["launches"],
     }]
     for name in (*pr.SPECS, *pr.CONV_VARIANTS):
         key = name if name in pr.SPECS else (name, conv_probe.SHAPES[0])

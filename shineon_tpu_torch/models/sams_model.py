@@ -28,6 +28,7 @@ grids, norm statistics and the losses stay f32.
 from __future__ import annotations
 
 import logging
+import os.path as osp
 from typing import Dict
 
 import torch
@@ -36,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from shineon_tpu_torch.datasets.channels import RGB_CHANNELS, channels_for
 from shineon_tpu_torch.datasets.n_frames_interface import fold_frames_into_channels
 from shineon_tpu_torch.datasets.preprocess import preprocess_batch
-from shineon_tpu_torch.models.base_model import BaseModel, channels_of, gradients
+from shineon_tpu_torch.models.base_model import BaseModel, channels_of, gradients, to_numpy
 from shineon_tpu_torch.networks.attention import INIT_STD as attention_init_std
 from shineon_tpu_torch.networks.attention import SelfAttention
 from shineon_tpu_torch.networks.discriminator import (
@@ -51,6 +52,7 @@ from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator
 from shineon_tpu_torch.networks.vgg import load_vgg19
 from shineon_tpu_torch.ops import resample2d
 from shineon_tpu_torch.training.state import NetState, TrainState
+from shineon_tpu_torch.utils.visualization import get_save_paths, save_images
 
 
 class SamsModel(BaseModel):
@@ -373,6 +375,31 @@ class SamsModel(BaseModel):
             return out
 
         return visual_step
+
+    def visual_rows(self, v):
+        """One row a displayed input and for the cloth, the generated clip
+        and the frames, each frame a column (sams_model.py:722-742 of the
+        reference)."""
+        rows = []
+        for name in self.replace_actual_with_visual():
+            if name in v and v[name].ndim == 5:
+                rows.append([v[name][:, i] for i in range(v[name].shape[1])])
+        for key in ("cloth", "all_gen_frames", "image"):
+            rows.append([v[key][:, i] for i in range(v[key].shape[1])])
+        return rows
+
+    @torch.no_grad()
+    def test_step(self, state: TrainState, device_batch, host_batch) -> None:
+        """Write each clip's final generated frame under ``tryon/`` or
+        ``reconstruction/`` (sams_model.py:659-693 of the JAX package; the
+        reference's own SAMS test step writes nothing), skipping a batch
+        whose files all exist and each file that exists. On the card the
+        generator's SPADE chains run the fused chain kernel."""
+        dirs, names = self.export_targets(host_batch, "image_name", self.export_task())
+        if all(osp.exists(p) for p in get_save_paths(dirs, names)):
+            return
+        fake_frame, _, _ = self.generate_n_frames(self.features(device_batch), train=False)
+        save_images(to_numpy(fake_frame), names, dirs)
 
 
 def checkpointed(module: torch.nn.Module, *args, **kwargs):

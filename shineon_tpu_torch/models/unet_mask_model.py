@@ -14,12 +14,18 @@ U-Net's attention blocks run the SAGAN attention kernel.
 from __future__ import annotations
 
 import math
+import os.path as osp
 from typing import Dict
 
 import torch
 
 from shineon_tpu_torch.datasets.channels import RGB_CHANNELS
-from shineon_tpu_torch.models.base_model import BaseModel, get_and_cat_inputs, gradients
+from shineon_tpu_torch.models.base_model import (
+    BaseModel,
+    get_and_cat_inputs,
+    gradients,
+    to_numpy,
+)
 from shineon_tpu_torch.networks.attention import SelfAttention
 from shineon_tpu_torch.networks.cpvton.unet import UnetGenerator
 from shineon_tpu_torch.networks.init import normal_
@@ -28,6 +34,7 @@ from shineon_tpu_torch.networks.loss import VGGLoss, l1_loss
 from shineon_tpu_torch.networks.vgg import load_vgg19
 from shineon_tpu_torch.ops import resample2d
 from shineon_tpu_torch.training.state import TrainState
+from shineon_tpu_torch.utils.visualization import get_save_paths, save_images
 
 INIT_STD = 0.02  # every U-Net conv, the attention blocks' too: N(0, 0.02)
 
@@ -197,9 +204,25 @@ class UnetMaskModel(BaseModel):
 
         return visual_step
 
+    def visual_rows(self, v):
+        """The board grid (unet_mask_model.py:220-248 of the reference)."""
+        return [
+            self.fetch_person_visuals(v),
+            [v["cloth"], v["cloth_mask"] * 2 - 1, v["tryon_mask"] * 2 - 1],
+            [v["p_rendered"], v["p_tryon"], v["image"], v["prev_image"]],
+        ]
+
+    def test_step(self, state: TrainState, device_batch, host_batch) -> None:
+        """Write the last frame's composite under ``tryon/`` or
+        ``reconstruction/`` (unet_mask_model.py:266- of the JAX package),
+        skipping a batch whose files all exist and each file that exists."""
+        dirs, names = self.export_targets(host_batch, "image_name", self.export_task())
+        if all(osp.exists(p) for p in get_save_paths(dirs, names)):
+            return
+        save_images(to_numpy(self.test_fn(state, device_batch)), names, dirs)
+
     def test_fn(self, state: TrainState, raw_batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The test forward: the last frame's composite (B, H, W, 3), which
-        the JAX package's test step writes out as PNGs."""
+        """The test forward: the last frame's composite (B, H, W, 3)."""
         with torch.no_grad():
             _, _, p_tryons, _ = self.forward(self.features(raw_batch))
         return p_tryons[..., -RGB_CHANNELS:]

@@ -10,11 +10,17 @@ and the TPS basis products.
 
 from __future__ import annotations
 
+import os.path as osp
 from typing import Dict
 
 import torch
 
-from shineon_tpu_torch.models.base_model import BaseModel, get_and_cat_inputs, gradients
+from shineon_tpu_torch.models.base_model import (
+    BaseModel,
+    get_and_cat_inputs,
+    gradients,
+    to_numpy,
+)
 from shineon_tpu_torch.networks.cpvton.warp import GMM
 from shineon_tpu_torch.networks.init import normal_
 from shineon_tpu_torch.networks.layers import Conv2d, Dense
@@ -22,6 +28,7 @@ from shineon_tpu_torch.networks.loss import l1_loss
 from shineon_tpu_torch.networks.normalization import SyncBatchNorm
 from shineon_tpu_torch.ops import grid_sample
 from shineon_tpu_torch.training.state import TrainState
+from shineon_tpu_torch.utils.visualization import get_save_paths, save_images
 
 
 class WarpModel(BaseModel):
@@ -112,3 +119,26 @@ class WarpModel(BaseModel):
             return out
 
         return visual_step
+
+    def visual_rows(self, v):
+        """The board grid (warp_model.py:100-113 of the reference)."""
+        return [
+            self.fetch_person_visuals(v),
+            [v["cloth"], v["warped_cloth"], v["im_cloth"]],
+            [v["warped_grid"], (v["warped_cloth"] + v["image"]) * 0.5, v["image"]],
+        ]
+
+    @torch.no_grad()
+    def test_step(self, state: TrainState, device_batch, host_batch) -> None:
+        """Warp the batch and write ``warp-cloth/`` and ``warp-mask/`` PNGs
+        under each sample's dataset name; a batch whose cloths all exist
+        is skipped, and so is each file that exists (warp_model.py:174-)."""
+        cloth_dirs, names = self.export_targets(host_batch, "cloth_name", "warp-cloth")
+        mask_dirs, _ = self.export_targets(host_batch, "cloth_name", "warp-mask")
+        if all(osp.exists(p) for p in get_save_paths(cloth_dirs, names)):
+            return
+        feats = self.features(device_batch)
+        _, grid, _, warped_cloth = self.forward_loss(feats, train=False)
+        warped_mask = grid_sample(feats["cloth_mask"], grid, padding_mode="zeros")
+        save_images(to_numpy(warped_cloth), names, cloth_dirs)
+        save_images(to_numpy(warped_mask) * 2 - 1, names, mask_dirs)

@@ -7,11 +7,36 @@ gate) and of the GMM's warp-stage overrides; and of the documented GMM and
 TOM training configurations (docs/3_train.md). int8 serving is an option
 (``int8_spade``) rather than an environment variable; so are the JAX
 package's ``--remat``, ``--fast_gan_step`` and ``--reference_gan_semantics``
-flags."""
+flags.
+
+Every builder also carries the keys of the datasets and of the training
+runtime, with the defaults the JAX package's parsers give them
+(shineon_tpu/options/base_options.py, train_options.py, test_options.py
+and each dataset's ``modify_commandline_options``); with ``is_train=False``
+the test parser's defaults (``datamode`` "test", ``no_shuffle``,
+``val_fraction`` 0). A builder clamps an integer ``val_check_interval`` to
+an integer ``limit_train_batches``, and ``fast_dev_run`` sets it to 1
+(base_options.py:249-265); an unset ``n_frames_now`` is
+``n_frames_total``."""
 
 from __future__ import annotations
 
 import argparse
+
+from shineon_tpu_torch.utils import str2num
+
+# the dataset keys (TryonDataset, VitonDataset, VVTDataset, MPVDataset) and
+# the runtime keys (the base, train and test parsers) of the JAX package
+_RUNTIME_DEFAULTS = dict(
+    vvt_dataroot="/data_hdd/fw_gan_vvt", viton_dataroot="data",
+    mpv_dataroot="/data_hdd/mpv_competition", data_list="train_pairs.txt", val_fraction=0.01,
+    warp_cloth_dir=None, tryon_list=None, random_tryon=False,
+    name="unnamed_experiment", experiments_dir="experiments", checkpoint="", workers=4,
+    limit_train_batches="1.0", limit_val_batches="1.0", display_count=200, save_count=10000,
+    val_check_interval="0.125", fast_dev_run=False, no_shuffle=False, result_dir="test_results",
+)
+# what the test parser sets instead (test_options.py:15-20, tryon_dataset.py:63-64)
+_TEST_DEFAULTS = dict(datamode="test", no_shuffle=True, val_fraction=0)
 
 _SAMS_DEFAULTS = dict(
     model="sams", dataset="vvt", datamode="train", is_train=True,
@@ -67,7 +92,7 @@ _GMM_DEFAULTS = dict(
     model="warp", dataset="viton", datamode="train", is_train=True,
     person_inputs=["agnostic", "cocopose"], cloth_inputs=["cloth"],
     fine_height=256, fine_width=192, radius=5, cloth_mask_threshold=240,
-    visualize_flow=False, n_frames_total=1, flow_warp=False, batch_size=8,
+    visualize_flow=False, n_frames_total=1, n_frames_now=None, flow_warp=False, batch_size=8,
     ngf=64, grid_size=5, precision=16,
     lr=1e-4, keep_epochs=5, decay_epochs=5, accumulated_batches=1,
 )
@@ -81,7 +106,7 @@ _TOM_DEFAULTS = dict(
     model="unet_mask", dataset="viton", datamode="train", is_train=True,
     person_inputs=["agnostic", "densepose"], cloth_inputs=["cloth"],
     fine_height=256, fine_width=192, radius=5, cloth_mask_threshold=240,
-    visualize_flow=False, n_frames_total=1, flow_warp=False, batch_size=8,
+    visualize_flow=False, n_frames_total=1, n_frames_now=None, flow_warp=False, batch_size=8,
     self_attn=True, num_attn=3, activation="swish", pen_flow_mask=1.0, precision=16,
     lr=1e-4, keep_epochs=5, decay_epochs=5, accumulated_batches=1,
     allow_random_vgg=True,
@@ -89,10 +114,22 @@ _TOM_DEFAULTS = dict(
 
 
 def _options(defaults, overrides) -> argparse.Namespace:
+    defaults = {**defaults, **_RUNTIME_DEFAULTS}
     unknown = set(overrides) - set(defaults)
     if unknown:
         raise ValueError(f"unknown options: {sorted(unknown)}")
-    return argparse.Namespace(**{**defaults, **overrides})
+    if overrides.get("is_train", defaults["is_train"]) is False:
+        defaults.update(_TEST_DEFAULTS)
+    opt = argparse.Namespace(**{**defaults, **overrides})
+    if opt.n_frames_now is None:
+        opt.n_frames_now = opt.n_frames_total
+    if opt.fast_dev_run:
+        opt.val_check_interval = 1
+    elif (isinstance(str2num(opt.val_check_interval), int)
+          and isinstance(str2num(opt.limit_train_batches), int)
+          and str2num(opt.val_check_interval) > str2num(opt.limit_train_batches)):
+        opt.val_check_interval = opt.limit_train_batches
+    return opt
 
 
 def gmm_options(**overrides) -> argparse.Namespace:

@@ -1,2 +1,2 @@
-"""Training state and optimizers of the port (counterpart of
-shineon_tpu/training/)."""
+"""Training state, optimizers, checkpoints and the train loop of the port
+(counterpart of shineon_tpu/training/)."""

@@ -60,6 +60,24 @@ class Adam:
         torch._foreach_div_(updates, denom)
         torch._foreach_add_(self.params, updates, alpha=-lr)
 
+    def state_dict(self) -> dict:
+        """The moments (host copies, taken now) and the update count; the
+        schedule is the caller's, as optax keeps it out of its state."""
+        return {"mu": [m.detach().to("cpu", copy=True) for m in self.mu],
+                "nu": [v.detach().to("cpu", copy=True) for v in self.nu],
+                "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy the moments into this optimizer's tensors (on their device)."""
+        for name in ("mu", "nu"):
+            mine, saved = getattr(self, name), state[name]
+            if len(saved) != len(mine) or any(a.shape != b.shape for a, b in zip(mine, saved)):
+                raise ValueError(f"the saved {name} does not fit this optimizer's parameters")
+            for a, b in zip(mine, saved):
+                a.copy_(b)
+        self.count = int(state["count"])
+
 
 def make_optimizer(params: Iterable[torch.Tensor], lr: float, keep_epochs: int = 5,
                    decay_epochs: int = 5, steps_per_epoch: int = 1,

@@ -1,13 +1,14 @@
 """The port's training modules against the JAX package on the CPU, f32:
-the discriminators, the VGG19 features and their weight maps, the GAN and
-VGG losses, the init rules, the keep/decay schedule and Adam, the training
-options, the VGG missing-weights gate, remat against no remat in the port's
-own step, and the exact step of a generator with attention blocks against
-the JAX step. Weights are made in JAX and carried across with
-shineon_tpu_torch.convert; inputs come from a numpy seed. The generator's
-gradient and the exact and fast steps without attention are in
-test_torch_training_step.py (apart, so that each file's JAX compiles take
-about two minutes on one worker).
+the GAN loss, the init rules, the keep/decay schedule and Adam, the
+training options, the VGG missing-weights gate, and the helpers that hold
+a whole step against the JAX step (JaxSide, assert_step_matches). Weights
+are made in JAX and carried across with shineon_tpu_torch.convert; inputs
+come from a numpy seed. Apart, so that each file's JAX compiles run on a
+worker of their own: the generator's gradient and the exact and fast
+steps without attention (test_torch_training_step.py), the step with
+attention blocks (test_torch_training_attention.py), remat against no
+remat (test_torch_training_remat.py), and the discriminators, VGG19 and
+the perceptual loss (test_torch_training_networks.py).
 
 The ``gpu``-marked tests at the end run a small step on the card (they skip
 here). They need no JAX: ``python3 -m pytest --noconftest
@@ -22,36 +23,21 @@ from shineon_tpu_torch import convert
 from shineon_tpu_torch.bench import build_train
 from shineon_tpu_torch.datasets.n_frames_interface import fold_frames_into_channels
 from shineon_tpu_torch.models.sams_model import SamsModel, split_predictions
-from shineon_tpu_torch.networks.discriminator import (
-    MultiscaleDiscriminator,
-    NLayerDiscriminator,
-)
 from shineon_tpu_torch.networks.init import kernel_init_
-from shineon_tpu_torch.networks.loss import GANLoss, VGGLoss
-from shineon_tpu_torch.networks.normalization import SpectralConv2d
-from shineon_tpu_torch.networks.vgg import MissingVgg19WeightsError, Vgg19Features, load_vgg19
+from shineon_tpu_torch.networks.loss import GANLoss
+from shineon_tpu_torch.networks.vgg import MissingVgg19WeightsError, load_vgg19
 from shineon_tpu_torch.options import sams_options
 from shineon_tpu_torch.training.optimizers import Adam, keep_decay_schedule, make_optimizer
 
 try:  # every test but the gpu-marked ones; the card's machine has no JAX
-    import flax.linen as fnn
     import jax
     import jax.numpy as jnp
     import optax
 
     from __graft_entry__ import _raw_batch, _sams_opt
     from shineon_tpu.models.sams_model import SamsModel as JSamsModel
-    from shineon_tpu.networks.discriminator import (
-        MultiscaleDiscriminator as JMultiscaleDiscriminator,
-    )
-    from shineon_tpu.networks.discriminator import (
-        NLayerDiscriminator as JNLayerDiscriminator,
-    )
     from shineon_tpu.networks.init import kernel_init_for
     from shineon_tpu.networks.loss import GANLoss as JGANLoss
-    from shineon_tpu.networks.loss import VGGLoss as JVGGLoss
-    from shineon_tpu.networks.vgg import Vgg19Features as JVgg19Features
-    from shineon_tpu.networks.vgg import save_vgg19_params
     from shineon_tpu.training.optimizers import keep_decay_schedule as j_keep_decay_schedule
     from test_torch_attention import with_nonzero_gamma
     from test_torch_networks import _assert_rel, _np, _t
@@ -71,78 +57,6 @@ def _flat(tree):
     return [np.asarray(tree.detach().numpy() if isinstance(tree, torch.Tensor) else tree)]
 
 
-# ------------------------------------------------------------ discriminators
-
-@pytest.mark.parametrize("update_stats", [False, True])
-@pytest.mark.parametrize("multiscale", [False, True], ids=["nlayer", "multiscale"])
-def test_discriminator_matches_jax(multiscale, update_stats):
-    """Every feature of every scale (max rel 1e-5 of the layer's max), and
-    with ``update_stats`` the stored spectral u and sigma (rel 1e-5), from
-    the flax tree carried across by convert.DISCRIMINATOR_RENAMES: k4 s2
-    pad-2 spectral convs (SpectralConv2d's stride), instance norm, leaky
-    ReLU, the no-pad-count average-pool pyramid, xavier(0.02) weights."""
-    rng = np.random.RandomState(0)
-    x = rng.randn(2, 32, 24, 7).astype(np.float32)
-    kw = dict(ndf=8, n_layers=4, norm_D="spectralinstance")
-    jd = JMultiscaleDiscriminator(num_D=2, **kw) if multiscale else JNLayerDiscriminator(**kw)
-    variables = _np(jd.init(jax.random.PRNGKey(3), jnp.zeros((1, 32, 24, 7))))
-    td = (MultiscaleDiscriminator(7, num_D=2, **kw) if multiscale
-          else NLayerDiscriminator(7, **kw))
-    convert.load_flax(td, variables, convert.DISCRIMINATOR_RENAMES)
-    if update_stats:
-        ref, new_vars = jd.apply(variables, x, update_stats=True, mutable=["batch_stats"])
-    else:
-        ref, new_vars = jd.apply(variables, x), None
-    with torch.no_grad():
-        out = td(_t(x), update_stats=update_stats)
-    refs, outs = _flat(ref), _flat(out)
-    assert len(outs) == len(refs) == (10 if multiscale else 5)
-    for o, r in zip(outs, refs):
-        _assert_rel(o, r, 1e-5)
-    if update_stats:
-        mine = td.state_dict()
-        for name, value in convert.flax_to_state_dict(
-                _np(new_vars), convert.DISCRIMINATOR_RENAMES).items():
-            _assert_rel(mine[name].numpy(), value.numpy(), 1e-5)
-            assert name.endswith((".u", ".sigma"))
-    else:  # the gradient of the logits' sum with respect to the input, rel 1e-5
-        jg = jax.grad(lambda a: sum(r.sum() for r in _flat_logits(jd.apply(variables, a))))(x)
-        xt = _t(x).requires_grad_()
-        (g,) = torch.autograd.grad(sum(r.sum() for r in _flat_logits(td(xt))), [xt])
-        _assert_rel(g.numpy(), jg, 1e-5)
-
-
-def _flat_logits(out):
-    """The logits of a discriminator's output: the last feature of each scale."""
-    if isinstance(out[0], (list, tuple)):
-        return [scale[-1] for scale in out]
-    return [out[-1]]
-
-
-def test_spectral_conv_stride_matches_flax():
-    """SpectralConv2d with stride 2 and padding 2 is flax
-    nn.SpectralNorm(nn.Conv(strides=2, padding=2)): output and stored u
-    (rel 1e-5)."""
-
-    class J(fnn.Module):
-        @fnn.compact
-        def __call__(self, x, update_stats):
-            conv = fnn.Conv(6, (4, 4), strides=(2, 2), padding=((2, 2), (2, 2)), name="conv")
-            return fnn.SpectralNorm(conv)(x, update_stats=update_stats)
-
-    x = np.random.RandomState(1).randn(2, 11, 9, 5).astype(np.float32)
-    variables = _np(J().init(jax.random.PRNGKey(0), jnp.zeros((1, 11, 9, 5)), False))
-    ref, new_vars = J().apply(variables, x, True, mutable=["batch_stats"])
-    tm = SpectralConv2d(5, 6, 4, padding=2, stride=2)
-    sd = convert.flax_to_state_dict(variables, ())
-    tm.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
-    with torch.no_grad():
-        out = tm(_t(x), update_stats=True)
-    _assert_rel(out.numpy(), ref, 1e-5)
-    _assert_rel(tm.u.numpy(), np.asarray(new_vars["batch_stats"]["SpectralNorm_0"]["conv/kernel/u"]),
-                1e-5)
-
-
 def test_split_predictions_and_fold_match_jax():
     """split_predictions keeps the nested structure and halves each batch;
     fold_frames_into_channels is the JAX package's frame-major fold."""
@@ -159,33 +73,6 @@ def test_split_predictions_and_fold_match_jax():
 
 
 # ---------------------------------------------------------------- VGG19
-
-def _jax_vgg(seed=5):
-    return _np(JVgg19Features().init(jax.random.PRNGKey(seed), jnp.zeros((1, 32, 32, 3))))
-
-
-def test_vgg_features_match_jax(tmp_path, monkeypatch):
-    """The five slice outputs (max rel 1e-5) with the JAX filters carried
-    across by convert.VGG_RENAMES, and the same filters read back from the
-    JAX package's .npz format by load_vgg19 (SHINEON_VGG19_WEIGHTS)."""
-    variables = _jax_vgg()
-    x = np.random.RandomState(2).uniform(-1, 1, (2, 32, 24, 3)).astype(np.float32)
-    ref = JVgg19Features().apply(variables, x)
-    path = tmp_path / "vgg19.npz"
-    save_vgg19_params(variables, str(path))
-    monkeypatch.setenv("SHINEON_VGG19_WEIGHTS", str(path))
-    monkeypatch.delenv("SHINEON_ALLOW_RANDOM_VGG", raising=False)
-    from_npz = load_vgg19()
-    converted = Vgg19Features()
-    convert.load_flax(converted, variables, convert.VGG_RENAMES)
-    for model in (converted, from_npz):
-        with torch.no_grad():
-            out = model(_t(x))
-        assert len(out) == 5
-        for o, r in zip(out, ref):
-            _assert_rel(o.numpy(), r, 1e-5)
-    assert not any(p.requires_grad for p in from_npz.parameters())
-
 
 def test_vgg_missing_weights_gate(monkeypatch):
     """Without SHINEON_VGG19_WEIGHTS load_vgg19 raises, unless random
@@ -245,30 +132,6 @@ def _flat_tensors(tree):
     if isinstance(tree, (list, tuple)):
         return [a for t in tree for a in _flat_tensors(t)]
     return [tree]
-
-
-@pytest.mark.parametrize("layids", [(0, 1, 2, 3), None], ids=["relu1-4", "all"])
-def test_vgg_loss_matches_jax(layids):
-    """The perceptual loss and its gradient with respect to the generated
-    image (the target's features detached) against JAX's VGGLoss, same
-    filters: the loss within rel 1e-5; the gradient through relu1_1 ..
-    relu4_1 within 1e-5 of its max, through all five within 1e-2. At 32x24
-    relu5_1 holds 1024 values, and at these inputs one of its relu kinks
-    lies within an f32 rounding of zero: the two frameworks take opposite
-    sides of it, which moves the whole gradient by 2e-3 of its max."""
-    variables = _jax_vgg(6)
-    rng = np.random.RandomState(4)
-    x = rng.uniform(-1, 1, (2, 32, 24, 3)).astype(np.float32)
-    y = rng.uniform(-1, 1, (2, 32, 24, 3)).astype(np.float32)
-    jvgg = JVGGLoss(variables=variables, layids=layids)
-    ref, jg = jax.value_and_grad(lambda a: jvgg(a, jnp.asarray(y)))(jnp.asarray(x))
-    model = Vgg19Features()
-    convert.load_flax(model, variables, convert.VGG_RENAMES)
-    xt = _t(x).requires_grad_()
-    out = VGGLoss(model.requires_grad_(False), layids)(xt, _t(y))
-    (g,) = torch.autograd.grad(out, [xt])
-    _assert_rel(out.detach().numpy(), ref, 1e-5)
-    _assert_rel(g.numpy(), jg, 1e-5 if layids else 1e-2)
 
 
 # ---------------------------------------------------- init, options, Adam
@@ -343,40 +206,6 @@ def _snapshot(model):
                               ("d_multi", model.multiscale_discriminator),
                               ("d_temporal", model.temporal_discriminator))}
 
-
-@pytest.mark.parametrize("attention", [False, True], ids=["plain", "attention"])
-def test_remat_matches_no_remat(attention):
-    """One exact step with remat (each frame's activations recomputed in
-    the backward pass, on a snapshot of the buffers the frame saw) against
-    the same step without: the same metrics, statistics (running stats,
-    spectral u and sigma: equal, so the recompute wrote none of them) and
-    parameters (within 1e-3 of the learning rate: the gradients may sum in
-    another order). A recompute that ran on the live buffers would
-    normalise with the already-updated u and store the statistics twice."""
-    placement = dict(attention_middle_indices=("-1",), attention_decoder_indices=("0",))
-    runs = []
-    for remat in (False, True):
-        model, state, step, raw, _ = build_train(
-            2, device="cpu", seed=11, remat=remat, **TINY_TRAIN,
-            **(placement if attention else {}))
-        if attention:
-            g = torch.Generator().manual_seed(12)
-            with torch.no_grad():
-                for name, p in model.generator.named_parameters():
-                    if name.endswith("gamma"):
-                        p.copy_(0.5 + 0.1 * torch.randn(p.shape, generator=g))
-        metrics = step(state, raw)
-        runs.append((metrics, _snapshot(model)))
-    (m0, s0), (m1, s1) = runs
-    for k in m0:
-        assert float(m0[k]) == pytest.approx(float(m1[k]), rel=1e-6), k
-    for net in s0:
-        for name, a in s0[net].items():
-            b = s1[net][name]
-            if name.endswith(("running_mean", "running_var", ".u", ".sigma")):
-                assert torch.equal(a, b), (net, name)
-            else:
-                assert (a - b).abs().max().item() <= 1e-3 * 1e-4, (net, name)
 
 
 # --------------------------------------------- the whole step against JAX
@@ -498,17 +327,6 @@ def assert_step_matches(side, new_state, jmetrics, model, metrics, exact):
                 total += r.size
         limit = 3e-2 if exact and name != "generator" else 1e-3
         assert flipped <= limit * total, (name, flipped, total)
-
-
-def test_train_step_with_attention_matches_jax():
-    """The exact step of a generator with attention blocks, every gamma
-    nonzero, against the JAX step (assert_step_matches): the attention's
-    forward and its recompute backward inside the generator's gradient."""
-    side = JaxSide(attention=True)
-    new_state, jmetrics = side.step()
-    model, state, raw = side.port()
-    metrics = model.make_train_step()(state, raw)
-    assert_step_matches(side, new_state, jmetrics, model, metrics, exact=True)
 
 
 # ------------------------------------------------------------ entry points
