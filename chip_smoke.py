@@ -10,8 +10,8 @@ Phases, each fatal on failure:
      once) and print their ptxas reports; fail unless the bf16 serving
      bodies run on wgmma fed by bulk or tensor-map copies (cuobjdump's
      SASS: HGMMA in the bf16 chain and attention, IGMMA in the quantized
-     chain and the int8 conv; UBLKCP or UTMALDG in each) and ptxas reports
-     no spills for them;
+     chain and the int8 conv; UBLKCP or UTMALDG in each; the chains' every
+     hidden-activation instance) and ptxas reports no spills for them;
   3. hold each kernel against its plain PyTorch version at every shape the
      serving clips give it (the clips' batch), in bf16 and f32, plus a
      ragged tile, element by element, and time kernel and plain version on
@@ -122,7 +122,24 @@ Phases, each fatal on failure:
      times for each TOM forward, SSIM and PSNR printed; (f) the trainer's
      step (synchronized, median of the steps after the first) against
      bench.time_train_steps on the same model, SAMS at 4 decode threads,
-     the GMM and TOM at 0 and 4, and the loader alone in samples/s.
+     the GMM and TOM at 0 and 4, and the loader alone in samples/s;
+ 10. (a) kernels 1 and 2 with the hidden activations gelu, swish and sine
+     (relu is phases 3a and 3b) against their plain versions at the clip's
+     site shapes, the ragged tile, the edges and the repaired shapes, bf16
+     and f32, under fs.KERNEL_TOLERANCE and fs.int8_chain_agrees, with a
+     control at every bf16 site that must fail (the relu kernels against
+     the swish plain versions), then each activation's device time at the
+     top site in turns with relu's; (b) the command line in process at full
+     width on synthetic trees: shineon_tpu_torch.train.main with the
+     production SAMS options as flags, --activation swish, --init_type
+     orthogonal and --accumulated_batches 2 (its namespace against
+     sams_options(), the parameters moving on even mini-steps only, the
+     chain kernel 150 times an eval-mode clip), the same fit at
+     accumulation 1 (the trainer's step against it), the test entry from
+     its checkpoint with --int8_spade (kernel 2 and its pre-pass 150 times
+     each a batch), the test entry without a checkpoint (refused), and the
+     documented GMM and TOM commands with --fast_dev_run (attention 6 times
+     a TOM forward), each with every launch count at 0 before it.
 
 Phase 3d also holds the attention kernel at TOM's shapes: one frame and
 five frames at TOM's batch of 8, each timed, and the small step's shapes
@@ -254,8 +271,11 @@ def sass_counts(cuda_build, source):
 
 # The bf16 serving bodies of each kernel source (a name their symbols hold)
 # and the wgmma their SASS must show.
+# The chain bodies are one instance a hidden activation (the template
+# argument Act of csrc/fused_multispade.cu: 0 relu, 1 gelu, 2 swish, 3 sine).
 SERVING_BODIES = {
-    "fused_multispade": {"chain_kernel_bf16E": "HGMMA", "chain_kernel_q_bf16E": "IGMMA"},
+    "fused_multispade": {**{f"chain_kernel_bf16ILi{a}E": "HGMMA" for a in range(4)},
+                         **{f"chain_kernel_q_bf16ILi{a}E": "IGMMA" for a in range(4)}},
     "int8_conv3x3": {"conv_wgmma": "IGMMA"},
     "sagan_attention": {"attention_wgmma": "HGMMA"},
 }
@@ -559,6 +579,96 @@ def check_int8_chain(torch, fs):
         raise SystemExit(f"quantized chain disagrees with its plain version (or a control "
                          f"passes) at {', '.join(failed)}")
     return errors, timings
+
+
+# phase 10a: the chain kernels' other hidden activations (relu is phases
+# 3a and 3b), at the clip's site shapes without attention, the ragged tile,
+# the tiling's edges and the repaired shapes
+ACTIVATION_SITES = SITES[:13] + (RAGGED,) + EDGES + REPAIRED
+OTHER_ACTIVATIONS = ("gelu", "swish", "sine")
+
+
+def check_activations(torch, fs, card):
+    """Phase 10a: kernels 1 and 2 (the full-precision chain, the quantized
+    chain with its pre-pass) with each of gelu, swish and sine against
+    their plain versions on the same operands, at ACTIVATION_SITES in bf16
+    and f32, under fs.KERNEL_TOLERANCE and fs.int8_chain_agrees. A control
+    at every bf16 site must fail: the relu kernels against the swish plain
+    versions. Then the device time of each activation's kernels at the top
+    site, in turns with relu's. Every case is printed before a failure ends
+    the run."""
+    errors, failed = {}, []
+    for i, site in enumerate(ACTIVATION_SITES):
+        H, W, C, seg = site[:4]
+        for dtype in (torch.bfloat16, torch.float32):
+            args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, dtype, seed=1000 + i),
+                             DEVICE)
+            name = str(dtype).split(".")[-1]
+            tol = fs.KERNEL_TOLERANCE[dtype]
+            for act in OTHER_ACTIVATIONS:
+                out = fs.fused_multispade_modulate(*args, act_name=act)
+                ref = fs.multispade_modulate_plain(*args, act_name=act)
+                q_out = fs.fused_multispade_modulate(*args, act_name=act, quantized=True)
+                q_ref = fs.multispade_modulate_plain_int8(*args, act_name=act)
+                torch.cuda.synchronize()
+                ratio = fs.error_ratio(out, ref)
+                ok = bool(torch.isfinite(out.float()).all()) and ratio <= tol
+                q_ok, q_ratio, q_rms = fs.int8_chain_agrees(q_out, q_ref, act)
+                err = (out.float() - ref.float()).abs().max().item()
+                q_err = (q_out.float() - q_ref.float()).abs().max().item()
+                control = ""
+                if act == "swish" and dtype == torch.bfloat16:
+                    relu = fs.error_ratio(fs.fused_multispade_modulate(*args), ref)
+                    q_relu_ok, q_relu, q_relu_rms = fs.int8_chain_agrees(
+                        fs.fused_multispade_modulate(*args, quantized=True), q_ref, act)
+                    control = (f"; must fail: relu kernels {relu:.3g} (fp), "
+                               f"{q_relu:.3g}/{q_relu_rms:.3g} (int8)")
+                    ok = ok and relu > tol
+                    q_ok = q_ok and not q_relu_ok
+                log(f"check {act:5s} {name:8s} B={BATCH} H={H} W={W} C={C} {seg_name(seg)}: "
+                    f"fp max_abs_err={err:.4g} max|d|/(|ref|+rms)={ratio:.3g} (limit {tol:g}); "
+                    f"int8 max_abs_err={q_err:.4g} {q_ratio:.3g}/{q_rms:.3g} (limits "
+                    f"{fs.int8_limit(dtype, act):g}, {fs.INT8_RMS_TOLERANCE:g})"
+                    f"{control} {'ok' if ok and q_ok else 'FAIL'}")
+                errors[(H, W, C, seg, name, act)] = (err, q_err)
+                if not (ok and q_ok):
+                    failed.append(f"{act} {(H, W, C, seg)} {name}")
+                del out, ref, q_out, q_ref
+            del args
+    if failed:
+        raise SystemExit(f"a chain kernel with another activation disagrees with its plain "
+                         f"version (or its control passes) at {', '.join(failed)}")
+
+    # the top site's device time of each activation, relu's first and last
+    top = max(SITES, key=lambda s: site_cost(BATCH, *s[:4], 2)[0])
+    H, W, C, seg = top[:4]
+    args = to_device(chain_inputs(torch, BATCH, H, W, C, seg, torch.bfloat16, seed=999), DEVICE)
+    packed = fs.pack_weights(*args[3:], torch.bfloat16)
+    packed_q = fs.pack_weights(*args[3:], torch.bfloat16, quantized=True)
+    times = {}
+    with torch.no_grad():
+        for act in ("relu",) + OTHER_ACTIVATIONS + ("relu",):
+            dev = device_times(torch, lambda: (
+                fs.fused_multispade_modulate(*args, act_name=act, packed=packed),
+                fs.fused_multispade_modulate(*args, act_name=act, packed=packed_q,
+                                             quantized=True)), 5, {
+                "fp": CHAIN_KERNELS, "chain_q": INT8_CHAIN_KERNELS[:1],
+                "pre": INT8_CHAIN_KERNELS[1:]})
+            times.setdefault(act, []).append(dev)
+    bound_ms = bound(site_cost(BATCH, H, W, C, seg, 2)[0] / H100_BF16_FLOPS,
+                     site_cost(BATCH, H, W, C, seg, 2)[1])[0]
+    q_bound_ms = int8_site_bound(BATCH, H, W, C, seg)[0]
+    out = {}
+    for act, runs in times.items():
+        fp = [r["fp"] for r in runs]
+        q = [r["chain_q"] + r["pre"] for r in runs]
+        pre = [r["pre"] for r in runs]
+        out[act] = dict(device_ms=fp, int8_device_ms=q, prepass_ms=pre)
+        log(f"time {act:5s} bf16 B={BATCH} H={H} W={W} C={C} {seg_name(seg)}: kernel 1 device "
+            f"{', '.join(f'{v:.4f}' for v in fp)} ms (bound {bound_ms:.4f}); kernel 2 with its "
+            f"pre-pass {', '.join(f'{v:.4f}' for v in q)} ms (pre-pass "
+            f"{', '.join(f'{v:.4f}' for v in pre)}; bound {q_bound_ms:.4f}) [{card}]")
+    return errors, out, top
 
 
 def check_int8_conv(torch, ic, fs):
@@ -2138,6 +2248,231 @@ def run_runtime(torch, counters, clip_sites, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 10b: the command line at full width. The SAMS run: the production
+# options of sams_options() as flags (5-frame VVT clips, flow warp, batch
+# 4, bf16, the random-filter VGG), with swish, orthogonal discriminator
+# kernels and two mini-steps an update; 4 train batches, validation (one
+# batch) every 2 steps, one epoch, 4 decode threads
+CLI_SAMS_FLAGS = ["--model", "sams", "--dataset", "vvt", "--flow_warp", "--n_frames_total", "5",
+                  "--batch_size", "4", "--allow_random_vgg", "--activation", "swish",
+                  "--workers", "4"]
+CLI_EPOCH_FLAGS = ["--keep_epochs", "1", "--decay_epochs", "0", "--init_type", "orthogonal",
+                   "--limit_train_batches", "4"]
+CLI_FIT_FLAGS = CLI_EPOCH_FLAGS + ["--accumulated_batches", "2", "--val_check_interval", "2",
+                                   "--limit_val_batches", "1"]
+# the same keys as builder overrides, for the namespace check
+CLI_SAMS_KEYS = dict(n_frames_total=5, flow_warp=True, batch_size=4, allow_random_vgg=True,
+                     activation="swish", keep_epochs=1, decay_epochs=0, workers=4,
+                     init_type="orthogonal", accumulated_batches=2, limit_train_batches="4",
+                     val_check_interval="2", limit_val_batches="1")
+CLI_ATTENTION_PER_FORWARD = 6  # TOM's --num_attn 3: 3 levels, each end
+
+
+def step_watch(torch, model_cls):
+    """Wrap ``model_cls.make_train_step`` (the class's, so that the model
+    the command line builds runs it): for each step, which networks'
+    parameters moved and the host time to a synchronize at its end. Returns
+    (records, restore)."""
+    orig = model_cls.make_train_step
+    rec = {"moved": [], "ms": []}
+
+    def make_train_step(self):
+        step = orig(self)
+
+        def watched(state, batch):
+            before = {n: [p.detach().clone() for p in net.module.parameters()]
+                      for n, net in state.nets.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["moved"].append({n: any(not torch.equal(a, b) for a, b in zip(
+                before[n], net.module.parameters())) for n, net in state.nets.items()})
+            del before
+            return metrics
+
+        return watched
+
+    model_cls.make_train_step = make_train_step
+    return rec, lambda: setattr(model_cls, "make_train_step", orig)
+
+
+def run_cli(torch, counters, clip_sites, card):
+    """Phase 10b: ``shineon_tpu_torch.train.main`` and ``.test``'s entry, in
+    process, on synthetic trees at 256x192 (tools/synthetic_data.py), every
+    launch count at 0 before each entry and read after it. Returns the
+    readings."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from shineon_tpu_torch import train as cli
+    from shineon_tpu_torch.models.sams_model import SamsModel
+    from shineon_tpu_torch.options import TrainOptions, sams_options
+    from shineon_tpu_torch.tools import synthetic_data
+
+    tmp = tempfile.mkdtemp(prefix="shineon_cli_")
+    out = {}
+    try:
+        vvt, viton, exp, res = (os.path.join(tmp, d) for d in ("vvt", "viton", "exp", "res"))
+        synthetic_data.make_vvt_tree(vvt, n_videos=2, frames=RUNTIME_FRAMES, seed=5)
+        synthetic_data.make_vvt_tree(vvt, n_videos=1, frames=RUNTIME_TEST_FRAMES,
+                                     datamode="test", seed=6)
+        synthetic_data.make_viton_tree(viton, n=16, seed=7)
+        where = ["--vvt_dataroot", vvt, "--experiments_dir", exp]
+
+        # the namespace the command line gives against the builder's
+        argv = CLI_SAMS_FLAGS + CLI_FIT_FLAGS + where + ["--name", "cli_sams"]
+        parsed = vars(TrainOptions().parse(argv))
+        built = vars(sams_options(vvt_dataroot=vvt, experiments_dir=exp, name="cli_sams",
+                                  **CLI_SAMS_KEYS))
+        norm = lambda v: list(v) if isinstance(v, tuple) else v  # noqa: E731
+        shared = sorted(set(parsed) & set(built))
+        differ = {k: (parsed[k], built[k]) for k in shared if norm(parsed[k]) != norm(built[k])}
+        log(f"10b the command line's namespace against sams_options(): {len(shared)} shared "
+            f"keys, differing: {differ or 'none'} {'ok' if not differ else 'FAIL'}")
+        if differ:
+            raise SystemExit("10b: the parsed namespace differs from sams_options()")
+
+        # train: accumulation 2; parameters move on even mini-steps only
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec, restore = step_watch(torch, SamsModel)
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        try:
+            state = cli.main(True, argv)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        # eval-mode clips: the train images at step 0; at steps 2 and 4 a
+        # validation batch and its images
+        calls = 1 + 2 * 2
+        want = {n: 0 for n in counters}
+        want["fused_multispade"] = calls * clip_sites
+        moved = [sorted(n for n, m in r.items() if m) for r in rec["moved"]]
+        nets = sorted(state.nets)
+        want_moved = [[], nets, [], nets]
+        final = os.path.join(exp, "cli_sams", "checkpoints", "named", "FINAL_step=4")
+        ok = (launches == want and moved == want_moved and state.step == 4
+              and os.path.isdir(final)
+              and all(net.optimizer.inner.count == 2 for net in state.nets.values()))
+        acc2_ms = statistics.median(rec["ms"][1:])
+        flags = " ".join(CLI_SAMS_FLAGS + CLI_FIT_FLAGS)
+        log(f"10b train: python -m shineon_tpu_torch.train {flags}: {fit_s:.1f} s wall; "
+            f"networks moved a step {moved} (expected {want_moved}); launches {launches} "
+            f"(expected {want}: {calls} eval-mode swish clips of {clip_sites}); step "
+            f"{[round(v, 1) for v in rec['ms']]} ms [{card}] "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("10b: the training entry failed its checks")
+        del state
+        out["train"] = dict(wall_s=fit_s, launches=launches["fused_multispade"], calls=calls,
+                            step_ms=rec["ms"])
+
+        # the same fit at accumulation 1, no validation: the trainer's step
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec1, restore = step_watch(torch, SamsModel)
+        t0 = time.perf_counter()
+        try:
+            cli.main(True, CLI_SAMS_FLAGS + CLI_EPOCH_FLAGS + where + [
+                "--name", "cli_sams_acc1", "--val_check_interval", "1000000",
+                "--display_count", "1000000", "--save_count", "1000000"])
+        finally:
+            restore()
+        acc1_s = time.perf_counter() - t0
+        acc1_ms = statistics.median(rec1["ms"][1:])
+        log(f"10b trainer step, median of steps 2-4 (synchronized): accumulation 2 "
+            f"{acc2_ms:.1f} ms (mini-steps {[round(v, 1) for v in rec['ms']]}), accumulation 1 "
+            f"{acc1_ms:.1f} ms ({[round(v, 1) for v in rec1['ms']]}), ratio "
+            f"{acc2_ms / acc1_ms:.3f}; the accumulation-1 entry {acc1_s:.1f} s wall [{card}]")
+        out["step_ms"] = {"accumulation_2": acc2_ms, "accumulation_1": acc1_ms}
+
+        # test from the checkpoint, int8 serving with swish
+        gc.collect()
+        torch.cuda.empty_cache()
+        test_argv = CLI_SAMS_FLAGS + where + ["--name", "cli_sams", "--checkpoint", final,
+                                              "--int8_spade", "--result_dir", res]
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        tested = cli.main(False, test_argv)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        batches = -(-RUNTIME_TEST_FRAMES // 4)
+        n_convs = sum(shape[4] for shape in CONVS) * 5
+        want = {n: 0 for n in counters}
+        want.update({"fused_multispade_int8": batches * clip_sites,
+                     "multispade_hidden_absmax": batches * clip_sites,
+                     "int8_conv3x3": batches * n_convs, "int8_quantize": batches * n_convs})
+        pngs = glob.glob(os.path.join(res, "cli_sams", "FINAL_step=4", "test", "**", "*.png"),
+                         recursive=True)
+        ok = (launches == want and len(pngs) == RUNTIME_TEST_FRAMES
+              and sorted(tested.nets) == ["generator"])
+        log(f"10b test: python -m shineon_tpu_torch.test --checkpoint FINAL_step=4 --int8_spade "
+            f"(swish): {test_s:.1f} s wall, {len(pngs)} PNGs (expected {RUNTIME_TEST_FRAMES}); "
+            f"launches {launches} (expected {want}: {batches} batches) [{card}] "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("10b: the test entry failed its checks")
+        out["test"] = dict(wall_s=test_s, launches=launches["fused_multispade_int8"],
+                           prepass_launches=launches["multispade_hidden_absmax"])
+        del tested
+
+        # test without a checkpoint: the refusal
+        zero_counts(counters)
+        try:
+            cli.main(False, CLI_SAMS_FLAGS + where + ["--name", "cli_refused"])
+            refused = None
+        except SystemExit as exc:
+            refused = str(exc)
+        ok = (refused is not None and "needs --checkpoint" in refused
+              and not any(launch_counts(counters).values())
+              and not os.path.exists(os.path.join(exp, "cli_refused")))
+        log(f"10b test without --checkpoint: refused ({refused!r}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("10b: the test entry ran without a checkpoint")
+
+        # the documented GMM and TOM commands (docs/3_train.md), one batch
+        # each; VITON has no densepose (TOM's person input raises there in
+        # both packages), so TOM runs over the VVT tree at one frame
+        stages = (
+            ("gmm", ["--name", "gmm_train", "--model", "gmm", "--dataset", "viton",
+                     "--viton_dataroot", viton, "--batch_size", "8", "--workers", "4"], 0),
+            ("tom", ["--name", "tom_train", "--model", "tom", "--dataset", "vvt",
+                     "--vvt_dataroot", vvt, "--self_attn", "--num_attn", "3",
+                     "--activation", "swish", "--allow_random_vgg"],
+             CLI_ATTENTION_PER_FORWARD * 4),  # train step, its images, val step, its images
+        )
+        for name, args, attention in stages:
+            gc.collect()
+            torch.cuda.empty_cache()
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            state = cli.main(True, args + ["--experiments_dir", exp, "--fast_dev_run"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(counters)
+            want = {n: 0 for n in counters}
+            want["sagan_attention"] = attention
+            ok = launches == want and state.step == 1
+            log(f"10b {name}: python -m shineon_tpu_torch.train {' '.join(args[2:6])} ... "
+                f"--fast_dev_run: {wall:.1f} s wall, step {state.step}, launches {launches} "
+                f"(expected {want}) [{card}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"10b: the documented {name} command failed its checks")
+            out[name] = dict(wall_s=wall, launches=launches["sagan_attention"])
+            del state
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2281,11 +2616,29 @@ def main() -> int:
     runtime = run_runtime(torch, q_counters, n_sites * n_frames, card)
     log(f"phase 9 (training runtime and host data): {time.perf_counter() - t0:.1f} s")
 
+    # phase 10: kernels 1 and 2 with the other hidden activations, then the
+    # command line at full width
+    t0 = time.perf_counter()
+    act_errors, act_times, act_top = check_activations(torch, fs, card)
+    log(f"phase 10a (hidden activations): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli = run_cli(torch, q_counters, n_sites * n_frames, card)
+    log(f"phase 10b (the command line): {time.perf_counter() - t0:.1f} s")
+
     # the int8 models' own count of int8 convs, against the list above
     log(f"int8 convs in the built generators: {built}, with attention {a_built} "
         f"(expected {n_convs} a frame)")
     if built != n_convs or a_built != n_convs:
         raise SystemExit("an int8 generator's conv count disagrees with the conv list")
+
+    act_key = act_top[:4]
+    activations = {act: {"device_ms": t["device_ms"][0], "int8_device_ms": t["int8_device_ms"][0],
+                         "prepass_ms": t["prepass_ms"][0]} for act, t in act_times.items()}
+    for act in OTHER_ACTIVATIONS:
+        activations[act]["max_abs_err"], activations[act]["int8_max_abs_err"] = act_errors[
+            act_key + ("bfloat16", act)]
+    activations["relu"]["device_ms_again"] = act_times["relu"]["device_ms"][1]
+    activations["relu"]["int8_device_ms_again"] = act_times["relu"]["int8_device_ms"][1]
 
     def per_clip(tim, key="per_frame"):  # device time of the kernels, a clip
         return (sum(t["device_ms"] * t[key] * n_frames for t in tim.values()),
@@ -2355,6 +2708,11 @@ def main() -> int:
         "sams_val_step_ms": sams_val["production"]["val_ms"],
         # phase 9a: the trainer's SAMS fit (its validation and image calls)
         "trainer_sams_launches": runtime["fit"]["launches"],
+        # phase 10: each hidden activation at the top site (device time, in
+        # turns with relu's), and the SAMS fit of the command line (swish)
+        "activations": activations,
+        "activation_site": site(act_key),
+        "cli_train_launches": cli["train"]["launches"],
     }, {
         "name": "fused_multispade_int8",
         "route": "cuda",
@@ -2377,6 +2735,9 @@ def main() -> int:
         "site": site(q_top),
         "clip_ms": med["int8"],
         "clip_kernel_ms": per_clip(q_timings)[0],
+        # phase 10b: the test entry with --int8_spade (swish)
+        "cli_test_launches": cli["test"]["launches"],
+        "cli_test_prepass_launches": cli["test"]["prepass_launches"],
     }, {
         "name": "int8_conv3x3",
         "route": "cuda",
@@ -2459,6 +2820,8 @@ def main() -> int:
         "sams_val_step_launches": sams_val["attention"]["launches"]["sagan_attention"],
         # phase 9e: TOM's steps, images and test export in the two-stage chain
         "chain_tom_launches": runtime["chain"]["launches"],
+        # phase 10b: the documented TOM command with --fast_dev_run
+        "cli_tom_launches": cli["tom"]["launches"],
     }]
     for name in (*pr.SPECS, *pr.CONV_VARIANTS):
         key = name if name in pr.SPECS else (name, conv_probe.SHAPES[0])

@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel of shineon_tpu/ops/fused_spade.py:
 // _make_kernel, launched by _fused_forward, with quant=False (kernel 1) and
 // quant=True (kernel 2). For each label l in sorted order:
-//   hidden_l = relu(conv3x3(segmap_l, wsh_l) + bsh_l), zero outside the image,
-//              rounded to the compute dtype;
+//   hidden_l = act(conv3x3(segmap_l, wsh_l) + bsh_l), zero outside the image,
+//              rounded to the compute dtype, act one of relu, gelu (tanh
+//              form), swish and sine = sin(30 v) (a template parameter of
+//              every body, chosen by the entry points' `act` code);
 //   [gamma_l | beta_l] = conv3x3(hidden_l, wgb_l) + bgb_l;
 //   x <- (x * a_l + b_l) * (1 + gamma_l) + beta_l          (x carried in f32)
 // Like the TPU kernel, it reads x and writes y and nothing else of activation
@@ -19,7 +21,8 @@
 // 32-row tile instead). That is a grid-wide dependency, so a pre-pass
 // (hidden_absmax_kernel) recomputes each label's hidden map with the same
 // device code the chain uses, reduces max |h| with an atomicMax on the float
-// bits (valid: the values are >= 0), and the chain reads the result. In
+// bits of |h| (valid: they are >= 0; gelu, swish and sine go negative), and
+// the chain reads the result. In
 // bf16 the hidden map is rounded as the plain version rounds it (the conv's
 // sum, then its sum with the bias: hidden_value), so both quantize the same
 // values. h / s_l is rounded exactly as an IEEE division (quant_level,
@@ -113,13 +116,35 @@ __device__ __forceinline__ void store8(float* p, const float (&v)[CPT]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
 }
-// The value of a hidden position: relu(conv + bias) from the conv's f32 sum.
-// Full precision keeps that f32 value (the bf16 chain rounds it once as it
-// stores the tile). The quantized chain and its pre-pass in bf16 round as
-// the chain's plain version (and flax's bf16 conv) does: the conv's sum to
-// bf16, plus the bias in bf16, rounded again. So kernel and plain version
-// quantize the same hidden values wherever their f32 sums round alike, and
-// the pre-pass's abs-max is the one the chain divides by.
+// The hidden activations (ops/fused_spade.py::ACTIVATIONS holds the same
+// codes): relu, gelu in its tanh form (jax.nn.gelu's default), swish v *
+// sigmoid(v), sine sin(30 v). Full-range tanhf, expf and sinf, never the
+// fast intrinsics: 30 v reaches tens of radians, where __sinf's error grows.
+enum Act { ACT_RELU = 0, ACT_GELU = 1, ACT_SWISH = 2, ACT_SINE = 3 };
+
+template <int ACT>
+__device__ __forceinline__ float activate(float v) {
+  static_assert(ACT >= ACT_RELU && ACT <= ACT_SINE, "no such activation");
+  if constexpr (ACT == ACT_RELU)
+    return fmaxf(v, 0.f);
+  else if constexpr (ACT == ACT_GELU)
+    return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+  else if constexpr (ACT == ACT_SWISH)  // v * sigmoid(v), as the plain version takes it
+    return v * __frcp_rn(1.f + expf(-v));
+  else
+    return sinf(30.f * v);
+}
+
+// The value of a hidden position: act(conv + bias) from the conv's f32 sum.
+// Full precision keeps that f32 value (the bf16 relu chain rounds it once
+// as it stores the tile). The quantized chain and its pre-pass in bf16, and
+// the bf16 chain with any other activation, round as the chain's plain
+// version (and flax's bf16 conv) does: the conv's sum to bf16, plus the
+// bias in bf16, rounded again, the activation of that value, rounded again
+// (relu of a bf16 value is one). So kernel and plain version take the
+// activation of the same inputs, and quantize the same hidden values,
+// wherever their f32 sums round alike, and the pre-pass's abs-max is the one
+// the chain divides by.
 // v rounded to bf16 (nearest, ties to even) and back, for finite v, in
 // integer operations: the same value as __float2bfloat16_rn, without the
 // conversion unit, which the quantized chain's epilogue would saturate.
@@ -129,40 +154,41 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __uint_as_float(u & 0xFFFF0000u);
 }
 
-template <bool ROUND_BF16>
+template <bool ROUND_BF16, int ACT>
 __device__ __forceinline__ float hidden_value(float acc, float bias) {
-  if (!ROUND_BF16) return fmaxf(acc + bias, 0.f);
-  return fmaxf(round_bf16(round_bf16(acc) + round_bf16(bias)), 0.f);
+  if (!ROUND_BF16) return activate<ACT>(acc + bias);
+  const float v = round_bf16(round_bf16(acc) + round_bf16(bias));
+  return ACT == ACT_RELU ? fmaxf(v, 0.f) : round_bf16(activate<ACT>(v));
 }
 
 // Where the hidden conv puts its values: each policy gives the value of a
 // position (hidden) and takes it at hidden position p, channel k (put, put2).
-template <int HS>
+template <int HS, int ACT>
 struct HidStoreF32 {  // f32 chain: the f32 tile [HT*WT][HS]
   float* h;
   static __device__ __forceinline__ float hidden(float acc, float bias) {
-    return hidden_value<false>(acc, bias);
+    return hidden_value<false, ACT>(acc, bias);
   }
   __device__ __forceinline__ void put(int p, int k, float v) { h[p * HS + k] = v; }
 };
 
-template <int HS>
+template <int HS, int ACT>
 struct HidStoreBf16 {  // bf16 chain: the bf16 tile [HT*WT][HS]
   __nv_bfloat16* h;
   static __device__ __forceinline__ float hidden(float acc, float bias) {
-    return hidden_value<false>(acc, bias);
+    return hidden_value<ACT != ACT_RELU, ACT>(acc, bias);
   }
   __device__ __forceinline__ void put2(int p, int k, float v0, float v1) {
     *reinterpret_cast<__nv_bfloat162*>(h + p * HS + k) = __floats2bfloat162_rn(v0, v1);
   }
 };
 
-template <bool BF16, int HS>
+template <bool BF16, int HS, int ACT>
 struct HidQuant {  // quantized chain: the int8 tile [HT*WT][HS], scale s = 1 / r
   int8_t* h;
   float s, r;
   static __device__ __forceinline__ float hidden(float acc, float bias) {
-    return hidden_value<BF16>(acc, bias);
+    return hidden_value<BF16, ACT>(acc, bias);
   }
   __device__ __forceinline__ void put(int p, int k, float v) {
     h[p * HS + k] = static_cast<int8_t>(quant_level(v, s, r));
@@ -187,11 +213,11 @@ struct HidQuant {  // quantized chain: the int8 tile [HT*WT][HS], scale s = 1 / 
   }
 };
 
-template <bool BF16>
+template <bool BF16, int ACT>
 struct HidMax {  // pre-pass: this thread's max |v|
   float m;
   static __device__ __forceinline__ float hidden(float acc, float bias) {
-    return hidden_value<BF16>(acc, bias);
+    return hidden_value<BF16, ACT>(acc, bias);
   }
   __device__ __forceinline__ void put(int, int, float v) { m = fmaxf(m, fabsf(v)); }
   __device__ __forceinline__ void put2(int, int, float v0, float v1) {
@@ -250,6 +276,7 @@ constexpr size_t smem_f32() {
   return sizeof(float) * ((size_t)HT * WT * HS_F32 + NHID * 2 * TC);
 }
 
+template <int ACT>
 __global__ void __launch_bounds__(NTHREADS, 1)
 chain_kernel_f32(const float* __restrict__ x, const float* __restrict__ ab,
                  const float* __restrict__ seg, const float* __restrict__ wsh,
@@ -291,7 +318,7 @@ chain_kernel_f32(const float* __restrict__ x, const float* __restrict__ ab,
   }
 
   for (int l = 0; l < L; ++l) {
-    HidStoreF32<HS> hid{h_s};
+    HidStoreF32<HS, ACT> hid{h_s};
     compute_hidden_f32(hid, seg, wsh, bsh, args, l, b, r0, c0);
 
     float gam[PX][CPT], bet[PX][CPT];
@@ -471,7 +498,7 @@ __device__ __forceinline__ void modulate_frag(float (&xr)[MT][NPAIR][4],
 
 // ------------------------------------------------ bf16 serving bodies (wgmma)
 // chain_kernel_bf16 (kernel 1) and chain_kernel_q_bf16 (kernel 2) share one
-// body, chain_wgmma<QUANT>:
+// body, chain_wgmma<QUANT, ACT> (ACT: the hidden activation):
 //  * 384 threads: two consumer warpgroups (warps 0-7) and a producer
 //    warpgroup, one lane of which issues the copies. Warpgroup w owns tile
 //    rows 4w..4w+3, its warp q tile row 4w+q: the 64 rows of the
@@ -735,7 +762,7 @@ __device__ __forceinline__ void modulate_wg(float (&xr)[8][4], const Acc (&acc)[
 // images, sgb and absmax unused) or quantized (wgb: int8 slice images, sgb
 // (L, 2C) weight scales, absmax (L,) from the pre-pass). x, y, seg, wsh
 // bf16: seg (B, H, W, SEG_C * segs_tot), wsh (segs_tot, NHID, KH).
-template <bool QUANT>
+template <bool QUANT, int ACT>
 __device__ __forceinline__ void chain_wgmma(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
     const __nv_bfloat16* __restrict__ seg, const __nv_bfloat16* __restrict__ wsh,
@@ -836,10 +863,10 @@ __device__ __forceinline__ void chain_wgmma(
       float s = 0.f;
       if constexpr (QUANT) {
         s = int8_scale(absmax[l]);
-        HidQuant<true, HSQ> hid{reinterpret_cast<int8_t*>(h_wg), s, __frcp_rn(s)};
+        HidQuant<true, HSQ, ACT> hid{reinterpret_cast<int8_t*>(h_wg), s, __frcp_rn(s)};
         hidden_mma<4>(hid, seg_wg, ld, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
       } else {
-        HidStoreBf16<HS_BF16> hid{reinterpret_cast<__nv_bfloat16*>(h_wg)};
+        HidStoreBf16<HS_BF16, ACT> hid{reinterpret_cast<__nv_bfloat16*>(h_wg)};
         hidden_mma<4>(hid, seg_wg, ld, wsh, bsh, args, l, r0, c0, h0, NH_WG, q, lane);
       }
       named_sync(1 + wg, 128);  // hidden rows complete; the segmap buffer is free
@@ -894,15 +921,17 @@ __device__ __forceinline__ void chain_wgmma(
   }
 }
 
+template <int ACT>
 __global__ void __launch_bounds__(NTHREADS_WG, 1)
 chain_kernel_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
                   const __nv_bfloat16* __restrict__ seg, const __nv_bfloat16* __restrict__ wsh,
                   const float* __restrict__ bsh, const unsigned char* __restrict__ wgb,
                   const float* __restrict__ bgb, __nv_bfloat16* __restrict__ y,
                   const ChainArgs args) {
-  chain_wgmma<false>(x, ab, seg, wsh, bsh, wgb, nullptr, bgb, nullptr, y, args);
+  chain_wgmma<false, ACT>(x, ab, seg, wsh, bsh, wgb, nullptr, bgb, nullptr, y, args);
 }
 
+template <int ACT>
 __global__ void __launch_bounds__(NTHREADS_WG, 1)
 chain_kernel_q_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict__ ab,
                     const __nv_bfloat16* __restrict__ seg, const __nv_bfloat16* __restrict__ wsh,
@@ -910,7 +939,7 @@ chain_kernel_q_bf16(const __nv_bfloat16* __restrict__ x, const float* __restrict
                     const float* __restrict__ sgb, const float* __restrict__ bgb,
                     const float* __restrict__ absmax, __nv_bfloat16* __restrict__ y,
                     const ChainArgs args) {
-  chain_wgmma<true>(x, ab, seg, wsh, bsh, wgb, sgb, bgb, absmax, y, args);
+  chain_wgmma<true, ACT>(x, ab, seg, wsh, bsh, wgb, sgb, bgb, absmax, y, args);
 }
 
 // ----------------------------------------------- quantized path, f32 parity
@@ -962,7 +991,7 @@ __device__ __forceinline__ void load_gb_slice_q(int8_t* w_buf, const int8_t* __r
 // caller). One block a (sample, pixel tile), all labels. bf16: the hidden
 // conv of the bf16 chains (segmap padded to SEG_C channels, wsh (L, NHID,
 // KH)); f32: the f32 chain's scalar one.
-template <typename T>
+template <typename T, int ACT>
 __global__ void __launch_bounds__(NTHREADS)
 hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
                      const float* __restrict__ bsh, float* __restrict__ absmax,
@@ -977,7 +1006,7 @@ hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   for (int l = 0; l < args.L; ++l) {
-    HidMax<BF16> hid{0.f};
+    HidMax<BF16, ACT> hid{0.f};
     if constexpr (BF16) {
       __nv_bfloat16* s_seg = reinterpret_cast<__nv_bfloat16*>(smem);
       const SegLoader<NTHREADS> ld{seg};
@@ -995,7 +1024,7 @@ hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
     __syncthreads();  // also: every warp is done with the segmap tile
     if (threadIdx.x == 0) {
       for (int w = 1; w < NTHREADS / 32; ++w) m = fmaxf(m, red[w]);
-      // non-negative floats order as their bit patterns do
+      // non-negative floats (m is a max of fabsf) order as their bit patterns do
       atomicMax(reinterpret_cast<int*>(absmax + l), __float_as_int(m));
     }
   }
@@ -1003,6 +1032,7 @@ hidden_absmax_kernel(const T* __restrict__ seg, const T* __restrict__ wsh,
 
 // The f32 quantized chain. x, y, seg, wsh f32 (wsh per label (9, cs_l,
 // NHID), flat). absmax: (L,) from the pre-pass.
+template <int ACT>
 __global__ void __launch_bounds__(NTHREADS, 1)
 chain_kernel_q_f32(const float* __restrict__ x, const float* __restrict__ ab,
                    const float* __restrict__ seg, const float* __restrict__ wsh,
@@ -1040,7 +1070,7 @@ chain_kernel_q_f32(const float* __restrict__ x, const float* __restrict__ ab,
 
   for (int l = 0; l < L; ++l) {
     const float s = int8_scale(absmax[l]);
-    HidQuant<false, HSQ> hid{h_q, s, __frcp_rn(s)};
+    HidQuant<false, HSQ, ACT> hid{h_q, s, __frcp_rn(s)};
     compute_hidden_f32(hid, seg, wsh, bsh, args, l, b, r0, c0);
 
     int acc[MT][2 * NPAIR][4];
@@ -1138,6 +1168,19 @@ cudaError_t launch(void (*kernel)(Params...), size_t smem, dim3 grid, int thread
 
 using bf16 = __nv_bfloat16;
 
+// f(std::integral_constant<int, ACT>) for the activation code `act`; an
+// unknown code is an invalid value.
+template <typename F>
+cudaError_t with_act(int act, F f) {
+  switch (act) {
+    case ACT_RELU: return f(std::integral_constant<int, ACT_RELU>());
+    case ACT_GELU: return f(std::integral_constant<int, ACT_GELU>());
+    case ACT_SWISH: return f(std::integral_constant<int, ACT_SWISH>());
+    case ACT_SINE: return f(std::integral_constant<int, ACT_SINE>());
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1146,9 +1189,9 @@ extern "C" {
 // is_bf16 selects the bf16 serving kernel (x, y bf16; seg (B, H, W, 8S)
 // bf16, S the labels' 8-channel segments, ceil(cs_l / 8) a label; wsh
 // (S, NHID, KH) bf16; wgb the slice images) or the f32 parity
-// kernel (f32 operands in the f32 layout). cs holds the L labels' segmap
-// channel counts (host memory).
-int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const void* seg,
+// kernel (f32 operands in the f32 layout). act is the hidden activation's
+// code (Act). cs holds the L labels' segmap channel counts (host memory).
+int multispade_chain_forward(int is_bf16, int act, const void* x, const void* ab, const void* seg,
                              const void* wsh, const void* bsh, const void* wgb,
                              const void* bgb, void* y, int B, int H, int W, int C, int L,
                              const int* cs, void* stream) {
@@ -1159,23 +1202,26 @@ int multispade_chain_forward(int is_bf16, const void* x, const void* ab, const v
   const float* bshf = static_cast<const float*>(bsh);
   const float* bgbf = static_cast<const float*>(bgb);
   const dim3 grid = chain_grid(B, args, C / TC);
-  const cudaError_t err =
-      is_bf16 ? launch(chain_kernel_bf16, WgLayout<false>::bytes(args.seg_buf), grid,
-                       NTHREADS_WG, s,
-                       static_cast<const bf16*>(x), abf, static_cast<const bf16*>(seg),
-                       static_cast<const bf16*>(wsh), bshf,
-                       static_cast<const unsigned char*>(wgb), bgbf, static_cast<bf16*>(y), args)
-              : launch(chain_kernel_f32, smem_f32(), grid, NTHREADS, s,
-                       static_cast<const float*>(x), abf, static_cast<const float*>(seg),
-                       static_cast<const float*>(wsh), bshf, static_cast<const float*>(wgb),
-                       bgbf, static_cast<float*>(y), args);
-  return (int)err;
+  return (int)with_act(act, [&](auto a) {
+    constexpr int ACT = decltype(a)::value;
+    return is_bf16
+               ? launch(chain_kernel_bf16<ACT>, WgLayout<false>::bytes(args.seg_buf), grid,
+                        NTHREADS_WG, s, static_cast<const bf16*>(x), abf,
+                        static_cast<const bf16*>(seg), static_cast<const bf16*>(wsh), bshf,
+                        static_cast<const unsigned char*>(wgb), bgbf, static_cast<bf16*>(y),
+                        args)
+               : launch(chain_kernel_f32<ACT>, smem_f32(), grid, NTHREADS, s,
+                        static_cast<const float*>(x), abf, static_cast<const float*>(seg),
+                        static_cast<const float*>(wsh), bshf, static_cast<const float*>(wgb),
+                        bgbf, static_cast<float*>(y), args);
+  });
 }
 
 // Pre-pass of the quantized chain: zeroes absmax (L f32, device) and fills
 // it with max |hidden_l| over the batch. is_bf16 selects seg's and wsh's
-// dtype and layout (and the hidden conv) as for the chain.
-int multispade_hidden_absmax(int is_bf16, const void* seg, const void* wsh, const void* bsh,
+// dtype and layout (and the hidden conv), and act the activation, as for
+// the chain.
+int multispade_hidden_absmax(int is_bf16, int act, const void* seg, const void* wsh, const void* bsh,
                              void* absmax, int B, int H, int W, int L, const int* cs,
                              void* stream) {
   ChainArgs args;
@@ -1186,19 +1232,21 @@ int multispade_hidden_absmax(int is_bf16, const void* seg, const void* wsh, cons
   const dim3 grid = chain_grid(B, args, 1);
   const float* bshf = static_cast<const float*>(bsh);
   float* am = static_cast<float*>(absmax);
-  err = is_bf16 ? launch(hidden_absmax_kernel<bf16>, smem_absmax<bf16>(args), grid, NTHREADS, s,
-                         static_cast<const bf16*>(seg), static_cast<const bf16*>(wsh), bshf, am,
-                         args)
-                : launch(hidden_absmax_kernel<float>, smem_absmax<float>(args), grid, NTHREADS, s,
-                         static_cast<const float*>(seg), static_cast<const float*>(wsh), bshf,
-                         am, args);
-  return (int)err;
+  return (int)with_act(act, [&](auto a) {
+    constexpr int ACT = decltype(a)::value;
+    return is_bf16 ? launch(hidden_absmax_kernel<bf16, ACT>, smem_absmax<bf16>(args), grid,
+                            NTHREADS, s, static_cast<const bf16*>(seg),
+                            static_cast<const bf16*>(wsh), bshf, am, args)
+                   : launch(hidden_absmax_kernel<float, ACT>, smem_absmax<float>(args), grid,
+                            NTHREADS, s, static_cast<const float*>(seg),
+                            static_cast<const float*>(wsh), bshf, am, args);
+  });
 }
 
 // The quantized chain: as multispade_chain_forward, with wgb int8 (bf16:
 // the int8 slice images; f32: (L, 9, 2C, NHID)), sgb (L, 2C) f32 weight
 // scales and absmax from the pre-pass.
-int multispade_chain_forward_int8(int is_bf16, const void* x, const void* ab, const void* seg,
+int multispade_chain_forward_int8(int is_bf16, int act, const void* x, const void* ab, const void* seg,
                                   const void* wsh, const void* bsh, const void* wgb,
                                   const void* sgb, const void* bgb, const void* absmax,
                                   void* y, int B, int H, int W, int C, int L, const int* cs,
@@ -1212,18 +1260,19 @@ int multispade_chain_forward_int8(int is_bf16, const void* x, const void* ab, co
   const float* bgbf = static_cast<const float*>(bgb);
   const float* am = static_cast<const float*>(absmax);
   const dim3 grid = chain_grid(B, args, C / TC);
-  const cudaError_t err =
-      is_bf16 ? launch(chain_kernel_q_bf16, WgLayout<true>::bytes(args.seg_buf), grid,
-                       NTHREADS_WG, s,
-                       static_cast<const bf16*>(x), abf, static_cast<const bf16*>(seg),
-                       static_cast<const bf16*>(wsh), bshf,
-                       static_cast<const unsigned char*>(wgb), sgbf, bgbf, am,
-                       static_cast<bf16*>(y), args)
-              : launch(chain_kernel_q_f32, smem_q_f32(), grid, NTHREADS, s,
-                       static_cast<const float*>(x), abf, static_cast<const float*>(seg),
-                       static_cast<const float*>(wsh), bshf, static_cast<const int8_t*>(wgb),
-                       sgbf, bgbf, am, static_cast<float*>(y), args);
-  return (int)err;
+  return (int)with_act(act, [&](auto a) {
+    constexpr int ACT = decltype(a)::value;
+    return is_bf16
+               ? launch(chain_kernel_q_bf16<ACT>, WgLayout<true>::bytes(args.seg_buf), grid,
+                        NTHREADS_WG, s, static_cast<const bf16*>(x), abf,
+                        static_cast<const bf16*>(seg), static_cast<const bf16*>(wsh), bshf,
+                        static_cast<const unsigned char*>(wgb), sgbf, bgbf, am,
+                        static_cast<bf16*>(y), args)
+               : launch(chain_kernel_q_f32<ACT>, smem_q_f32(), grid, NTHREADS, s,
+                        static_cast<const float*>(x), abf, static_cast<const float*>(seg),
+                        static_cast<const float*>(wsh), bshf, static_cast<const int8_t*>(wgb),
+                        sgbf, bgbf, am, static_cast<float*>(y), args);
+  });
 }
 
 const char* multispade_chain_error_string(int code) {

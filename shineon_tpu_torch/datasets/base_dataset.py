@@ -5,10 +5,16 @@ features are made on the device (:mod:`.preprocess`)."""
 
 from __future__ import annotations
 
+import argparse
 from abc import ABC, abstractmethod
 
 
 class BaseDataset(ABC):
+    @staticmethod
+    def modify_commandline_options(parser: argparse.ArgumentParser, is_train: bool):
+        """Add the dataset's options to the command line (none here)."""
+        return parser
+
     def __init__(self, opt):
         self.opt = opt
 

@@ -4,12 +4,22 @@ reference datasets/mpv_dataset.py:8-86): two poses per cloth, listed in
 
 from __future__ import annotations
 
+import argparse
 import os.path as osp
 
 from shineon_tpu_torch.datasets.tryon_dataset import TryonDataset
 
 
 class MPVDataset(TryonDataset):
+    @staticmethod
+    def modify_commandline_options(parser: argparse.ArgumentParser, is_train: bool,
+                                   shared: bool = False):
+        """``shared``: the try-on options are already on the parser."""
+        if not shared:
+            parser = TryonDataset.modify_commandline_options(parser, is_train)
+        parser.add_argument("--mpv_dataroot", default="/data_hdd/mpv_competition")
+        return parser
+
     def load_file_paths(self, i_am_validation: bool = False):
         self.root = self.opt.mpv_dataroot
         self.image_names, self.cloth_names = [], []

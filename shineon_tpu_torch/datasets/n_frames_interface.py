@@ -13,12 +13,33 @@ from __future__ import annotations
 
 import functools
 from abc import ABC, abstractmethod
+from argparse import ArgumentParser
 from typing import Dict, List
 
 import numpy as np
 
 
 class NFramesInterface(ABC):
+    @staticmethod
+    def modify_commandline_options(parser: ArgumentParser, is_train: bool):
+        parser.add_argument(
+            "--n_frames_total", type=int, default=1, metavar="N",
+            help="Total number of frames to load at once (1 for images).",
+        )
+        parser.add_argument(
+            "--n_frames_now", type=int, default=None, metavar="N",
+            help="Progressive video training: train on the last n_frames_now "
+            "frames of the clip, masking earlier ones to zero.",
+        )
+        return parser
+
+    @staticmethod
+    def apply_n_frames_now_default_total(opt):
+        """An unset ``n_frames_now`` is ``n_frames_total``."""
+        if getattr(opt, "n_frames_now", None) is None and hasattr(opt, "n_frames_total"):
+            opt.n_frames_now = opt.n_frames_total
+        return opt
+
     def __init__(self, opt):
         self.n_frames_total = opt.n_frames_total
         self.n_frames_now = opt.n_frames_now

@@ -23,6 +23,7 @@ from __future__ import annotations
 import json
 import os.path as osp
 from abc import ABC, abstractmethod
+from argparse import ArgumentParser
 from typing import Dict
 
 import numpy as np
@@ -40,6 +41,31 @@ GRID_VIS_PATH = osp.join(osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file_
 
 class TryonDataset(BaseDataset, ABC):
     """Loads raw per-sample arrays for the try-on models."""
+
+    @staticmethod
+    def modify_commandline_options(parser: ArgumentParser, is_train: bool):
+        """The try-on datasets' options (tryon_dataset.py:61-87 of the JAX
+        package); at test time the whole set, no validation split."""
+        parser.add_argument(
+            "--val_fraction", type=float, default=0.01,
+            help="portion of the training data split off for validation",
+        )
+        if not is_train:
+            parser.set_defaults(val_fraction=0)
+        parser.add_argument(
+            "--cloth_mask_threshold", type=int, default=240,
+            help="white-background cutoff for deriving the cloth mask: pixels "
+            "brighter than this (0-255) are masked out.",
+        )
+        parser.add_argument("--image_scale", type=float, default=1, help="first scale to this")
+        parser.add_argument("--fine_width", type=int, default=192, help="then crop to this")
+        parser.add_argument("--fine_height", type=int, default=256, help="then crop to this")
+        parser.add_argument("--radius", type=int, default=5)
+        parser.add_argument(
+            "--visualize_flow", action="store_true",
+            help="Visualize flow for debugging (heavy).",
+        )
+        return parser
 
     def __init__(self, opt, i_am_validation: bool = False):
         super().__init__(opt)

@@ -5,12 +5,23 @@ the images under ``{viton_dataroot}/{datamode}/``."""
 
 from __future__ import annotations
 
+import argparse
 import os.path as osp
 
 from shineon_tpu_torch.datasets.tryon_dataset import TryonDataset
 
 
 class VitonDataset(TryonDataset):
+    @staticmethod
+    def modify_commandline_options(parser: argparse.ArgumentParser, is_train: bool,
+                                   shared: bool = False):
+        """``shared``: the try-on options are already on the parser."""
+        if not shared:
+            parser = TryonDataset.modify_commandline_options(parser, is_train)
+        parser.add_argument("--viton_dataroot", default="data")
+        parser.add_argument("--data_list", default="train_pairs.txt")
+        return parser
+
     def __init__(self, opt, i_am_validation: bool = False):
         # VITON has no validation split (reference viton_dataset.py:21)
         super().__init__(opt)

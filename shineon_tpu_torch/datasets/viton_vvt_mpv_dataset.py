@@ -4,6 +4,8 @@ datasets/viton_vvt_mpv_dataset.py:15-65); validation from VVT only."""
 
 from __future__ import annotations
 
+from argparse import ArgumentParser
+
 from shineon_tpu_torch.datasets.base_dataset import BaseDataset
 from shineon_tpu_torch.datasets.mpv_dataset import MPVDataset
 from shineon_tpu_torch.datasets.n_frames_interface import maybe_combine_frames_and_channels
@@ -12,6 +14,13 @@ from shineon_tpu_torch.datasets.vvt_dataset import VVTDataset
 
 
 class VitonVvtMpvDataset(BaseDataset):
+    @staticmethod
+    def modify_commandline_options(parser: ArgumentParser, is_train: bool):
+        parser = VVTDataset.modify_commandline_options(parser, is_train)
+        parser = VitonDataset.modify_commandline_options(parser, is_train, shared=True)
+        parser = MPVDataset.modify_commandline_options(parser, is_train, shared=True)
+        return parser
+
     def __init__(self, opt):
         super().__init__(opt)
         self.viton_dataset = VitonDataset(opt)

@@ -5,6 +5,7 @@ first index recorded, so that a clip never crosses into the video before."""
 
 from __future__ import annotations
 
+import argparse
 import os
 import os.path as osp
 from glob import glob
@@ -25,6 +26,21 @@ def extract_frame_substring(path: str) -> str:
 
 
 class VVTDataset(TryonDataset, NFramesInterface):
+    @staticmethod
+    def modify_commandline_options(parser: argparse.ArgumentParser, is_train: bool,
+                                   shared: bool = False):
+        """``shared``: the try-on options are already on the parser."""
+        if not shared:
+            parser = TryonDataset.modify_commandline_options(parser, is_train)
+        parser = NFramesInterface.modify_commandline_options(parser, is_train)
+        parser.add_argument("--vvt_dataroot", default="/data_hdd/fw_gan_vvt")
+        parser.add_argument(
+            "--warp_cloth_dir",
+            help="Path to the GMM-generated intermediary warp-cloth folder for "
+            "TOM. If not specified, looks under --vvt_dataroot.",
+        )
+        return parser
+
     @staticmethod
     def extract_video_id(image_path: str) -> str:
         """The folder that holds the frame file."""

@@ -12,6 +12,19 @@ from shineon_tpu_torch.datasets.vvt_dataset import VVTDataset
 
 
 class VVTListDataset(VVTDataset):
+    @staticmethod
+    def modify_commandline_options(parser, is_train, shared: bool = False):
+        parser = VVTDataset.modify_commandline_options(parser, is_train, shared)
+        parser.add_argument(
+            "--data_list",
+            help="3-column list pairing GFLA frame folders with cloth ids",
+        )
+        parser.add_argument(
+            "--stage", choices=("GMM", "TOM"), default="GMM",
+            help="which stage's cloth sources to pair (vvt_list_dataset.py:27-40)",
+        )
+        return parser
+
     def __init__(self, opt, i_am_validation: bool = False):
         self.data_list = opt.data_list
         self.image_paths = []

@@ -23,6 +23,7 @@ after a checkpoint is loaded (with ``is_train`` off, the export goes under
 
 from __future__ import annotations
 
+import argparse
 import os.path as osp
 from typing import Dict, List, Optional
 
@@ -59,6 +60,48 @@ def get_and_cat_inputs(feats: Dict[str, torch.Tensor], names) -> torch.Tensor:
 
 
 class BaseModel:
+    @classmethod
+    def modify_commandline_options(cls, parser: argparse.ArgumentParser, is_train):
+        """The options every model takes (base_model.py:41-78 of the JAX
+        package); a model's own setter extends them."""
+        parser.add_argument(
+            "--person_inputs", nargs="+",
+            help="person-derived inputs to feed the network; each adds its channel "
+            "count (see TryonDataset).",
+        )
+        parser.add_argument(
+            "--cloth_inputs", nargs="+", default=("cloth",),
+            help="cloth-derived inputs to feed the network.",
+        )
+        parser.add_argument("--ngf", type=int, default=64)
+        parser.add_argument("--self_attn", action="store_true", help="insert self-attention blocks")
+        parser.add_argument(
+            "--no_self_attn", action="store_false", dest="self_attn",
+            help="disable self-attention blocks",
+        )
+        parser.add_argument(
+            "--num_attn", type=int, default=2,
+            help="how many U-Net levels get self-attention, counted from the bottleneck",
+        )
+        parser.add_argument(
+            "--flow_warp", action="store_true",
+            help="flow-warp the previous generated frame into the composite",
+        )
+        parser.add_argument(
+            "--allow_random_vgg", action="store_true",
+            help="Permit the VGG perceptual loss to fall back to fixed random "
+            "filters when no pretrained VGG19 weights are available "
+            "(SHINEON_VGG19_WEIGHTS). Without this, missing weights abort "
+            "training, since the objective would silently differ from the "
+            "reference's ImageNet-VGG loss.",
+        )
+        parser.add_argument(
+            "--remat", action="store_true",
+            help="Recompute the generator's activations in the backward pass "
+            "(torch.utils.checkpoint): trades recompute for device memory.",
+        )
+        return parser
+
     def __init__(self, opt, device="cuda"):
         self.opt = opt
         self.device = torch.device(device)
@@ -76,11 +119,15 @@ class BaseModel:
                 for k, v in feats.items()}
 
     def net_state(self, module: torch.nn.Module, lr: float, steps_per_epoch: int) -> NetState:
-        """``module`` with optax's Adam at ``lr`` on the keep/decay schedule."""
+        """``module`` with optax's Adam at ``lr`` on the keep/decay schedule,
+        accumulating ``accumulated_batches`` mini-steps an update. The test
+        options have no training keys: their defaults, as in the JAX
+        package."""
         opt = self.opt
         return NetState(module, make_optimizer(
-            module.parameters(), lr, opt.keep_epochs, opt.decay_epochs, steps_per_epoch,
-            opt.accumulated_batches))
+            module.parameters(), lr, getattr(opt, "keep_epochs", 5),
+            getattr(opt, "decay_epochs", 5), steps_per_epoch,
+            getattr(opt, "accumulated_batches", 1)))
 
     # ------------------------------------------------------------ options
 

@@ -27,6 +27,7 @@ grids, norm statistics and the losses stay f32.
 
 from __future__ import annotations
 
+import argparse
 import logging
 import os.path as osp
 from typing import Dict
@@ -44,7 +45,12 @@ from shineon_tpu_torch.networks.discriminator import (
     MultiscaleDiscriminator,
     NLayerDiscriminator,
 )
-from shineon_tpu_torch.networks.init import kernel_init_, lecun_normal_, normal_
+from shineon_tpu_torch.networks.init import (
+    kernel_init_,
+    lecun_normal_,
+    normal_,
+    store_spectral_init,
+)
 from shineon_tpu_torch.networks.layers import Conv2d
 from shineon_tpu_torch.networks.loss import GANLoss, VGGLoss, l1_loss
 from shineon_tpu_torch.networks.normalization import SpectralConv2d
@@ -60,6 +66,57 @@ class SamsModel(BaseModel):
     discriminators and the losses; ``generate_n_frames`` is the clip loop,
     ``make_train_step`` the training step."""
 
+    @classmethod
+    def modify_commandline_options(cls, parser: argparse.ArgumentParser, is_train):
+        """sams_model.py:63-101 of the JAX package, with the generator's,
+        the discriminators' (training) and the GAN losses' options."""
+        parser = argparse.ArgumentParser(parents=[parser], add_help=False)
+        parser = super().modify_commandline_options(parser, is_train)
+        parser.set_defaults(person_inputs=("agnostic", "densepose", "flow"))
+        parser.add_argument(
+            "--encoder_input", default="flow",
+            help="which of the --person_inputs to use as the encoder segmap "
+            "input (only 1 allowed).",
+        )
+        # a default for an option the dataset phase adds later: argparse
+        # keeps the dataset's own default (1), as in the JAX package
+        parser.set_defaults(n_frames_total=5)
+        parser.set_defaults(batch_size=4)
+        parser.add_argument("--wt_l1", type=float, default=1.0)
+        parser.add_argument("--wt_vgg", type=float, default=1.0)
+        parser.add_argument("--wt_multiscale", type=float, default=1.0)
+        parser.add_argument("--wt_temporal", type=float, default=1.0)
+        parser.add_argument(
+            "--norm_D", type=str, default="spectralinstance",
+            help="discriminator norm config string (e.g. spectralinstance)",
+        )
+        parser.add_argument(
+            "--fast_gan_step", dest="fast_gan_step", action="store_true", default=False,
+            help="Reuse the generator step's frames (detached) for the "
+            "discriminator updates instead of regenerating with the "
+            "updated generator: faster steps, a slight departure from the "
+            "reference's per-optimizer regeneration.",
+        )
+        parser.add_argument(
+            "--exact_gan_step", dest="fast_gan_step", action="store_false",
+            help="[DEFAULT] Regenerate the clip with the updated generator "
+            "before the discriminator updates (the reference's exact "
+            "per-optimizer semantics).",
+        )
+        from shineon_tpu_torch import networks
+        from shineon_tpu_torch.options import gan_options
+
+        parser = networks.modify_commandline_options(parser, is_train)
+        parser = gan_options.modify_commandline_options(parser, is_train)
+        return parser
+
+    @staticmethod
+    def apply_default_encoder_input(opt):
+        """An unset encoder map is the first person input."""
+        if hasattr(opt, "encoder_input") and opt.encoder_input is None:
+            opt.encoder_input = opt.person_inputs[0]
+        return opt
+
     def __init__(self, opt, device="cuda"):
         super().__init__(opt, device)
         self.remat = bool(opt.remat)
@@ -74,7 +131,9 @@ class SamsModel(BaseModel):
             activation=opt.activation or "relu", n_frames_total=self.n_frames_total,
             flow_warp=opt.flow_warp, encoder_input=opt.encoder_input,
             inputs=tuple(self.inputs), dtype=self.compute_dtype,
-            int8=opt.int8_spade, int8_min_channels=opt.int8_min_channels,
+            # serving options: the test command line's (none in training)
+            int8=getattr(opt, "int8_spade", False),
+            int8_min_channels=getattr(opt, "int8_min_channels", 64),
         ).to(device)
         if opt.is_train:
             # intermediate features follow --no_ganFeat_loss, as in the reference
@@ -95,8 +154,10 @@ class SamsModel(BaseModel):
     def init_weights(self, generator: torch.Generator):
         """The JAX package's rules: flax's defaults (lecun-normal kernels,
         zero biases, spectral ``u`` ~ N(0, 1)), except the attention blocks'
-        1x1 convs, N(0, 0.02), and their gamma, 0. Drawn on the CPU, then
-        copied to the device."""
+        1x1 convs, N(0, 0.02), and their gamma, 0; a spectral conv stores its
+        kernel divided by one power step's sigma from that ``u``
+        (:func:`store_spectral_init`). Drawn on the CPU, then copied to the
+        device."""
         attention_convs = set()
         for m in self.generator.modules():  # a block comes before its convs
             if isinstance(m, SelfAttention):
@@ -112,14 +173,19 @@ class SamsModel(BaseModel):
                 if m.bias is not None:
                     m.bias.zero_()
             if isinstance(m, SpectralConv2d):
-                m.u.copy_(torch.randn(m.u.shape, generator=generator))
-                m.sigma.fill_(1.0)
+                store_spectral_init(m, generator)
 
     @torch.no_grad()
     def init_discriminator_weights(self, generator: torch.Generator):
-        """The JAX package's rules: kernels by ``init_type`` with gain
-        ``init_variance`` (xavier, 0.02), zero biases, spectral ``u`` ~
-        N(0, 1); the multiscale discriminator first."""
+        """The JAX package's rules, the multiscale discriminator first: each
+        kernel drawn by ``init_type`` with gain ``init_variance``
+        (``kernel_init_``), zero biases, and under a spectral ``norm_D`` (the
+        default ``spectralinstance``) ``u`` ~ N(0, 1) and the kernel stored
+        divided by one power step's sigma from it (:func:`store_spectral_init`).
+        So a spectral kernel's scale is set by the power step, not by the
+        gain: normal, xavier and kaiming store the same kernel from one
+        draw, with a largest singular value a little above 1, and
+        orthogonal's is 1."""
         for d in (self.multiscale_discriminator, self.temporal_discriminator):
             for m in d.modules():
                 if isinstance(m, (Conv2d, SpectralConv2d)):
@@ -127,27 +193,30 @@ class SamsModel(BaseModel):
                     if m.bias is not None:
                         m.bias.zero_()
                 if isinstance(m, SpectralConv2d):
-                    m.u.copy_(torch.randn(m.u.shape, generator=generator))
-                    m.sigma.fill_(1.0)
+                    store_spectral_init(m, generator)
 
     def init_state(self, generator: torch.Generator, steps_per_epoch: int) -> TrainState:
         """Draw every network's weights from ``generator`` (the generator's
-        first), then :meth:`make_state`."""
+        first; the discriminators only for training), then
+        :meth:`make_state`."""
         self.init_weights(generator)
-        self.init_discriminator_weights(generator)
+        if self.opt.is_train:
+            self.init_discriminator_weights(generator)
         return self.make_state(steps_per_epoch)
 
     def make_state(self, steps_per_epoch: int) -> TrainState:
         """Step 0 and fresh optimizers over the networks' current weights:
-        Adam at ``lr`` for the generator, ``lr_D`` for each discriminator,
-        on the keep/decay schedule."""
+        Adam at ``lr`` for the generator, ``lr_D`` for each discriminator
+        (training only), on the keep/decay schedule."""
         opt = self.opt
-        return TrainState(nets={
-            "generator": self.net_state(self.generator, opt.lr, steps_per_epoch),
-            "d_multi": self.net_state(self.multiscale_discriminator, opt.lr_D, steps_per_epoch),
-            "d_temporal": self.net_state(self.temporal_discriminator, opt.lr_D,
-                                         steps_per_epoch),
-        })
+        nets = {"generator": self.net_state(self.generator, getattr(opt, "lr", 1e-4),
+                                            steps_per_epoch)}
+        if opt.is_train:
+            nets["d_multi"] = self.net_state(self.multiscale_discriminator, opt.lr_D,
+                                             steps_per_epoch)
+            nets["d_temporal"] = self.net_state(self.temporal_discriminator, opt.lr_D,
+                                                steps_per_epoch)
+        return TrainState(nets=nets)
 
     def features(self, raw_batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """SAMS keeps the frames axis: (B, N, H, W, C) features."""

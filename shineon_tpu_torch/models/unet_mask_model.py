@@ -13,6 +13,7 @@ U-Net's attention blocks run the SAGAN attention kernel.
 
 from __future__ import annotations
 
+import argparse
 import math
 import os.path as osp
 from typing import Dict
@@ -49,6 +50,17 @@ def tom_ngf(n_frames: int) -> int:
 class UnetMaskModel(BaseModel):
     """Owns the U-Net and, for training, the VGG perceptual loss."""
 
+    @classmethod
+    def modify_commandline_options(cls, parser: argparse.ArgumentParser, is_train):
+        parser = argparse.ArgumentParser(parents=[parser], add_help=False)
+        parser = super().modify_commandline_options(parser, is_train)
+        parser.set_defaults(person_inputs=("agnostic", "densepose"))
+        parser.add_argument(
+            "--pen_flow_mask", type=float, default=1.0,
+            help="weight of the flow-mask penalty term",
+        )
+        return parser
+
     def __init__(self, opt, device="cuda"):
         super().__init__(opt, device)
         n = self.n_frames_total
@@ -82,7 +94,8 @@ class UnetMaskModel(BaseModel):
 
     def make_state(self, steps_per_epoch: int) -> TrainState:
         """Step 0 and Adam at ``lr`` over the U-Net's current weights."""
-        return TrainState(nets={"unet": self.net_state(self.unet, self.opt.lr, steps_per_epoch)})
+        return TrainState(nets={"unet": self.net_state(self.unet, getattr(self.opt, "lr", 1e-4),
+                                                       steps_per_epoch)})
 
     def forward(self, feats: Dict[str, torch.Tensor]):
         """(renders, try-on masks, composites, flow masks or None), each

@@ -10,6 +10,7 @@ and the TPS basis products.
 
 from __future__ import annotations
 
+import argparse
 import os.path as osp
 from typing import Dict
 
@@ -33,6 +34,14 @@ from shineon_tpu_torch.utils.visualization import get_save_paths, save_images
 
 class WarpModel(BaseModel):
     """Owns the GMM at the options' fine size, grid size and width."""
+
+    @classmethod
+    def modify_commandline_options(cls, parser: argparse.ArgumentParser, is_train):
+        parser = argparse.ArgumentParser(parents=[parser], add_help=False)
+        parser = super().modify_commandline_options(parser, is_train)
+        parser.add_argument("--grid_size", type=int, default=5)
+        parser.set_defaults(person_inputs=("agnostic", "cocopose"))
+        return parser
 
     def __init__(self, opt, device="cuda"):
         super().__init__(opt, device)
@@ -61,7 +70,8 @@ class WarpModel(BaseModel):
 
     def make_state(self, steps_per_epoch: int) -> TrainState:
         """Step 0 and Adam at ``lr`` over the GMM's current weights."""
-        return TrainState(nets={"gmm": self.net_state(self.gmm, self.opt.lr, steps_per_epoch)})
+        return TrainState(nets={"gmm": self.net_state(self.gmm, getattr(self.opt, "lr", 1e-4),
+                                                      steps_per_epoch)})
 
     def forward_loss(self, feats: Dict[str, torch.Tensor], train: bool):
         """(loss, grid, theta, warped_cloth): with ``train`` the GMM's norms

@@ -57,6 +57,44 @@ def choose_spade(attn_indices: Sequence[str], i: int, total_layers: int):
 class SamsGenerator(nn.Module):
     """See module docstring; arguments mirror the JAX module's fields."""
 
+    @staticmethod
+    def modify_commandline_options(parser, is_train):
+        """The generator's options (sams_generator.py:61-100 of the JAX
+        package), with the networks' --init_type and --init_variance."""
+        from shineon_tpu_torch.networks import add_base_network_options
+
+        parser = add_base_network_options(parser, is_train)
+        parser.add_argument("--norm_G", default="spectralspadesyncbatch3x3")
+        parser.add_argument(
+            "--ngf_base", type=int, default=2,
+            help="feature widths are ngf_base ** pow at each stage",
+        )
+        parser.add_argument(
+            "--ngf_power_start", "--ngf_pow_outer", dest="ngf_pow_outer", type=int, default=6,
+            help="number of features at the outer ends = ngf_base ** ngf_pow_outer",
+        )
+        parser.add_argument(
+            "--ngf_power_end", "--ngf_pow_inner", dest="ngf_pow_inner", type=int, default=10,
+            help="INCLUSIVE! number of features in the middle = ngf_base ** ngf_pow_inner",
+        )
+        parser.add_argument(
+            "--ngf_pow_step", type=int, default=1,
+            help="increment the power this much between layers until >= ngf_pow_inner",
+        )
+        parser.add_argument(
+            "--num_middle", type=int, default=3,
+            help="count of width-preserving SAMS blocks between encoder and decoder",
+        )
+        parser.add_argument(
+            "--attention_middle_indices", nargs="*", default=[],
+            help="which middle blocks get self-attention (negative indices ok)",
+        )
+        parser.add_argument(
+            "--attention_decoder_indices", nargs="*", default=[],
+            help="which decoder blocks get self-attention (negative indices ok)",
+        )
+        return parser
+
     def __init__(self, norm_G: str = "spectralspadesyncbatch3x3", ngf_base: int = 2,
                  ngf_pow_outer: int = 6, ngf_pow_inner: int = 10, ngf_pow_step: int = 1,
                  num_middle: int = 3, attention_middle_indices: Sequence[str] = (),

@@ -1,4 +1,12 @@
-"""The production options of the serving clip and the training step, a
+"""The command line's options and the keyword builders.
+
+The command line (``python -m shineon_tpu_torch.train`` and ``.test``)
+parses with :class:`TrainOptions` and :class:`TestOptions`
+(``base_options.py``: the three-phase parse of the JAX package's
+``shineon_tpu/options``). The builders below make a namespace from keyword
+arguments, without a parse:
+
+The production options of the serving clip and the training step, a
 local copy of the JAX package's ``__graft_entry__._sams_opt`` defaults (SAMS
 at 256x192, 5-frame clips, flow warping, spectral SPADE sync-batch, widths
 2^6..2^10, three middle blocks, bf16; two spectral-instance PatchGAN
@@ -23,6 +31,13 @@ from __future__ import annotations
 
 import argparse
 
+from shineon_tpu_torch.options import gan_options  # noqa: F401
+from shineon_tpu_torch.options.base_options import (  # noqa: F401
+    BaseOptions,
+    namespace_from_defaults,
+)
+from shineon_tpu_torch.options.test_options import TestOptions  # noqa: F401
+from shineon_tpu_torch.options.train_options import TrainOptions  # noqa: F401
 from shineon_tpu_torch.utils import str2num
 
 # the dataset keys (TryonDataset, VitonDataset, VVTDataset, MPVDataset) and

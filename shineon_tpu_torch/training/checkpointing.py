@@ -67,22 +67,30 @@ def save_checkpoint(path: str, state: TrainState) -> str:
 
 
 def load_checkpoint(path: str, template_state: Optional[TrainState] = None,
-                    map_location="cpu"):
+                    map_location="cpu", modules_only: bool = False):
     """Read a checkpoint written by any writer here (its directory or its
     ``state.pt``), with ``weights_only=True``. With ``template_state`` (made
     by the model's ``init_state``) the modules, the optimizers and the step
-    are restored into it in place and it is returned; without, the raw dict."""
+    are restored into it in place and it is returned; without, the raw dict.
+    The checkpoint must hold the template's networks and no other. With
+    ``modules_only`` (a test run, which restores the generator of a training
+    checkpoint) it may hold more, which are left out, and only the modules
+    and the step are restored, not the optimizers."""
     if osp.isdir(path):
         path = osp.join(path, STATE_FILE)
     payload = torch.load(path, map_location=map_location, weights_only=True)
     if template_state is None:
         return payload
-    if sorted(payload["nets"]) != sorted(template_state.nets):
+    saved = sorted(payload["nets"])
+    if modules_only:
+        saved = [name for name in saved if name in template_state.nets]
+    if saved != sorted(template_state.nets):
         raise ValueError(f"the checkpoint holds {sorted(payload['nets'])}, the template "
                          f"{sorted(template_state.nets)}")
     for name, net in template_state.nets.items():
         net.module.load_state_dict(payload["nets"][name]["module"])
-        net.optimizer.load_state_dict(payload["nets"][name]["optimizer"])
+        if not modules_only:
+            net.optimizer.load_state_dict(payload["nets"][name]["optimizer"])
     template_state.step = int(payload["step"])
     return template_state
 

@@ -86,6 +86,10 @@ class Trainer:
         else:
             state = resume_state
             self.global_step = int(state.step)
+            # the schedules count epochs of this loader, as the JAX Trainer
+            # rebuilds its model's optimizers (init_state) for it
+            for net in state.nets.values():
+                net.optimizer.schedule.steps_per_epoch = steps_per_epoch
         train_step = model.make_train_step()
         val_step = model.make_val_step()
         visual_fn = model.make_visual_step()
@@ -250,8 +254,7 @@ def _versions(state: TrainState) -> List[int]:
     out = [int(state.step)]
     for net in state.nets.values():
         out += [t._version for t in net.module.state_dict(keep_vars=True).values()]
-        out += [t._version for t in net.optimizer.mu + net.optimizer.nu]
-        out.append(net.optimizer.count)
+        out += net.optimizer.versions()
     return out
 
 

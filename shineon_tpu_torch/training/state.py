@@ -6,17 +6,17 @@ buffers as the statistics: running means and variances, spectral ``u`` and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
 from torch import nn
 
-from shineon_tpu_torch.training.optimizers import Adam
+from shineon_tpu_torch.training.optimizers import Adam, MultiSteps
 
 
 @dataclasses.dataclass
 class NetState:
     module: nn.Module
-    optimizer: Adam
+    optimizer: Union[Adam, MultiSteps]
 
 
 @dataclasses.dataclass

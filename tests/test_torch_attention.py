@@ -35,7 +35,7 @@ from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator, choose
 from shineon_tpu_torch.ops import fused_attention as tfa
 from shineon_tpu_torch.ops.fused_spade import error_ratio
 from shineon_tpu_torch.options import sams_options
-from test_torch_networks import (
+from test_torch_networks import (  # noqa: F401 (one_torch_thread: autouse)
     LABELS,
     _assert_rel,
     _assert_stats,
@@ -43,6 +43,7 @@ from test_torch_networks import (
     _spade_inputs,
     _t,
     _with_random_stats,
+    one_torch_thread,
 )
 
 

@@ -104,6 +104,38 @@ def test_cuda_quantized_chain_matches_plain(dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["gelu", "swish", "sine"])
+def test_cuda_chain_activations_match_plain(act, dtype):
+    """Kernels 1 and 2 with a hidden activation other than relu against
+    their plain versions at a ragged L=4 site: the full-precision chain
+    element by element (fused_spade.KERNEL_TOLERANCE), the quantized one
+    within the activation's int8 limits."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import fused_spade as fs
+
+    g = torch.Generator().manual_seed(6)
+    rn = lambda *s, scale=1.0: (torch.randn(s, generator=g) * scale).cuda()  # noqa: E731
+    B, H, W, C, cs_list = 2, 20, 13, 64, (4, 3, 3, 2)
+    x = rn(B, H, W, C, scale=0.5).to(dtype)
+    ab = torch.cat([1.0 + rn(B, 4, C, scale=0.1), rn(B, 4, C, scale=0.1)], -1)
+    segs = [rn(B, H, W, c).to(dtype) for c in cs_list]
+    wshs = [rn(128, c, 3, 3, scale=(9 * c) ** -0.5) for c in cs_list]
+    bshs = [rn(128, scale=0.1) for _ in cs_list]
+    wgbs = [rn(2 * C, 128, 3, 3, scale=(9 * 128) ** -0.5) for _ in cs_list]
+    bgbs = [rn(2 * C, scale=0.05) for _ in cs_list]
+    args = (x, ab, segs, wshs, bshs, wgbs, bgbs)
+    out = fs.fused_multispade_modulate(*args, act_name=act)
+    ref = fs.multispade_modulate_plain(*args, act_name=act)
+    q_out = fs.fused_multispade_modulate(*args, act_name=act, quantized=True)
+    q_ref = fs.multispade_modulate_plain_int8(*args, act_name=act)
+    torch.cuda.synchronize()
+    assert fs.error_ratio(out, ref) <= fs.KERNEL_TOLERANCE[dtype]
+    ok, ratio, rms = fs.int8_chain_agrees(q_out, q_ref, act)
+    assert ok, (ratio, rms)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_int8_conv_matches_plain(dtype):
     """The int8 3x3 conv kernel against its plain version at a ragged
     64 -> 128 shape, element by element within INT8_CONV_TOLERANCE."""

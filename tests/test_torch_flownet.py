@@ -40,6 +40,7 @@ from shineon_tpu_torch.networks.flownet import FlowNet2
 from shineon_tpu_torch.ops.correlation import cost_volume
 from shineon_tpu_torch.ops.image_ops import channel_norm, resize_bilinear
 from test_flownet_golden import TorchFlowNet2
+from test_torch_networks import one_torch_thread  # noqa: F401 (autouse)
 
 SUBNET_TOL = dict(rtol=2e-3, atol=2e-5)
 STACK_TOL = dict(rtol=5e-3, atol=5e-4)

@@ -11,6 +11,7 @@ import torch
 from shineon_tpu.ops import fused_spade as jfs
 from shineon_tpu_torch.ops import fused_spade as tfs
 from shineon_tpu_torch.ops import int8_conv as ic
+from test_torch_networks import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _make_case(B=2, H=20, W=13, C=64, L=4, seed=0, cs_list=None):

@@ -35,7 +35,7 @@ try:  # every test but the gpu-marked one; the card's machine has no JAX
     from shineon_tpu.models.warp_model import WarpModel as JWarpModel
     from shineon_tpu.ops.image_ops import pose_keypoint_heatmaps as j_pose_keypoint_heatmaps
     from shineon_tpu.options.base_options import namespace_from_defaults
-    from test_torch_networks import _np
+    from test_torch_networks import _np, one_torch_thread  # noqa: F401
     from test_torch_training import adam_step_flips, state_dict_of
 except ImportError:
     pass

@@ -37,7 +37,14 @@ from shineon_tpu_torch.ops import int8_conv as ic
 from shineon_tpu_torch.options import sams_options, warp_options
 from shineon_tpu_torch.serving import make_one_clip, warm_up
 from test_torch_fused_spade import _jax_args, _kernel_cols, _make_case, _torch_args
-from test_torch_networks import LABELS, _np, _spade_inputs, _t, _with_random_stats
+from test_torch_networks import (  # noqa: F401 (one_torch_thread: autouse)
+    LABELS,
+    _np,
+    _spade_inputs,
+    _t,
+    _with_random_stats,
+    one_torch_thread,
+)
 from test_torch_serving import TINY, _jax_clip
 
 

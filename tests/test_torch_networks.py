@@ -26,6 +26,18 @@ from shineon_tpu_torch.networks.sams.spade import SPADE, AnySpadeResBlock
 LABELS = {"agnostic": 4, "cloth": 3, "densepose": 3, "flow": 2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for each module that imports this fixture: its
+    tensors are small, and under the suite's parallel workers torch's
+    spinning threads fight for the cores (a clip that takes 4 s alone took
+    223 s there)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
 

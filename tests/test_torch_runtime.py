@@ -40,22 +40,11 @@ from shineon_tpu_torch.training.checkpointing import (
     state_to_host,
 )
 from shineon_tpu_torch.training.loop import Trainer, _pad_ragged_batch
-from test_torch_networks import _np
+from test_torch_networks import _np, one_torch_thread  # noqa: F401 (autouse)
 from test_torch_training import TINY_TRAIN
 
 SMALL_GMM = dict(fine_height=128, fine_width=96, ngf=8, precision=32, batch_size=2, workers=0)
 LR = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The tensors here are small: one intra-op thread keeps them from
-    fighting the suite's other workers for the cores (where a busy host's
-    spinning threads cost these tests up to ten times their time)."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,7 @@ from shineon_tpu_torch.models.warp_model import WarpModel
 from shineon_tpu_torch.options import sams_options, warp_options
 from shineon_tpu_torch.serving import make_one_clip, synthetic_raw_batch, warm_up
 from test_torch_attention import with_nonzero_gamma
+from test_torch_networks import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(fine_height=128, fine_width=96, n_frames_total=3, n_frames_now=3,
             ngf_pow_outer=3, ngf_pow_inner=5, num_middle=1, ngf=8, precision=32,

@@ -33,7 +33,7 @@ try:  # every test but the gpu-marked ones; the card's machine has no JAX
     from shineon_tpu.networks.cpvton.unet import upsample_bilinear_2x as j_upsample
     from shineon_tpu.options.base_options import namespace_from_defaults
     from test_torch_attention import with_nonzero_gamma
-    from test_torch_networks import _np, _t
+    from test_torch_networks import _np, _t, one_torch_thread  # noqa: F401
     from test_torch_training import adam_step_flips, state_dict_of
 except ImportError:
     pass

@@ -27,7 +27,12 @@ from shineon_tpu_torch.networks.init import kernel_init_
 from shineon_tpu_torch.networks.loss import GANLoss
 from shineon_tpu_torch.networks.vgg import MissingVgg19WeightsError, load_vgg19
 from shineon_tpu_torch.options import sams_options
-from shineon_tpu_torch.training.optimizers import Adam, keep_decay_schedule, make_optimizer
+from shineon_tpu_torch.training.optimizers import (
+    Adam,
+    MultiSteps,
+    keep_decay_schedule,
+    make_optimizer,
+)
 
 try:  # every test but the gpu-marked ones; the card's machine has no JAX
     import jax
@@ -40,7 +45,7 @@ try:  # every test but the gpu-marked ones; the card's machine has no JAX
     from shineon_tpu.networks.loss import GANLoss as JGANLoss
     from shineon_tpu.training.optimizers import keep_decay_schedule as j_keep_decay_schedule
     from test_torch_attention import with_nonzero_gamma
-    from test_torch_networks import _assert_rel, _np, _t
+    from test_torch_networks import _assert_rel, _np, _t, one_torch_thread  # noqa: F401
 except ImportError:
     pass
 
@@ -194,8 +199,17 @@ def test_keep_decay_schedule_and_adam_match_optax():
 
 
 def test_accumulated_batches_raises():
-    with pytest.raises(NotImplementedError, match="accumulated_batches"):
-        make_optimizer([torch.zeros(1)], 1e-4, accumulate=2)
+    """--accumulated_batches 2 wraps Adam in MultiSteps (optax.MultiSteps,
+    tests/test_torch_cli.py holds its semantics); a saved optimizer state
+    of the other kind raises on load, as the JAX package's restore of a
+    state written at another accumulation does not fit its tree."""
+    acc = make_optimizer([torch.zeros(1)], 1e-4, accumulate=2)
+    plain = make_optimizer([torch.zeros(1)], 1e-4)
+    assert isinstance(acc, MultiSteps) and isinstance(plain, Adam)
+    with pytest.raises(ValueError, match="accumulat"):
+        acc.load_state_dict(plain.state_dict())
+    with pytest.raises(ValueError, match="accumulat"):
+        plain.load_state_dict(acc.state_dict())
 
 
 # ------------------------------------------------------------------- remat

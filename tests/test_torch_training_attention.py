@@ -4,6 +4,7 @@ test_torch_training.py so that its JAX compile runs on a worker of its
 own); the helpers are test_torch_training's."""
 
 from test_torch_training import JaxSide, assert_step_matches
+from test_torch_networks import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_train_step_with_attention_matches_jax():

@@ -29,7 +29,7 @@ from shineon_tpu_torch.networks.discriminator import (
 from shineon_tpu_torch.networks.loss import VGGLoss
 from shineon_tpu_torch.networks.normalization import SpectralConv2d
 from shineon_tpu_torch.networks.vgg import Vgg19Features, load_vgg19
-from test_torch_networks import _assert_rel, _np, _t
+from test_torch_networks import _assert_rel, _np, _t, one_torch_thread  # noqa: F401 (autouse)
 from test_torch_training import _flat
 
 

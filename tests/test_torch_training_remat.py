@@ -8,6 +8,7 @@ import torch
 
 from shineon_tpu_torch.bench import build_train
 from test_torch_training import TINY_TRAIN, _snapshot
+from test_torch_networks import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("attention", [False, True], ids=["plain", "attention"])

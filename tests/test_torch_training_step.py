@@ -15,7 +15,7 @@ import pytest
 
 from shineon_tpu_torch import convert
 from shineon_tpu_torch.models.sams_model import gradients
-from test_torch_networks import _np
+from test_torch_networks import _np, one_torch_thread  # noqa: F401 (autouse)
 from test_torch_training import JaxSide, assert_metrics, assert_step_matches, state_dict_of
 
 # a gradient tensor that moves by more than this share of its largest entry

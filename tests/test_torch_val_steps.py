@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from test_torch_training import JaxSide
+from test_torch_networks import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["plain", "attention"])
