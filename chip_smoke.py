@@ -32,14 +32,22 @@ Phases, each fatal on failure:
      timed against scaled_dot_product_attention with scale 1); and the probe kernels
      (3e, run last, after phase 5 has timed the clips, so that its
      profiler sessions precede no clip timing): the 15 layout probes on
-     seeded random inputs of their own shapes and the int8-conv probe's
-     mmonly and taps9bf16 variants at its four batch-16 shapes (mmonly also
-     against the int8 conv, which must fail), each timed against its plain
-     version, its bound (from the products its function needs, not the
-     nine its kernel issues) and the one PyTorch call that computes it;
-     then the port's two probe tools as a user runs
-     them (layout_caps, and conv_probe for each of its seven variants),
-     every launch count at 0 before each run, with the launches checked;
+     seeded random inputs of their own shapes, NaN-guarded, and a ragged
+     sweep of the contraction kernel (M and N off its tile, K 12 to 144,
+     A transposed or not, f32 and bf16 out, each A route) and of the
+     gather kernel (seeded maps of rank 1-4 with offset bases, every unit
+     mode, f32 and bf16, each affine mode), the outputs before NaN tails;
+     then each probe timed by device time with L2 flushed before every
+     call (a 128 MB fill, left out by kernel name), 5 traces of kernel and
+     library call in turns, median (min-max), beside its bound, its plain
+     version and a call's event time; the int8-conv probe's mmonly and
+     taps9bf16 variants at its four batch-16 shapes (mmonly also against
+     the int8 conv, which must fail), timed the same way in turns with the
+     int8 conv (bounds from the products their functions need, not the
+     nine their kernel issues); then the port's two probe tools as a user
+     runs them (layout_caps, and conv_probe for each of its seven
+     variants), every launch count at 0 before each run, with the
+     launches checked;
   4. check the whole clip on a small input: the kernel path on the card
      against the plain path on the CPU, same weights, f32; then the same
      with int8 serving, printing the int8 clip's distance from the fp one;
@@ -898,7 +906,11 @@ def probe_bound(pr, name, args, out):
     contractions and the chain at the bf16 tensor peak, movement's
     elementwise operations at the f32 peak outside the tensor cores; bytes
     are the output written once and what it needs read once (a gather reads
-    one input element an output element)."""
+    one input element an output element), at the HBM rate. Phase 3e flushes
+    L2 before every timed call (L2Flush), so the bytes the bound counts are
+    bytes the kernel really moves through HBM: its reads come from there,
+    and its writes are counted as if they went there too (at these sizes
+    they stay in L2 until after the kernel ends)."""
     family = pr.SPECS[name].family
     if family == "contraction":
         K = args[1].shape[0]
@@ -931,16 +943,259 @@ def guarded(torch, t, guard=1 << 14):
     return head
 
 
-def check_probes(torch, pr, ic, card):
+def guarded_out(torch, shape, dtype, guard=1 << 12):
+    """(out, tail): an output tensor at the head of a buffer whose tail
+    (guard elements) is NaN, so that a store past the output shows."""
+    n = 1
+    for d in shape:
+        n *= d
+    buf = torch.full((n + guard,), float("nan"), dtype=dtype, device=DEVICE)
+    return buf[:n].view(shape), buf[n:]
+
+
+# the ragged sweep of the contraction kernel: (M, N, K, A given (K, M)),
+# each with f32 and bf16 out; M and N off the 64 x 64 tile; K a tail of a
+# 16-deep step (12), one step (16), two (32), three (48), and more than a
+# stage through the ring of two (100: two stages, flat A; 144: three);
+# (4001, 8, 12): a slab whose last bytes are under 16; (1, 8, 12): one row
+GEMM_SWEEP = tuple((200, 72, K, False) for K in (12, 16, 32, 48, 100, 144)) + tuple(
+    (136, 200, K, True) for K in (12, 16, 32, 48, 100, 144)) + (
+    (4001, 8, 12, False), (1, 8, 12, False), (65, 4000, 12, False), (1000, 136, 32, True))
+
+
+def gemm_sweep(torch, pr, fs):
+    """pr._gemm at GEMM_SWEEP against the f32 product of the same bf16
+    operands (pr.TOLERANCE's limits: 1e-5 f32 out, 4e-3 bf16), inputs at
+    the head of NaN-filled buffers, the output before a NaN tail that must
+    stay NaN. Returns the failures."""
+    failed, routes = [], set()
+    for i, (M, N, K, a_trans) in enumerate(GEMM_SWEEP):
+        g = torch.Generator().manual_seed(700 + i)
+        a = torch.randn((K, M) if a_trans else (M, K), generator=g).to(torch.bfloat16)
+        b = torch.randn((K, N), generator=g).to(torch.bfloat16)
+        a, b = guarded(torch, a.to(DEVICE)), guarded(torch, b.to(DEVICE))
+        ref = (a.float().t() if a_trans else a.float()) @ b.float()
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-3)):
+            out, tail = guarded_out(torch, (M, N), dtype)
+            plan = pr.gemm_plan(M, N, K, a_trans, (a.data_ptr(), b.data_ptr(), out.data_ptr()))
+            routes.add(plan.a_route)
+            pr._gemm(a, b, M, N, K, a_trans, dtype, out=out)
+            torch.cuda.synchronize()
+            ratio = fs.error_ratio(out, ref.to(dtype))
+            ok = bool(torch.isfinite(out.float()).all()) and ratio <= tol and bool(
+                torch.isnan(tail.float()).all())
+            if not ok:
+                failed.append(f"gemm {(M, N, K, a_trans)} {dtype} ({plan.a_route}): {ratio:.3g}")
+    log(f"ragged sweep, contraction: {2 * len(GEMM_SWEEP)} cases, A routes {sorted(routes)}: "
+        f"{'ok' if not failed else 'FAIL ' + '; '.join(failed)}")
+    return failed
+
+
+def gather_cases(seed, n=48):
+    """Seeded strided maps of rank 1-4 into a contiguous input: (input
+    numel, shape, strides, base). Each output dim takes a slice with a
+    start and a step of an input dim; every third map keeps the last dim
+    contiguous with a length and a row pitch of 16-byte multiples, its
+    start at or off 16-byte alignment (the kernel's VEC and SHIFT units);
+    every fifth swaps two dims' strides (a transposing map)."""
+    import random
+
+    rng = random.Random(seed)
+    cases = []
+    for c in range(n):
+        rank = 1 + c % 4
+        dims = [rng.randint(1, 6) for _ in range(rank)]
+        steps = [rng.randint(1, 3) for _ in range(rank)]
+        starts = [rng.randint(0, 4) for _ in range(rank)]
+        if c % 3 == 0:
+            dims[-1], steps[-1] = 8 * rng.randint(1, 4), 1
+            starts[-1] = rng.choice((0, 8, 16, 1, 3, 6))
+        parent = [s + d * st + rng.randint(0, 3) for s, d, st in zip(starts, dims, steps)]
+        if c % 3 == 0:
+            parent[-1] = -(-parent[-1] // 8) * 8
+        pitch = [1] * rank
+        for k in range(rank - 2, -1, -1):
+            pitch[k] = pitch[k + 1] * parent[k + 1]
+        strides = [st * p for st, p in zip(steps, pitch)]
+        base = sum(s * p for s, p in zip(starts, pitch))
+        if c % 5 == 4 and rank > 1:
+            strides[0], strides[-1] = strides[-1], strides[0]
+            dims[0], dims[-1] = min(dims[0], dims[-1]), min(dims[0], dims[-1])
+        cases.append((pitch[0] * parent[0], tuple(dims), tuple(strides), base))
+    return cases
+
+
+def gather_sweep(torch, pr):
+    """pr._gather on gather_cases in f32 and bf16, each with an affine mode
+    in turn (copy, a x, a x + b, chan[c] x + b), exactly against
+    as_strided(...).contiguous() and the same roundings (a multiply, then
+    an add), the input at the head of a NaN-filled buffer and the output
+    before a NaN tail. Returns the failures; the (dtype, unit mode) pairs
+    run must be all six."""
+    failed, modes = [], set()
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (numel, shape, strides, base) in enumerate(gather_cases(800)):
+            g = torch.Generator().manual_seed(900 + i)
+            x = guarded(torch, torch.randn(numel, generator=g).to(dtype).to(DEVICE))
+            affine = i % 4
+            chan = (torch.randn(shape[-1], generator=g).to(DEVICE)
+                    if affine == pr.CHAN_SCALE_ADD else None)
+            a, b = 1.5, -0.25
+            out, tail = guarded_out(torch, shape, dtype)
+            plan = pr.gather_plan(shape, strides, base, x.element_size(), chan=chan is not None)
+            modes.add((str(dtype), plan.mode))
+            pr._gather(x, shape, strides, base, chan=chan, a=a, b=b, affine=affine, out=out)
+            ref = torch.as_strided(x, shape, strides, base).float()
+            if affine == pr.SCALE:
+                ref = ref * a
+            elif affine == pr.SCALE_ADD:
+                ref = ref * a + b
+            elif affine == pr.CHAN_SCALE_ADD:
+                ref = ref * chan + b
+            torch.cuda.synchronize()
+            if not (torch.equal(out, ref.to(dtype)) and bool(torch.isnan(tail.float()).all())):
+                failed.append(f"gather {dtype} {shape} {strides} base {base} affine {affine} "
+                              f"(mode {plan.mode})")
+    log(f"ragged sweep, movement: {2 * len(gather_cases(800))} maps, (dtype, unit mode) "
+        f"{sorted(modes)}: {'ok' if not failed else 'FAIL ' + '; '.join(failed[:8])}")
+    if len(modes) < 6:
+        failed.append(f"the movement sweep ran only {sorted(modes)}")
+    return failed
+
+
+L2_FLUSH_BYTES = 128 << 20  # a fill of more than twice the card's 50 MB L2
+PROBE_TRACES = 5  # traces of each probe call, kernel and library in turns
+PROBE_REPS = 20  # calls a trace, each after a flush
+# phase 3e's device-time filter: each probe family's kernels, in this tree
+# and in the designs before it (probe_sites.py times the parent's too)
+PROBE_KERNELS = {"contraction": ("gemm_wgmma", "gemm_kernel"),
+                 "movement": ("gather32_kernel", "gather_kernel", "transpose_kernel"),
+                 "chain": ("chain_kernel",), "tap products": ("taps_kernel",)}
+
+
+class L2Flush:
+    """A call that writes L2_FLUSH_BYTES before each timed call, so that a
+    probe finds its inputs in HBM, not in L2, whatever ran before it. Its
+    kernel (PyTorch's fill) is named by FLUSH_EVENTS; the device-time sums
+    leave it out and count it."""
+
+    FLUSH_EVENTS = ("FillFunctor",)
+
+    def __init__(self, torch):
+        self.buf = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=DEVICE)
+
+    def __call__(self):
+        self.buf.fill_(1.0)
+
+    def owns(self, key):
+        return any(n in key for n in self.FLUSH_EVENTS)
+
+
+def flushed_device_ms(torch, fn, flush, names=None, reps=PROBE_REPS):
+    """Device time a call of fn with L2 flushed before each call. A
+    torch.profiler trace of 2 reps (flush, call) pairs, begun after a 20 ms
+    pause, is cut into pairs at each flush (its raw device events in time
+    order); a pair's time is the summed duration of its events but the
+    flush's, or of those whose name holds one of ``names`` where given; the
+    result is the mean of the last reps pairs. In a long process the
+    profiler drops the first events of a session (a full run's traces kept
+    the last 14 of 20 pairs), so a sum over a whole trace reads low; here
+    the timed pairs come last, each is found by its own flush, and a trace
+    whose last pairs are fewer than reps or differ in their kernel count is
+    taken again, up to five times in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, 6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            for _ in range(2 * reps):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                        key=lambda e: e.time_range.start)
+        pairs = []
+        for e in events:
+            if flush.owns(e.name):
+                pairs.append([])
+            elif pairs and (names is None or any(n in e.name for n in names)):
+                pairs[-1].append(e.time_range.elapsed_us())
+        last = pairs[-reps:]
+        counts = {len(p) for p in last}
+        if len(last) == reps and len(counts) == 1 and 0 not in counts:
+            return sum(sum(p) for p in last) / 1e3 / reps
+        log(f"the trace of {names or 'the call'} lost events: {len(pairs)} flushes, kernels a "
+            f"pair {sorted(counts)} (attempt {attempt} of 5)")
+    raise SystemExit(f"the profiler lost events of {names or 'the call'} five times")
+
+
+def in_turns(torch, calls, flush, traces=PROBE_TRACES, reps=PROBE_REPS):
+    """{label: (fn, names)} -> {label: dict(median, min, max, samples)}:
+    each call's flushed_device_ms, ``traces`` times, the labels in turns."""
+    samples = {label: [] for label in calls}
+    for _ in range(traces):
+        for label, (fn, names) in calls.items():
+            samples[label].append(flushed_device_ms(torch, fn, flush, names, reps))
+    return {label: dict(median=statistics.median(v), min=min(v), max=max(v), samples=v)
+            for label, v in samples.items()}
+
+
+def device_kernels(torch, fn):
+    """The device events (kernels, copies) of a call of fn, by name, from a
+    trace of PROBE_REPS calls (taken again, up to five times, where it
+    comes back empty)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROBE_REPS):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages() if e.device_type.name == "CUDA"})
+        if names:
+            return names
+    return ["the profiler showed no device event"]
+
+
+def spread(t):
+    return f"{t['median']:.5f} ({t['min']:.5f}-{t['max']:.5f})"
+
+
+def time_layout_probe(torch, pr, name, args, flush):
+    """A layout probe's kernel (its family's kernels by name) and its
+    library call (every kernel but the flush's), in_turns; and the bound."""
+    wrapper, family = pr.WRAPPERS[name], pr.SPECS[name].family
+    calls = {"kernel": (lambda: wrapper(*args), PROBE_KERNELS[family])}
+    library = probe_library(torch, name, args)
+    if library is not None:
+        calls["library"] = (library, None)
+    with torch.no_grad():
+        turns = in_turns(torch, calls, flush)
+        out = wrapper(*args)
+        library_kernels = [] if library is None else device_kernels(torch, library)
+    bound_ms, by = probe_bound(pr, name, args, out)
+    return dict(turns=turns, bound_ms=bound_ms, bound_by=by, library_kernels=library_kernels,
+                bound_share=bound_ms / turns["kernel"]["median"])
+
+
+def check_probes(torch, pr, ic, fs, card):
     """Phase 3e: each of the 15 layout probe kernels against its plain
     version on seeded random inputs of the probe's shapes and dtypes (exact
     for movement and transposes; pr.TOLERANCE for contractions and the
     chain), each input at the head of a NaN-filled buffer so that a read
-    past it shows, then timed against its plain version, its bound and the
-    one PyTorch call that computes it; the two conv variants (mmonly,
-    taps9bf16) against their plain versions at all four conv-probe shapes
-    (batch 16), with one control that must fail (mmonly against the int8
-    conv), each timed beside kernel 4 at the same shape."""
+    past it shows; the ragged sweeps of the contraction and movement
+    kernels (gemm_sweep, gather_sweep); then each probe timed: its kernel
+    and the one PyTorch call that computes it by device time with L2
+    flushed before every call, PROBE_TRACES traces each in turns (median,
+    min, max), beside its bound, its plain version and the event time of a
+    call. The two conv variants (mmonly, taps9bf16) against their plain
+    versions at all four conv-probe shapes (batch 16), with one control
+    that must fail (mmonly against the int8 conv), each timed the same way
+    in turns with kernel 4 at the same shape."""
     from shineon_tpu_torch.tools.conv_probe import SHAPES, conv_inputs
 
     errors, timings, failed = {}, {}, []
@@ -957,22 +1212,39 @@ def check_probes(torch, pr, ic, card):
         errors[name] = err
         if not ok:
             failed.append(name)
-            continue
+    failed += gemm_sweep(torch, pr, fs) + gather_sweep(torch, pr)
+    if failed:
+        raise SystemExit(f"probe kernels disagree with their plain versions at "
+                         f"{', '.join(failed)}")
+
+    flush = L2Flush(torch)
+    log(f"L2 flush: {L2_FLUSH_BYTES >> 20} MB written before every timed call, its device "
+        f"events (names holding {' or '.join(flush.FLUSH_EVENTS)}) left out of the times")
+    for i, name in enumerate(pr.SPECS):
+        args = tuple(guarded(torch, t) for t in pr.random_inputs(name, 500 + i, DEVICE))
+        wrapper, plain = pr.WRAPPERS[name], pr.plain_version(name)
         calls = {"kernel": lambda: wrapper(*args), "plain": lambda: plain(*args),
                  "library": probe_library(torch, name, args)}
         with torch.no_grad():
             ms = {k: None if fn is None else cuda_ms(torch, fn, 100) for k, fn in calls.items()}
-            dev = {k: None if fn is None else device_ms(torch, fn, 20) for k, fn in calls.items()}
-        bound_ms, by = probe_bound(pr, name, args, out)
-        log(f"time {name}: a call " + ", ".join(
-            f"{k} {'none' if v is None else f'{v:.4f} ms'}" for k, v in ms.items())
-            + "; device " + ", ".join(
-            f"{k} {'none' if v is None else f'{v:.5f} ms'}" for k, v in dev.items())
-            + f"; bound {bound_ms:.5f} ms ({by})")
-        timings[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=bound_ms,
-                             bound_by=by, library_ms=ms["library"], device_ms=dev["kernel"],
-                             plain_device_ms=dev["plain"], library_device_ms=dev["library"],
-                             shape=[list(a.shape) for a in args] + [list(out.shape)])
+            plain_dev = flushed_device_ms(torch, calls["plain"], flush, reps=5)
+        t = time_layout_probe(torch, pr, name, args, flush)
+        k, lib = t["turns"]["kernel"], t["turns"].get("library")
+        log(f"time {name}: device, L2 flushed, median (min-max) of {PROBE_TRACES} traces in "
+            f"turns: kernel {spread(k)} ms, library {'none' if lib is None else spread(lib)} ms; "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}, {100 * t['bound_share']:.1f}% of "
+            f"the kernel's time); plain {plain_dev:.5f} ms; a call (event) " + ", ".join(
+                f"{c} {'none' if v is None else f'{v:.4f} ms'}" for c, v in ms.items())
+            + f"; the library call runs {[k[:70] for k in t['library_kernels']]} [{card}]")
+        timings[name] = dict(
+            ms=ms["kernel"], plain_ms=ms["plain"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=ms["library"], device_ms=k["median"],
+            device_ms_min=k["min"], device_ms_max=k["max"], plain_device_ms=plain_dev,
+            library_device_ms=None if lib is None else lib["median"],
+            library_device_ms_min=None if lib is None else lib["min"],
+            library_device_ms_max=None if lib is None else lib["max"],
+            bound_share=t["bound_share"], library_kernels=t["library_kernels"],
+            shape=[list(a.shape) for a in args] + [list(pr.SPECS[name].out[0])])
     for j, shape in enumerate(SHAPES):
         B, H, W, cin, cout = shape
         v, w, bias = conv_inputs(shape, DEVICE, seed=600 + j)
@@ -981,8 +1253,6 @@ def check_probes(torch, pr, ic, card):
         scale = (s * qw.scale).contiguous()
         conv = ic.conv3x3_int8(v, qw, bias, torch.bfloat16)
         ops = 2 * 9 * B * H * W * cin * cout
-        with torch.no_grad():
-            conv_ms = cuda_ms(torch, lambda: ic.conv3x3_int8(v, qw, bias, torch.bfloat16), 10)
         for name in pr.CONV_VARIANTS:
             wrapper, plain = pr.WRAPPERS[name], pr.plain_version(name)
             out, ref = wrapper(xp, qw, scale, bias), plain(xp, qw, scale, bias)
@@ -1000,19 +1270,26 @@ def check_probes(torch, pr, ic, card):
                 continue
             with torch.no_grad():
                 k_ms = cuda_ms(torch, lambda: wrapper(xp, qw, scale, bias), 10)
-                k_dev = device_ms(torch, lambda: wrapper(xp, qw, scale, bias), 5)
                 p_ms = cuda_ms(torch, lambda: plain(xp, qw, scale, bias), 2)
+                turns = in_turns(torch, {
+                    "kernel": (lambda: wrapper(xp, qw, scale, bias), PROBE_KERNELS["tap products"]),
+                    "int8_conv": (lambda: ic.conv3x3_int8(v, qw, bias, torch.bfloat16),
+                                  CONV_KERNELS)}, flush, reps=5)
             bound_ms, by = bound(tap_products_needed(name) * ops / 9 / H100_INT8_OPS,
                                  bytes_of(xp, qw.wq, scale, bias, out))
-            rate = ops / k_ms / 1e9
-            log(f"time {name} {shape}: kernel {k_ms:.4f} ms (the nine products it issues at "
-                f"{rate:.1f} Tops/s; device {k_dev:.4f} ms) "
-                f"plain {p_ms:.4f} ms bound {bound_ms:.4f} ms ({by}); int8 conv kernel "
-                f"{conv_ms:.4f} ms ({ops / conv_ms / 1e9:.1f} Tops/s) [{card}]")
-            timings[(name, shape)] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
-                                          library_ms=None, device_ms=k_dev, int8_conv_ms=conv_ms,
-                                          mma_rate_tops=rate,
-                                          shape=dict(zip("B H W Cin Cout".split(), shape)))
+            k, c = turns["kernel"], turns["int8_conv"]
+            rate = ops / k["median"] / 1e9
+            log(f"time {name} {shape}: device, L2 flushed, in turns: kernel {spread(k)} ms (the "
+                f"nine products it issues at {rate:.1f} Tops/s), int8 conv kernel {spread(c)} ms "
+                f"({ops / c['median'] / 1e9:.1f} Tops/s); bound {bound_ms:.4f} ms ({by}, "
+                f"{100 * bound_ms / k['median']:.1f}%); event: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms [{card}]")
+            timings[(name, shape)] = dict(
+                ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by, library_ms=None,
+                device_ms=k["median"], device_ms_min=k["min"], device_ms_max=k["max"],
+                int8_conv_ms=c["median"], int8_conv_ms_min=c["min"], int8_conv_ms_max=c["max"],
+                mma_rate_tops=rate, bound_share=bound_ms / k["median"],
+                shape=dict(zip("B H W Cin Cout".split(), shape)))
             del out, ref
         del v, xp, conv
     if failed:
@@ -2597,7 +2874,7 @@ def main() -> int:
 
     # phase 3e after the clips are timed: its profiler sessions stay out of them
     t0 = time.perf_counter()
-    p_errors, p_timings = check_probes(torch, pr, ic, card)
+    p_errors, p_timings = check_probes(torch, pr, ic, fs, card)
     p_launches = run_probe_tools(pr, ic)
     log(f"phase 3e (probes and their tools): {time.perf_counter() - t0:.1f} s")
 
@@ -2841,8 +3118,8 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "family": pr.SPECS[name].family if name in pr.SPECS else "tap products",
             "shape": t["shape"],
-            **{k: t[k] for k in ("device_ms", "plain_device_ms", "library_device_ms",
-                                 "int8_conv_ms", "mma_rate_tops") if k in t},
+            **{k: v for k, v in t.items()
+               if k not in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -250,9 +250,9 @@ def _library():
     from shineon_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library(KERNEL_SOURCE)
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, args in (
-        (lib.probe_gather, [i, p, p] + [i] * 4 + [ll] * 5 + [p, f, f, i, i, p]),
+        (lib.probe_gather, [i, p, p, ctypes.POINTER(ctypes.c_uint32), p, f, f, p]),
         (lib.probe_transpose, [p, p, i, i, p]),
         (lib.probe_gemm, [p, p, p] + [i] * 5 + [p]),
         (lib.probe_chain, [p] * 4 + [i] * 3 + [p]),
@@ -277,21 +277,146 @@ def _call(entry: str, *args, device):
                            f"{lib.probes_error_string(err).decode()} ({err})")
 
 
-COPY, SCALE, SCALE_ADD = 0, 1, 2  # the gather kernel's affine modes
+# ------------------------------------------------- the movement kernel's map
+
+ELEM, VEC, SHIFT = 0, 1, 2  # a gather unit: one element, or 16 bytes aligned or shifted
+COPY, SCALE, SCALE_ADD, CHAN_SCALE_ADD = 0, 1, 2, 3  # y = x, a x, a x + b, chan[c] x + b
+INDEX_LIMIT = 1 << 31  # the kernels index in 32 bits
+MAX_CHANNELS = 512  # channel scales a gather block holds in shared memory
 
 
-def _gather(x, shape, strides, base, chan=None, a=1.0, b=0.0, affine=COPY):
+class Map(NamedTuple):
+    """A movement probe's output (``shape``, contiguous) as a strided map
+    into its first input: y[i] = x[base + i . strides], in elements."""
+
+    shape: tuple
+    strides: tuple
+    base: int
+
+
+MAPS = {
+    "probe_b": Map((8, 200, 128), (25600, 128, 1), 0),
+    "probe_b2": Map((8, 192, 128), (25600, 128, 1), 4 * 128),
+    "probe_c": Map((4000, 12), (1, 4000), 0),
+    "probe_c2": Map((4000, 128), (1, 4000), 0),
+    "probe_e": Map((16, 192, 64), (12288, 64, 1), 0),
+    "probe_f": Map((400, 12), (12, 1), 0),
+    "probe_g": Map((2, 16, 128), (2048, 128, 1), 3 * 128),
+    "probe_h": Map((2, 32, 192, 64), (393216, 12288, 64, 1), 0),
+    "probe_k": Map((12, 20, 48), (1120, 56, 1), 3),
+    "probe_l": Map((2, 4, 16, 56), (448, 3584, 56, 1), 3 * 56),
+}
+# each contraction probe's (M, N, K, A given (K, M), output dtype)
+CONTRACTIONS = {
+    "probe_a": (1024, 128, 32, False, BF16),
+    "probe_a2": (1120, 128, 12, True, F32),
+    "probe_d": (4000, 128, 12, False, F32),
+    "probe_i": (128, 4000, 12, False, F32),
+}
+
+
+def collapse(shape, strides, keep_last=False) -> tuple:
+    """(dims, strides) of the same map with dims of size 1 dropped and each
+    dim merged into the next inner one where their strides chain (``s[i] ==
+    d[i+1] s[i+1]``). ``keep_last`` keeps the last dim apart (the channel
+    index of a per-channel scale)."""
+    last = len(shape) - 1
+    kept = [[d, s] for i, (d, s) in enumerate(zip(shape, strides))
+            if d != 1 or (keep_last and i == last)]
+    if not kept:
+        return (1,), (1,)
+    out = [kept[-1]]
+    for d, s in reversed(kept[:-1]):
+        inner = out[0]
+        if s == inner[0] * inner[1] and not (keep_last and len(out) == 1):
+            inner[0] *= d
+        else:
+            out.insert(0, [d, s])
+    return tuple(d for d, _ in out), tuple(s for _, s in out)
+
+
+def magic(d: int) -> tuple:
+    """(mul, shr) with ``n // d == (n * mul) >> shr`` for every 0 <= n < 2^31
+    and mul < 2^32: shr = 31 + ceil(log2 d), mul = ceil(2^shr / d). The error
+    mul d - 2^shr lies in [0, d), so n mul / 2^shr exceeds n / d by less
+    than 2^31 d / (d 2^shr) <= 1 / d: never past the next integer."""
+    if not 1 <= d < INDEX_LIMIT:
+        raise ValueError(f"divisor {d} outside [1, 2^31)")
+    shr = 31 + (d - 1).bit_length()
+    return -(-(1 << shr) // d), shr
+
+
+class GatherPlan(NamedTuple):
+    """The gather kernel's launch: the collapsed map in units (the last dim
+    counted in units, its stride the unit's width when a unit is 16
+    bytes), the base (aligned down by ``off`` in SHIFT mode) and each dim's
+    multiply-shift divisor."""
+
+    dims: tuple
+    strides: tuple
+    base: int
+    off: int
+    mode: int
+    unit: int
+    magic: tuple
+
+    @property
+    def units(self) -> int:
+        n = 1
+        for d in self.dims:
+            n *= d
+        return n
+
+
+def gather_plan(shape, strides, base, itemsize, aligned=True, chan=False) -> GatherPlan:
+    """Collapse the map, then take 16-byte units where the last dim is
+    contiguous, its length a multiple of 16 bytes and every other stride a
+    multiple of 16 bytes (``aligned``: both buffers 16-byte aligned): VEC
+    where the base is aligned too, SHIFT where every row starts ``off``
+    elements past alignment; else one element a unit (ELEM)."""
+    if any(s < 0 for s in strides) or base < 0:
+        raise ValueError("the map's strides and base must be non-negative")
+    dims, st = collapse(shape, strides, keep_last=chan)
+    if len(dims) > 4:
+        raise ValueError(f"the map collapses to {len(dims)} dims; the kernel takes 4")
+    width = 16 // itemsize
+    off, mode, unit = 0, ELEM, 1
+    if (aligned and st[-1] == 1 and dims[-1] % width == 0
+            and all(s % width == 0 for s in st[:-1])):
+        off, unit = base % width, width
+        mode = SHIFT if off else VEC
+        dims, st, base = dims[:-1] + (dims[-1] // width,), st[:-1] + (width,), base - off
+    return GatherPlan(dims, st, base, off, mode, unit, tuple(magic(d) for d in dims))
+
+
+def _plan_words(plan: GatherPlan, affine: int, channels: int):
+    pad = 4 - len(plan.dims)
+    words = [len(plan.dims), plan.mode, affine, plan.base, plan.off, plan.units, channels,
+             *plan.dims, *(1,) * pad, *(m for m, _ in plan.magic), *(1,) * pad,
+             *(s for _, s in plan.magic), *(0,) * pad, *plan.strides, *(0,) * pad]
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
+def _gather(x, shape, strides, base, chan=None, a=1.0, b=0.0, affine=COPY, out=None):
     """Family 1: y (shape, contiguous) with y[i] = x[base + i . strides] (up
-    to 4 dims), then a * y (+ b) with a = chan[last index] when given. 16-byte
-    accesses where the map keeps them contiguous and aligned."""
-    pad = 4 - len(shape)
-    dims, st = (1,) * pad + tuple(shape), (0,) * pad + tuple(strides)
-    width = 16 // x.element_size()
-    vec = (st[3] == 1 and dims[3] % width == 0 and base % width == 0
-           and all(s % width == 0 for s in st[:3]) and x.data_ptr() % 16 == 0)
-    y = torch.empty(shape, dtype=x.dtype, device=x.device)
-    _call("probe_gather", int(x.dtype == BF16), x.data_ptr(), y.data_ptr(), *dims, *st, base,
-          None if chan is None else chan.data_ptr(), a, b, affine, int(vec), device=x.device)
+    to 4 dims), then a y, a y + b or chan[last index] y + b, through the
+    collapsed map of :func:`gather_plan`. ``out``: where to write y (else
+    a new tensor)."""
+    y = torch.empty(shape, dtype=x.dtype, device=x.device) if out is None else out
+    top = base + sum((d - 1) * s for d, s in zip(shape, strides))
+    if x.numel() >= INDEX_LIMIT or y.numel() >= INDEX_LIMIT or top >= x.numel():
+        raise ValueError(f"gather: x of {x.numel()} and y of {y.numel()} elements (each under "
+                         f"2^31), the map reads up to {top}")
+    if (affine == CHAN_SCALE_ADD) != (chan is not None) or (
+            chan is not None and not 1 <= chan.numel() == shape[-1] <= MAX_CHANNELS):
+        raise ValueError("gather: a per-channel scale needs CHAN_SCALE_ADD and one scale a "
+                         f"last-dim element (at most {MAX_CHANNELS})")
+    plan = gather_plan(shape, strides, base, x.element_size(),
+                       aligned=x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0,
+                       chan=chan is not None)
+    _call("probe_gather", int(x.dtype == BF16), x.data_ptr(), y.data_ptr(),
+          _plan_words(plan, affine, 0 if chan is None else chan.numel()),
+          None if chan is None else chan.data_ptr(), a, b, device=x.device)
     return y
 
 
@@ -303,12 +428,69 @@ def _transpose(x):
     return y
 
 
-def _gemm(a, b, M, N, K, a_trans, out_dtype):
+# --------------------------------------------- the contraction kernel's plan
+
+GEMM_TILE = (64, 64)  # (M, N) a block: wgmma's 64 rows (one warpgroup), 64 columns
+GEMM_STAGE_K = 64  # K a stage at most: one 128-byte row of bf16
+GEMM_FLAT_MAX_K = 256  # a flat A slab: 64 rows of at most 512 bytes
+GEMM_ROUTES = ("tma", "tma_t", "flat")  # the C entry's route codes, in order
+
+
+class GemmPlan(NamedTuple):
+    """The contraction kernel's launch. ``a_route``: "tma" (A (M, K), K a
+    multiple of 8: K-major boxes), "tma_t" (A given (K, M), M a multiple of
+    8: M-major boxes through wgmma's transpose bit) or "flat" (A (M, K) with
+    rows off 16 bytes: each block's 64-row slab by one bulk copy, the
+    fragments built in registers); ``b_route``: B (K, N) by TMA, MN-major.
+    ``bk``: K a stage; ``stages``: 1, or a ring of 2 where K > bk; ``grid``:
+    (N tiles, M tiles)."""
+
+    a_route: str
+    b_route: str
+    tile: tuple
+    bk: int
+    stages: int
+    grid: tuple
+
+
+def gemm_plan(M, N, K, a_trans, ptrs=(0, 0, 0)) -> GemmPlan:
+    """The launch plan of ``(M, N) = A . B`` for operands and output at
+    ``ptrs``; raises ValueError for what the kernel does not take: N not a
+    multiple of 8 (B's and the output's rows are TMA rows and 16-byte
+    stores), A given (K, M) with M not a multiple of 8, A (M, K) with rows
+    off 16 bytes and K > GEMM_FLAT_MAX_K, a pointer off 16 bytes."""
+    if M < 1 or K < 1 or N < 1:
+        raise ValueError(f"gemm: M={M}, N={N}, K={K} must be positive")
+    if N % 8:
+        raise ValueError(f"gemm: N={N} must be a multiple of 8 (16-byte rows of B and out)")
+    if any(p % 16 for p in ptrs):
+        raise ValueError("gemm: A, B and out must be 16-byte aligned")
+    if a_trans:
+        if M % 8:
+            raise ValueError(f"gemm: A given (K, M) needs M={M} a multiple of 8 (16-byte rows)")
+        route = "tma_t"
+    elif K % 8 == 0:
+        route = "tma"
+    elif K <= GEMM_FLAT_MAX_K:
+        route = "flat"
+    else:
+        raise ValueError(f"gemm: A (M, K) with K={K} off 16-byte rows takes K <= "
+                         f"{GEMM_FLAT_MAX_K}")
+    bk = min(GEMM_STAGE_K, -(-K // 16) * 16)
+    grid = (-(-N // GEMM_TILE[1]), -(-M // GEMM_TILE[0]))
+    if grid[1] > 65535:
+        raise ValueError(f"gemm: M={M} gives more than 65535 row tiles")
+    return GemmPlan(route, "tma", GEMM_TILE, bk, 2 if K > bk else 1, grid)
+
+
+def _gemm(a, b, M, N, K, a_trans, out_dtype, out=None):
     """Family 2: (M, N) = A . b with b (K, N) and a (M, K), or (K, M) when
-    ``a_trans``; bf16 operands, f32 sums, output in ``out_dtype``."""
-    y = torch.empty((M, N), dtype=out_dtype, device=a.device)
-    _call("probe_gemm", a.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K, int(a_trans),
-          int(out_dtype == BF16), device=a.device)
+    ``a_trans``; bf16 operands, f32 sums, output in ``out_dtype`` (written
+    to ``out`` where given)."""
+    y = torch.empty((M, N), dtype=out_dtype, device=a.device) if out is None else out
+    plan = gemm_plan(M, N, K, a_trans, (a.data_ptr(), b.data_ptr(), y.data_ptr()))
+    _call("probe_gemm", a.data_ptr(), b.data_ptr(), y.data_ptr(), M, N, K,
+          GEMM_ROUTES.index(plan.a_route), int(out_dtype == BF16), device=a.device)
     return y
 
 
@@ -359,26 +541,26 @@ def _probe(wrapper, launch, args):
 
 def probe_a(x, w):
     """Probe A: ``o[h, w, d] = sum_c x[h, w, c] w[c, d]``, f32 sums, bf16 out."""
-    return _probe(probe_a, lambda x, w: _gemm(x, w, 1024, 128, 32, False, BF16).view(16, 64, 128),
+    return _probe(probe_a, lambda x, w: _gemm(x, w, *CONTRACTIONS["probe_a"]).view(16, 64, 128),
                   (x, w))
 
 
 def probe_a2(s, w):
     """Probe A2: ``o[h, w, n] = sum_c s[c, h, w] w[c, n]``, the contraction
     over the major dim, f32 out."""
-    return _probe(probe_a2, lambda s, w: _gemm(s, w, 1120, 128, 12, True, F32).view(20, 56, 128),
+    return _probe(probe_a2, lambda s, w: _gemm(s, w, *CONTRACTIONS["probe_a2"]).view(20, 56, 128),
                   (s, w))
 
 
 def probe_b(x):
     """Probe B: reshape (1600, 128) -> (8, 200, 128), + 1, reshape back."""
-    return _probe(probe_b, lambda x: _gather(x, (8, 200, 128), (25600, 128, 1), 0, a=1.0, b=1.0,
+    return _probe(probe_b, lambda x: _gather(x, *MAPS["probe_b"], a=1.0, b=1.0,
                                              affine=SCALE_ADD).view(1600, 128), (x,))
 
 
 def probe_b2(x):
     """Probe B2: reshape (1600, 128) -> (8, 200, 128), rows 4:196."""
-    return _probe(probe_b2, lambda x: _gather(x, (8, 192, 128), (25600, 128, 1), 4 * 128), (x,))
+    return _probe(probe_b2, lambda x: _gather(x, *MAPS["probe_b2"]), (x,))
 
 
 def probe_c(x):
@@ -393,45 +575,43 @@ def probe_c2(x):
 
 def probe_d(a, b):
     """Probe D: (4000, 12) @ (12, 128), K = 12, f32 out."""
-    return _probe(probe_d, lambda a, b: _gemm(a, b, 4000, 128, 12, False, F32), (a, b))
+    return _probe(probe_d, lambda a, b: _gemm(a, b, *CONTRACTIONS["probe_d"]), (a, b))
 
 
 def probe_e(x, s):
     """Probe E: ``x * s[c] + 1``, the channel broadcast."""
-    return _probe(probe_e, lambda x, s: _gather(x, (16, 192, 64), (12288, 64, 1), 0, chan=s,
-                                                b=1.0, affine=SCALE_ADD), (x, s))
+    return _probe(probe_e, lambda x, s: _gather(x, *MAPS["probe_e"], chan=s, b=1.0,
+                                                affine=CHAN_SCALE_ADD), (x, s))
 
 
 def probe_f(x):
     """Probe F: the lane split (1, 4800) -> (400, 12)."""
-    return _probe(probe_f, lambda x: _gather(x, (400, 12), (12, 1), 0), (x,))
+    return _probe(probe_f, lambda x: _gather(x, *MAPS["probe_f"]), (x,))
 
 
 def probe_g(x):
     """Probe G: grid 2, ``o[16i:16i+16] = x[16i+3:16i+19]``."""
-    return _probe(probe_g, lambda x: _gather(x, (2, 16, 128), (2048, 128, 1), 3 * 128).view(32, 128),
-                  (x,))
+    return _probe(probe_g, lambda x: _gather(x, *MAPS["probe_g"]).view(32, 128), (x,))
 
 
 def probe_h(x):
     """Probe H: (1, 16, 192, 64) blocks on a (2, 2) grid, each times 2."""
-    return _probe(probe_h, lambda x: _gather(x, (2, 32, 192, 64), (393216, 12288, 64, 1), 0,
-                                             a=2.0, affine=SCALE), (x,))
+    return _probe(probe_h, lambda x: _gather(x, *MAPS["probe_h"], a=2.0, affine=SCALE), (x,))
 
 
 def probe_i(a, b):
     """Probe I: (128, 12) @ (12, 4000), N = 4000 the minor dim, f32 out."""
-    return _probe(probe_i, lambda a, b: _gemm(a, b, 128, 4000, 12, False, F32), (a, b))
+    return _probe(probe_i, lambda a, b: _gemm(a, b, *CONTRACTIONS["probe_i"]), (a, b))
 
 
 def probe_k(x):
     """Probe K: the static unaligned lane slice ``x[:, :, 3:51]``."""
-    return _probe(probe_k, lambda x: _gather(x, (12, 20, 48), (1120, 56, 1), 3), (x,))
+    return _probe(probe_k, lambda x: _gather(x, *MAPS["probe_k"]), (x,))
 
 
 def probe_l(x):
     """Probe L: grid 2, ``o[i] = x[:, 8i+3:8i+19, :]``."""
-    return _probe(probe_l, lambda x: _gather(x, (2, 4, 16, 56), (448, 3584, 56, 1), 3 * 56), (x,))
+    return _probe(probe_l, lambda x: _gather(x, *MAPS["probe_l"]), (x,))
 
 
 def probe_m(s, wsh, wgb):

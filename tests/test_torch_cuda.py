@@ -278,11 +278,14 @@ def test_cuda_int8_conv_repaired_shapes(shape, dtype):
     assert fs.error_ratio(out, ref) <= ic.INT8_CONV_TOLERANCE[dtype]
 
 
-# one probe of each kernel family of csrc/probes.cu: movement (K, the
-# unaligned lane slice, on the scalar path; L on the 16-byte path),
-# contraction (A2, the major-dim contraction), the mini chain (M) and the
-# tap products (mmonly)
-PROBE_FAMILIES = ("probe_k", "probe_l", "probe_a2", "probe_m", "conv_mmonly")
+# every layout probe of csrc/probes.cu: the 10 movement probes (the
+# gather kernel's 16-byte units, aligned (B, B2, E, F, G, H, L) and
+# funnel-shifted (K), and the transposes C, C2), the 4 contractions (A
+# and A2 by TMA, A2 through the transpose bit; D and I by the flat slab),
+# the mini chain (M); and the tap products (mmonly)
+PROBE_FAMILIES = ("probe_a", "probe_a2", "probe_b", "probe_b2", "probe_c", "probe_c2", "probe_d",
+                  "probe_e", "probe_f", "probe_g", "probe_h", "probe_i", "probe_k", "probe_l",
+                  "probe_m", "conv_mmonly")
 
 
 @pytest.mark.gpu

@@ -3,8 +3,10 @@ CPU: the 15 layout probes of tools/proto_mosaic_caps.py and the mmonly and
 taps9bf16 variants of tools/pallas_conv_probe.py::pallas_conv3x3_int8,
 each plain version (what the wrapper computes for a CPU tensor) on seeded
 inputs made with numpy, against the JAX kernel body replayed in interpret
-mode; and the port's two probe tools, shineon_tpu_torch.tools.layout_caps
-and conv_probe, on the CPU."""
+mode; the port's two probe tools, shineon_tpu_torch.tools.layout_caps
+and conv_probe, on the CPU; and the kernels' host plans: the movement
+kernel's collapsed maps and multiply-shift divisors against numpy's index
+arithmetic, the contraction kernel's launch plan and its refusals."""
 
 import functools
 import os.path as osp
@@ -14,6 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 sys.path.insert(0, osp.dirname(osp.dirname(osp.abspath(__file__))))
 
@@ -23,6 +27,7 @@ from shineon_tpu_torch.ops.fused_spade import error_ratio  # noqa: E402
 from shineon_tpu_torch.tools import conv_probe, layout_caps  # noqa: E402
 from tools import pallas_conv_probe as jconv  # noqa: E402
 from tools import proto_mosaic_caps as jcaps  # noqa: E402
+from test_torch_networks import one_torch_thread  # noqa: E402, F401 (autouse)
 
 # Against JAX, the limits of pr.TOLERANCE hold but one: XLA on the CPU
 # contracts probe E's x * s + 1 into one fused multiply-add (one rounding),
@@ -206,3 +211,215 @@ def test_wrappers_validate_before_dispatch():
     qw = ic.quantize_weight(torch.randn(64, 64, 3, 3))
     with pytest.raises(ValueError, match="int8"):
         pr.conv_taps9bf16(xp.float(), qw, torch.ones(64), torch.zeros(64))
+
+
+# ------------------------------------------------------------ host plans
+
+def _itemsize(name):
+    return 2 if pr.SPECS[name].inputs[0][1] == torch.bfloat16 else 4
+
+
+def unit_sources(plan):
+    """Each unit's input offset (of its first element, ``plan.off`` before
+    it in SHIFT mode) and its index along the last dim, by the gather
+    kernel's arithmetic (csrc/probes.cu::unit_source): the digits from the
+    multiply-shift divisions, in 64 bits."""
+    rest = np.arange(plan.units, dtype=np.uint64)
+    src = np.full(plan.units, plan.base, dtype=np.uint64)
+    last = rest
+    for k in range(len(plan.dims) - 1, 0, -1):
+        mul, shr = plan.magic[k]
+        q = (rest * np.uint64(mul)) >> np.uint64(shr)
+        i = rest - q * np.uint64(plan.dims[k])
+        if k == len(plan.dims) - 1:
+            last = i
+        src += i * np.uint64(plan.strides[k])
+        rest = q
+    return src + rest * np.uint64(plan.strides[0]), last
+
+
+def _check_addresses(shape, strides, base, itemsize, chan=False):
+    """The plan's units, expanded to their elements, read exactly the input
+    elements numpy's strided view gives, in the output's order; with a
+    per-channel scale each element's channel is its last-dim index. Returns
+    the plan."""
+    numel = base + sum((d - 1) * s for d, s in zip(shape, strides)) + 1
+    plan = pr.gather_plan(shape, strides, base, itemsize, chan=chan)
+    assert plan.units * plan.unit == int(np.prod(shape))
+    src, last = unit_sources(plan)
+    within = np.arange(plan.unit, dtype=np.uint64)
+    got = (src[:, None] + np.uint64(plan.off) + within).reshape(-1)
+    flat = np.arange(numel, dtype=np.uint64)[base:]
+    want = np.lib.stride_tricks.as_strided(flat, shape, [8 * s for s in strides]).reshape(-1)
+    np.testing.assert_array_equal(got, want)
+    if chan:
+        channel = (last[:, None] * np.uint64(plan.unit) + within).reshape(-1)
+        np.testing.assert_array_equal(channel, np.arange(got.size) % shape[-1])
+    return plan
+
+
+# (collapsed dims, unit mode) of each movement probe's map: B, F, G and H
+# are one contiguous run (G's two row slices are adjacent), B2 two dims, E
+# keeps its channel dim, K (240, 48) at base 3 of 56-float rows, L three
+# dims; C and C2 (the transposes) have no contiguous last dim
+PROBE_PLANS = {
+    "probe_b": ((51200,), pr.VEC), "probe_b2": ((8, 6144), pr.VEC),
+    "probe_c": ((4000, 12), pr.ELEM), "probe_c2": ((4000, 128), pr.ELEM),
+    "probe_e": ((3072, 16), pr.VEC), "probe_f": ((1200,), pr.VEC),
+    "probe_g": ((1024,), pr.VEC), "probe_h": ((98304,), pr.VEC),
+    "probe_k": ((240, 12), pr.SHIFT), "probe_l": ((2, 4, 224), pr.VEC),
+}
+
+
+@pytest.mark.parametrize("name", sorted(pr.MAPS))
+def test_movement_probe_map_addresses(name):
+    """Each of the 10 movement probes: its map, collapsed and in 16-byte
+    units where it can be, addresses the elements of numpy's strided view,
+    collapses as the kernel's design says, and reads its whole output from
+    inside the input."""
+    m = pr.MAPS[name]
+    plan = _check_addresses(*m, _itemsize(name), chan=name == "probe_e")
+    assert (plan.dims, plan.mode) == PROBE_PLANS[name]
+    assert m.shape == tuple(pr.SPECS[name].out[0]) or name in ("probe_b", "probe_g")
+    assert m.base + sum((d - 1) * s for d, s in zip(*m[:2])) < np.prod(pr.SPECS[name].inputs[0][0])
+    if name == "probe_k":
+        assert (plan.base, plan.off, plan.strides) == (0, 3, (56, 4))
+
+
+def _random_map(rng):
+    """A strided map of rank 1-4 into a contiguous input: per output dim a
+    start, a length and a step of an input dim; often a contiguous last dim
+    of 8-element multiples at or off alignment, now and then two dims'
+    strides swapped."""
+    rank = rng.randint(1, 5)
+    dims = list(rng.randint(1, 7, size=rank))
+    steps = list(rng.randint(1, 4, size=rank))
+    starts = list(rng.randint(0, 5, size=rank))
+    if rng.rand() < 0.5:
+        dims[-1], steps[-1], starts[-1] = 8 * rng.randint(1, 5), 1, rng.choice([0, 8, 1, 3, 6])
+    parent = [int(s + d * st + rng.randint(0, 4)) for s, d, st in zip(starts, dims, steps)]
+    parent[-1] = -(-parent[-1] // 8) * 8
+    pitch = [1] * rank
+    for k in range(rank - 2, -1, -1):
+        pitch[k] = pitch[k + 1] * parent[k + 1]
+    strides = [int(st * p) for st, p in zip(steps, pitch)]
+    if rank > 1 and rng.rand() < 0.2:
+        strides[0], strides[-1] = strides[-1], strides[0]
+        dims[0] = dims[-1] = min(dims[0], dims[-1])
+    base = int(sum(s * p for s, p in zip(starts, pitch)))
+    return tuple(int(d) for d in dims), tuple(strides), base
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_map_addresses(seed):
+    """Seeded random strided maps of rank 1-4, in f32 and bf16 units, with
+    and without a channel dim: the plan addresses what numpy's index
+    arithmetic gives, in every unit mode."""
+    rng = np.random.RandomState(seed)
+    modes = set()
+    for _ in range(40):
+        shape, strides, base = _random_map(rng)
+        for itemsize in (2, 4):
+            for chan in (False, True):
+                modes.add(_check_addresses(shape, strides, base, itemsize, chan).mode)
+    assert modes == {pr.ELEM, pr.VEC, pr.SHIFT}
+
+
+def test_collapse_merges_chained_strides():
+    """Dims whose strides chain merge, size-1 dims drop, keep_last holds the
+    last dim apart; an empty map is one element."""
+    assert pr.collapse((2, 3, 4), (12, 4, 1)) == ((24,), (1,))
+    assert pr.collapse((2, 1, 3, 4), (20, 7, 4, 1)) == ((2, 12), (20, 1))
+    assert pr.collapse((2, 3, 4), (12, 4, 1), keep_last=True) == ((6, 4), (4, 1))
+    assert pr.collapse((3, 1), (5, 1), keep_last=True) == ((3, 1), (5, 1))
+    assert pr.collapse((1, 1), (9, 9)) == ((1,), (1,))
+    assert pr.collapse((4, 5), (1, 4)) == ((4, 5), (1, 4))
+
+
+def _divides(d, n):
+    mul, shr = pr.magic(d)
+    assert 0 < mul < 1 << 32
+    n = np.asarray(n, dtype=np.uint64)
+    np.testing.assert_array_equal((n * np.uint64(mul)) >> np.uint64(shr), n // np.uint64(d))
+
+
+EDGES = np.arange((1 << 31) - 4096, 1 << 31, dtype=np.uint64)
+
+
+@pytest.mark.parametrize("name", sorted(pr.MAPS))
+def test_magic_divisors_at_probe_indices(name):
+    """Each divisor of a probe's plan gives // (and so %) over every unit
+    index of the probe and at the 4096 indices below 2^31."""
+    plan = pr.gather_plan(*pr.MAPS[name], _itemsize(name), chan=name == "probe_e")
+    for d in plan.dims:
+        _divides(d, np.arange(plan.units, dtype=np.uint64))
+        _divides(d, EDGES)
+
+
+@settings(max_examples=400, deadline=None)
+@given(d=st.integers(1, (1 << 31) - 1), n=st.integers(0, (1 << 31) - 1))
+def test_magic_divisor_any(d, n):
+    """magic(d) gives n // d for any divisor and index under 2^31, and near
+    the index's own multiples of d."""
+    _divides(d, [n, n - n % d, max(n - n % d - 1, 0), (1 << 31) - 1])
+
+
+def test_magic_divisor_small_exhaustive():
+    """Every divisor up to 2048 against the 4096 indices below 2^31 and the
+    first 4096."""
+    for d in range(1, 2049):
+        _divides(d, EDGES)
+        _divides(d, np.arange(4096, dtype=np.uint64))
+
+
+def test_gather_refuses_2_31_elements():
+    """The gather wrapper indexes in 32 bits: an input or output of 2^31
+    elements is refused before anything launches (meta tensors, no memory),
+    as is a map that reads past its input."""
+    x = torch.empty(1 << 31, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        pr._gather(x, (1 << 31,), (1,), 0)
+    with pytest.raises(ValueError, match="reads up to"):
+        pr._gather(torch.empty(100, device="meta"), (10, 11), (10, 1), 0)
+    with pytest.raises(ValueError, match="per-channel"):
+        pr._gather(torch.empty(100, device="meta"), (10, 10), (10, 1), 0, affine=pr.CHAN_SCALE_ADD)
+
+
+# the contraction kernel's plan at each contraction probe: (A's route,
+# B's, tile, K a stage, stages, grid as (N tiles, M tiles))
+GEMM_PLANS = {
+    "probe_a": ("tma", "tma", (64, 64), 32, 1, (2, 16)),
+    "probe_a2": ("tma_t", "tma", (64, 64), 16, 1, (2, 18)),
+    "probe_d": ("flat", "tma", (64, 64), 16, 1, (2, 63)),
+    "probe_i": ("flat", "tma", (64, 64), 16, 1, (63, 2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GEMM_PLANS))
+def test_gemm_plan_of_probe(name):
+    """A (64-byte rows) and A2's (K, M) operand (2240-byte rows) by TMA,
+    D's and I's 24-byte rows by the flat slab, B by TMA; all of K in one
+    stage; 64 x 64 tiles."""
+    M, N, K, a_trans, _ = pr.CONTRACTIONS[name]
+    assert tuple(pr.gemm_plan(M, N, K, a_trans, (256, 512, 1024))) == GEMM_PLANS[name]
+
+
+def test_gemm_plan_refusals_and_ring():
+    """Odd N and N off 8, pointers off 16 bytes, A given (K, M) with M off
+    8, and A (M, K) with rows off 16 bytes beyond the flat slab's K are
+    refused; K beyond a stage runs a ring of two."""
+    for N in (127, 6, 4002):
+        with pytest.raises(ValueError, match="multiple of 8"):
+            pr.gemm_plan(64, N, 16, False)
+    for ptrs in ((8, 0, 0), (0, 4, 0), (0, 0, 2)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            pr.gemm_plan(64, 64, 16, False, ptrs)
+    with pytest.raises(ValueError, match="M=100"):
+        pr.gemm_plan(100, 64, 16, True)
+    with pytest.raises(ValueError, match="K=300"):
+        pr.gemm_plan(64, 64, 300, False)
+    assert pr.gemm_plan(64, 64, 300, True).a_route == "tma_t"
+    plan = pr.gemm_plan(200, 72, 144, False)
+    assert (plan.a_route, plan.bk, plan.stages) == ("tma", 64, 2)
+    assert pr.gemm_plan(200, 72, 100, False)[:5] == ("flat", "tma", (64, 64), 64, 2)
+    assert pr.gemm_plan(64, 64, 64, False).stages == 1
