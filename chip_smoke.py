@@ -11,7 +11,9 @@ Phases, each fatal on failure:
      bodies run on wgmma fed by bulk or tensor-map copies (cuobjdump's
      SASS: HGMMA in the bf16 chain and attention, IGMMA in the quantized
      chain and the int8 conv; UBLKCP or UTMALDG in each; the chains' every
-     hidden-activation instance) and ptxas reports no spills for them;
+     hidden-activation instance; likewise IGMMA in the conv probe's mmonly
+     kernel and HGMMA in its taps9bf16 kernel) and ptxas reports no spills
+     for them;
   3. hold each kernel against its plain PyTorch version at every shape the
      serving clips give it (the clips' batch), in bf16 and f32, plus a
      ragged tile, element by element, and time kernel and plain version on
@@ -42,9 +44,11 @@ Phases, each fatal on failure:
      library call in turns, median (min-max), beside its bound, its plain
      version and a call's event time; the int8-conv probe's mmonly and
      taps9bf16 variants at its four batch-16 shapes (mmonly also against
-     the int8 conv, which must fail), timed the same way in turns with the
-     int8 conv (bounds from the products their functions need, not the
-     nine their kernel issues); then the port's two probe tools as a user
+     the int8 conv, which must fail) and at ragged shapes (H and W off
+     every tile, batch 1-3, Cin 64-192, Cout 64-256, guarded inputs, NaN
+     tails), timed the same way in turns with the int8 conv and, for
+     taps9bf16, cuDNN's bf16 conv of the same operands (bounds from the
+     products their functions need); then the port's two probe tools as a user
      runs them (layout_caps, and conv_probe for each of its seven
      variants), every launch count at 0 before each run, with the
      launches checked;
@@ -286,6 +290,8 @@ SERVING_BODIES = {
                          **{f"chain_kernel_q_bf16ILi{a}E": "IGMMA" for a in range(4)}},
     "int8_conv3x3": {"conv_wgmma": "IGMMA"},
     "sagan_attention": {"attention_wgmma": "HGMMA"},
+    # and the conv probe's tap-product kernels (no clip runs them)
+    "probes": {"mmonly_wgmma": "IGMMA", "taps9_wgmma": "HGMMA"},
 }
 
 
@@ -925,19 +931,21 @@ def probe_bound(pr, name, args, out):
 
 
 def tap_products_needed(name):
-    """The int8 products a conv variant's function needs, of the nine tap
-    products (M = pixels, K = Cin, N = Cout) its kernel issues. taps9bf16
-    computes the int8 conv: all nine. mmonly's function is the centre tap
-    times the sum of the nine weight taps, one product with weights in
-    [-1143, 1143], which split exactly into two int8 parts (128 hi + lo)."""
+    """The int8 products (M = pixels, K = Cin, N = Cout) a conv variant's
+    function needs, as its kernel issues them. taps9bf16 computes the int8
+    conv: all nine taps. mmonly's function is the centre tap times the sum
+    of the nine weight taps, one product with weights in [-1143, 1143],
+    which split exactly into two int8 parts (128 hi + lo)."""
     return {"conv_mmonly": 2, "conv_taps9bf16": 9}[name]
 
 
 def guarded(torch, t, guard=1 << 14):
     """t copied to the head of a buffer whose tail (guard elements) is NaN,
     so that a kernel reading past the tensor reads NaN and fails its check:
-    whatever lies past a fresh allocation may happen to be zero."""
-    buf = torch.full((t.numel() + guard,), float("nan"), dtype=t.dtype, device=t.device)
+    whatever lies past a fresh allocation may happen to be zero. An integer
+    tensor's tail holds its type's largest value instead."""
+    fill = float("nan") if t.is_floating_point() else torch.iinfo(t.dtype).max
+    buf = torch.full((t.numel() + guard,), fill, dtype=t.dtype, device=t.device)
     head = buf[:t.numel()].view(t.shape)
     head.copy_(t)
     return head
@@ -1063,6 +1071,42 @@ def gather_sweep(torch, pr):
     return failed
 
 
+# the ragged sweep of the tap-product kernels (B, H, W, Cin, Cout): H and W
+# off every tile (17 x 23), one pixel, several column bands (64 x 200);
+# batches 1-3, Cin 64, 128 and 192, Cout 64, 128, 192 and 256
+TAP_SWEEP = ((1, 17, 23, 64, 64), (2, 17, 23, 128, 192), (3, 17, 23, 192, 256),
+             (1, 1, 1, 64, 128), (2, 1, 1, 192, 64), (3, 1, 1, 128, 256),
+             (1, 64, 200, 128, 128), (2, 64, 200, 192, 192), (3, 64, 200, 64, 256))
+
+
+def tap_sweep(torch, pr, ic):
+    """pr._taps (both tap-product kernels) at TAP_SWEEP against their plain
+    versions (pr.TOLERANCE), every input at the head of a guarded buffer
+    (the weight's tap images too), the output before a NaN tail that must
+    stay NaN. Returns the failures."""
+    failed = []
+    for i, shape in enumerate(TAP_SWEEP):
+        B, H, W, cin, cout = shape
+        g = torch.Generator().manual_seed(1000 + i)
+        w = 0.05 * torch.randn((cout, cin, 3, 3), generator=g)
+        qw = pr.with_tap_images(ic.quantize_weight(w.to(DEVICE)))
+        qw = qw._replace(taps=pr.TapImages(*(guarded(torch, t) for t in qw.taps)))
+        xp, s = pr.quantize_padded(torch.randn((B, H, W, cin), generator=g).to(DEVICE))
+        xp, scale = guarded(torch, xp), guarded(torch, (s * qw.scale).contiguous())
+        bias = guarded(torch, (0.1 * torch.randn((cout,), generator=g)).to(DEVICE))
+        for name in pr.CONV_VARIANTS:
+            out, tail = guarded_out(torch, (B, H, W, cout), torch.bfloat16)
+            pr._taps(name == "conv_taps9bf16", xp, qw, scale, bias, out=out)
+            ref = pr.plain_version(name)(xp, qw, scale, bias)
+            torch.cuda.synchronize()
+            ok, err, ratio = pr.agrees(name, out, ref)
+            if not (ok and bool(torch.isnan(tail.float()).all())):
+                failed.append(f"{name} {shape}: {ratio:.3g}")
+    log(f"ragged sweep, tap products: {len(pr.CONV_VARIANTS) * len(TAP_SWEEP)} cases: "
+        f"{'ok' if not failed else 'FAIL ' + '; '.join(failed)}")
+    return failed
+
+
 L2_FLUSH_BYTES = 128 << 20  # a fill of more than twice the card's 50 MB L2
 PROBE_TRACES = 5  # traces of each probe call, kernel and library in turns
 PROBE_REPS = 20  # calls a trace, each after a flush
@@ -1070,7 +1114,8 @@ PROBE_REPS = 20  # calls a trace, each after a flush
 # and in the designs before it (probe_sites.py times the parent's too)
 PROBE_KERNELS = {"contraction": ("gemm_wgmma", "gemm_kernel"),
                  "movement": ("gather32_kernel", "gather_kernel", "transpose_kernel"),
-                 "chain": ("chain_kernel",), "tap products": ("taps_kernel",)}
+                 "chain": ("chain_kernel",),
+                 "tap products": ("taps_kernel", "mmonly_wgmma", "taps9_wgmma")}
 
 
 class L2Flush:
@@ -1182,6 +1227,59 @@ def time_layout_probe(torch, pr, name, args, flush):
                 bound_share=bound_ms / turns["kernel"]["median"])
 
 
+def conv_variant_operands(torch, pr, ic, shape, seed):
+    """The conv probe's operands at ``shape`` as phase 3e and
+    tools/probe_sites.py time them: (v, qw, xp, scale, bias), with the
+    weight's tap images made once, outside every timed call, where the
+    package under test has them."""
+    from shineon_tpu_torch.tools.conv_probe import conv_inputs
+
+    v, w, bias = conv_inputs(shape, DEVICE, seed=seed)
+    qw = ic.quantize_weight(w)
+    if hasattr(pr, "with_tap_images"):
+        qw = pr.with_tap_images(qw)
+    xp, s = pr.quantize_padded(v)
+    return v, qw, xp, (s * qw.scale).contiguous(), bias
+
+
+def cudnn_taps_call(torch, xp, qw):
+    """cuDNN's bf16 conv of taps9bf16's operands: F.conv2d of xp and wq as
+    bf16, channels_last, no padding (the same products, without the
+    kernel's epilogue), the operands converted outside the call."""
+    cout, cin = qw.wq.shape[1:]
+    xb = xp.to(torch.bfloat16).permute(0, 3, 1, 2)
+    wb = qw.wq.view(3, 3, cout, cin).permute(2, 3, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    return lambda: torch.nn.functional.conv2d(xb, wb)
+
+
+def time_conv_variant(torch, pr, ic, name, operands, flush):
+    """A conv variant's kernel beside kernel 4 on the same input and, for
+    taps9bf16, cuDNN's bf16 conv (cudnn_taps_call), in_turns (5 calls a
+    trace, L2 flushed before each); its bound (the tap products its
+    function needs at the int8 peak, or the bytes) and, for taps9bf16, the
+    bf16 peak's floor for the same products."""
+    v, qw, xp, scale, bias = operands
+    B, Hp, Wp, cin = xp.shape
+    cout = qw.wq.shape[1]
+    wrapper = pr.WRAPPERS[name]
+    calls = {"kernel": (lambda: wrapper(xp, qw, scale, bias), PROBE_KERNELS["tap products"]),
+             "int8_conv": (lambda: ic.conv3x3_int8(v, qw, bias, torch.bfloat16), CONV_KERNELS)}
+    library = cudnn_taps_call(torch, xp, qw) if name == "conv_taps9bf16" else None
+    if library is not None:
+        calls["library"] = (library, None)
+    with torch.no_grad():
+        turns = in_turns(torch, calls, flush, reps=5)
+        out = wrapper(xp, qw, scale, bias)
+        library_kernels = [] if library is None else device_kernels(torch, library)
+    ops = 2 * 9 * B * (Hp - 2) * (Wp - 2) * cin * cout
+    bound_ms, by = bound(tap_products_needed(name) * ops / 9 / H100_INT8_OPS,
+                         bytes_of(xp, qw.wq, scale, bias, out))
+    return dict(turns=turns, bound_ms=bound_ms, bound_by=by, library=library,
+                library_kernels=library_kernels, ops=ops,
+                bf16_floor_ms=1e3 * ops / H100_BF16_FLOPS if library is not None else None)
+
+
 def check_probes(torch, pr, ic, fs, card):
     """Phase 3e: each of the 15 layout probe kernels against its plain
     version on seeded random inputs of the probe's shapes and dtypes (exact
@@ -1194,9 +1292,11 @@ def check_probes(torch, pr, ic, fs, card):
     min, max), beside its bound, its plain version and the event time of a
     call. The two conv variants (mmonly, taps9bf16) against their plain
     versions at all four conv-probe shapes (batch 16), with one control
-    that must fail (mmonly against the int8 conv), each timed the same way
-    in turns with kernel 4 at the same shape."""
-    from shineon_tpu_torch.tools.conv_probe import SHAPES, conv_inputs
+    that must fail (mmonly against the int8 conv), and in a ragged sweep
+    (tap_sweep); each timed the same way in turns with kernel 4 at the same
+    shape and, for taps9bf16, with cuDNN's bf16 conv of the same operands
+    (its library call)."""
+    from shineon_tpu_torch.tools.conv_probe import SHAPES
 
     errors, timings, failed = {}, {}, []
     for i, name in enumerate(pr.SPECS):
@@ -1212,7 +1312,7 @@ def check_probes(torch, pr, ic, fs, card):
         errors[name] = err
         if not ok:
             failed.append(name)
-    failed += gemm_sweep(torch, pr, fs) + gather_sweep(torch, pr)
+    failed += gemm_sweep(torch, pr, fs) + gather_sweep(torch, pr) + tap_sweep(torch, pr, ic)
     if failed:
         raise SystemExit(f"probe kernels disagree with their plain versions at "
                          f"{', '.join(failed)}")
@@ -1246,13 +1346,9 @@ def check_probes(torch, pr, ic, fs, card):
             bound_share=t["bound_share"], library_kernels=t["library_kernels"],
             shape=[list(a.shape) for a in args] + [list(pr.SPECS[name].out[0])])
     for j, shape in enumerate(SHAPES):
-        B, H, W, cin, cout = shape
-        v, w, bias = conv_inputs(shape, DEVICE, seed=600 + j)
-        qw = ic.quantize_weight(w)
-        xp, s = pr.quantize_padded(v)
-        scale = (s * qw.scale).contiguous()
+        operands = conv_variant_operands(torch, pr, ic, shape, 600 + j)
+        v, qw, xp, scale, bias = operands
         conv = ic.conv3x3_int8(v, qw, bias, torch.bfloat16)
-        ops = 2 * 9 * B * H * W * cin * cout
         for name in pr.CONV_VARIANTS:
             wrapper, plain = pr.WRAPPERS[name], pr.plain_version(name)
             out, ref = wrapper(xp, qw, scale, bias), plain(xp, qw, scale, bias)
@@ -1268,30 +1364,37 @@ def check_probes(torch, pr, ic, fs, card):
             if not ok:
                 failed.append(f"{name} {shape}")
                 continue
+            t = time_conv_variant(torch, pr, ic, name, operands, flush)
             with torch.no_grad():
                 k_ms = cuda_ms(torch, lambda: wrapper(xp, qw, scale, bias), 10)
                 p_ms = cuda_ms(torch, lambda: plain(xp, qw, scale, bias), 2)
-                turns = in_turns(torch, {
-                    "kernel": (lambda: wrapper(xp, qw, scale, bias), PROBE_KERNELS["tap products"]),
-                    "int8_conv": (lambda: ic.conv3x3_int8(v, qw, bias, torch.bfloat16),
-                                  CONV_KERNELS)}, flush, reps=5)
-            bound_ms, by = bound(tap_products_needed(name) * ops / 9 / H100_INT8_OPS,
-                                 bytes_of(xp, qw.wq, scale, bias, out))
-            k, c = turns["kernel"], turns["int8_conv"]
-            rate = ops / k["median"] / 1e9
+                lib_ms = None if t["library"] is None else cuda_ms(torch, t["library"], 10)
+            k, c, lib = t["turns"]["kernel"], t["turns"]["int8_conv"], t["turns"].get("library")
+            rate = tap_products_needed(name) * t["ops"] / 9 / k["median"] / 1e9
+            floor = ("" if t["bf16_floor_ms"] is None else
+                     f", bf16-peak floor {t['bf16_floor_ms']:.4f} ms "
+                     f"({100 * t['bf16_floor_ms'] / k['median']:.1f}%)")
             log(f"time {name} {shape}: device, L2 flushed, in turns: kernel {spread(k)} ms (the "
-                f"nine products it issues at {rate:.1f} Tops/s), int8 conv kernel {spread(c)} ms "
-                f"({ops / c['median'] / 1e9:.1f} Tops/s); bound {bound_ms:.4f} ms ({by}, "
-                f"{100 * bound_ms / k['median']:.1f}%); event: kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms [{card}]")
+                f"products it issues at {rate:.1f} Tops/s), int8 conv kernel {spread(c)} ms "
+                f"({t['ops'] / c['median'] / 1e9:.1f} Tops/s), library "
+                f"{'none' if lib is None else spread(lib)} ms; bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}, {100 * t['bound_ms'] / k['median']:.1f}%){floor}; event: "
+                f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+                f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; the library call runs "
+                f"{[n[:70] for n in t['library_kernels']]} [{card}]")
             timings[(name, shape)] = dict(
-                ms=k_ms, plain_ms=p_ms, bound_ms=bound_ms, bound_by=by, library_ms=None,
-                device_ms=k["median"], device_ms_min=k["min"], device_ms_max=k["max"],
-                int8_conv_ms=c["median"], int8_conv_ms_min=c["min"], int8_conv_ms_max=c["max"],
-                mma_rate_tops=rate, bound_share=bound_ms / k["median"],
+                ms=k_ms, plain_ms=p_ms, bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                library_ms=lib_ms, device_ms=k["median"], device_ms_min=k["min"],
+                device_ms_max=k["max"], int8_conv_ms=c["median"], int8_conv_ms_min=c["min"],
+                int8_conv_ms_max=c["max"],
+                library_device_ms=None if lib is None else lib["median"],
+                library_device_ms_min=None if lib is None else lib["min"],
+                library_device_ms_max=None if lib is None else lib["max"],
+                library_kernels=t["library_kernels"], bf16_floor_ms=t["bf16_floor_ms"],
+                mma_rate_tops=rate, bound_share=t["bound_ms"] / k["median"],
                 shape=dict(zip("B H W Cin Cout".split(), shape)))
             del out, ref
-        del v, xp, conv
+        del v, xp, conv, operands
     if failed:
         raise SystemExit(f"probe kernels disagree with their plain versions (or the control "
                          f"passes) at {', '.join(failed)}")

@@ -1,8 +1,8 @@
 // The tile loop of the 3x3 implicit-GEMM convolutions on mma.sync, the
-// first design of the int8 conv: the conv probe's tap-product variants
-// (probes.cu, 0 launches a clip) run on it, and so does the int8 conv's
-// f32 parity body. The int8 conv's bf16 serving body (kernel 4,
-// int8_conv3x3.cu: conv_wgmma) no longer uses it: it runs on wgmma.
+// first design of the int8 conv: the int8 conv's f32 parity body runs on
+// it. The int8 conv's bf16 serving body (kernel 4, int8_conv3x3.cu:
+// conv_wgmma) and the conv probe's tap-product kernels (probes.cu:
+// mmonly_wgmma, taps9_wgmma) no longer use it: they run on wgmma.
 //
 // A block owns (sample, TH x TW pixel tile, TN = 128 output channels, or 64
 // where Cout is not a multiple of 128). It walks Cin in chunks of KC: an

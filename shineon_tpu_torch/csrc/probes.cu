@@ -62,22 +62,52 @@
 //     products h[di + r] . wgb[di] (K = 128) on mma.sync with f32 sums. The
 //     three 128 x 128 wgb slabs (104 KB padded) are copied with cp.async while
 //     stage one runs; only the 10 hidden rows the output needs are computed.
-//  4. tap products (mmonly, taps9bf16): taps_kernel, an implicit GEMM over
-//     the zero-padded int8 input (B, H+2, W+2, Cin) on the tile loop that
-//     the int8 conv runs (conv3x3_tile.cuh), with an input stage that copies
-//     the padded int8 tile. mmonly multiplies the centre tap [1:1+th, 1:1+w]
-//     by all nine weight taps on s8 mma.sync m16n8k32 with int32 sums (the
-//     int8 product rate with no relayout at all); taps9bf16 takes the nine
-//     shifted taps as bf16 operands on m16n8k16 with f32 sums, the input
-//     tile and each weight slice converted to bf16 (exact for int8 values)
-//     as they are staged into shared memory. Both dequantize acc * scale[c]
-//     + bias[c] (uncontracted) and store bf16. Bound: mmonly's function is
-//     one product with the summed weights, so bytes; taps9bf16 computes the
-//     int8 conv, so operations at the int8 peak.
+//  4. tap products (mmonly, taps9bf16), over the zero-padded int8 input xp
+//     (B, H+2, W+2, Cin); both dequantize acc * scale[c] + bias[c]
+//     (__fmul_rn, then __fadd_rn: never contracted) and store bf16. Blocks
+//     are persistent (one an SM): two consumer warpgroups and a producer
+//     warp, one lane of which issues every copy on full/empty mbarriers, so
+//     one tile's epilogue and stores overlap the next tile's loads.
+//     mmonly_wgmma: the TPU variant multiplies the centre tap xc = xp[1:1+H,
+//     1:1+W] by each of the nine weight taps and sums them, which in int32
+//     is exactly xc . S with S = sum_t wq[t] in [-1143, 1143]; S splits
+//     exactly into S = 128 hi + lo, lo = ((S + 64) & 127) - 64 in [-64, 63]
+//     and hi = (S - lo) / 128 in [-9, 9], both int8. So this kernel computes
+//     the same function in two int8 products instead of nine: acc = xc . hi,
+//     acc *= 128, acc += xc . lo, every partial sum within 127 (1152 + 64)
+//     Cin < 2^31. Its bound is the bytes (most of them the bf16 output).
+//     The hi and lo images of the block's NT output channels (128, or 64
+//     where Cout is not a multiple of 128) stay resident in shared memory;
+//     the producer copies each 128-pixel tile's centre tap (TW x TH pixels
+//     at (1, 1) of xp, 128 channels a box, 128-byte swizzle) by TMA, half a
+//     tile to each warpgroup's own ring of 2-4, so that the two drift apart
+//     and one's epilogue runs beside the other's products; each warpgroup
+//     runs s8 wgmma m64nNTk32 on its 64 pixels with A and B from shared
+//     memory by descriptor (the centre tap has plain rows: no ldmatrix).
+//     Cin at most 512 (the images and two tiles in flight must fit).
+//     taps9_wgmma: the 3x3 conv with the int8 values as bf16 operands and
+//     f32 sums (the int8 conv's function; int8 values are exact in bf16).
+//     Within a band of at most 64 image columns, outputs are computed at
+//     flat positions P = r WT + c of the band's padded width WT (the two
+//     halo columns of each row computed and dropped), so that a tap's 64
+//     consecutive outputs read 64 consecutive rows of the staged input:
+//     both operands come from shared memory by descriptor (the 128-byte
+//     swizzle follows the address bits, so a tap's descriptor may start at
+//     any row), with no ldmatrix and no A fragments in registers. Each item
+//     is 128 positions x NT channels (NT = 128, or 64 where Cout is not a
+//     multiple of 128: under the 168 registers a thread that a copy warp
+//     beside two warpgroups leaves, a warpgroup holds 64 x 128 f32 sums).
+//     The producer copies each 64-channel chunk's int8 rows of xp with
+//     their halo by one tensor-map copy (zero filled past the image), and
+//     each tap's bf16 slice image (64 channels x NT, made once per weight
+//     by ops/probes.py::tap_images) by a bulk copy into a ring of 6 (10 at
+//     NT = 64); the consumers convert the rows to bf16 in shared memory once
+//     a chunk, then run the nine taps on wgmma m64nNTk16 with up to three
+//     taps in flight. Bound: the operations; the bf16 peak is half the int8
+//     peak the bound states.
 
 #include <string.h>
 
-#include "conv3x3_tile.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -643,66 +673,564 @@ chain_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restric
 
 // --------------------------------------------------------- 4. tap products
 
-// The input stage: the chunk's tile of the zero-padded int8 input (padded
-// row r0 + p is image row r0 - 1 + p), as E; zero past a ragged edge.
-template <typename E>
-struct PaddedInput {
-  const int8_t* __restrict__ xp;
-  int Hp, Wp, Cin;
+namespace taps {
 
-  __device__ __forceinline__ void operator()(unsigned char* a_s, int b, int r0, int c0,
-                                             int ci0) const {
-    using namespace conv_tile;
-    for (int i = threadIdx.x; i < NPOS * (KC / 16); i += NTHREADS) {
-      const int pos = i / (KC / 16), piece = i % (KC / 16);
-      const int r = r0 + pos / WT, c = c0 + pos % WT;
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (r < Hp && c < Wp)
-        raw = *reinterpret_cast<const uint4*>(xp + (((size_t)b * Hp + r) * Wp + c) * Cin + ci0 +
-                                              16 * piece);
-      unsigned char* row = a_s + pos * Operand<E>::RS;
-      if constexpr (Operand<E>::kInt8)
-        *reinterpret_cast<uint4*>(row + 16 * piece) = raw;
-      else
-        store_s8x16_as_bf16(row + 32 * piece, raw);
+constexpr int CONSUMERS = 256;           // two consumer warpgroups
+constexpr int THREADS = CONSUMERS + 32;  // and a producer warp
+constexpr int M_T = 128;                 // pixels a tile: 64 a warpgroup
+constexpr int MAX_SMEM = 232448;
+constexpr int MM_KC = 128;           // mmonly: input channels a chunk (one 128-byte row)
+constexpr int MM_BOX = 64 * MM_KC;   // mmonly: a chunk of a warpgroup's half tile (8 KB)
+constexpr int T9_KC = 64;            // taps9bf16: input channels a chunk (one tap a slice)
+constexpr int T9_TAPS = 9;
+
+// A launch's geometry (plan_mmonly, plan_taps9).
+struct TapArgs {
+  int H, W, Cin, Cout;
+  int nt;       // output channels a block (NT)
+  int nblk;     // blocks of NT output channels
+  int nchunks;  // input-channel chunks
+  int TW, TH;   // mmonly: a tile is a box of TW x TH pixels; taps9bf16: bands TW wide
+  int bands;    // column bands of TW
+  int tiles;    // mmonly: tiles in all; taps9bf16: tiles a band
+  int nrows;    // taps9bf16: input rows staged for a tile, halo included
+  int items;    // taps9bf16: B x bands x tiles x nblk
+  int stages;   // mmonly: half tiles in flight a warpgroup
+};
+
+#define TP_D8(C, i) \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), C(d[i + 6]), C(d[i + 7])
+#define TP_D32(C, i) TP_D8(C, i), TP_D8(C, i + 8), TP_D8(C, i + 16), TP_D8(C, i + 24)
+#define TP_S32(v) "+r"(v)
+#define TP_F32(v) "+f"(v)
+#define TP_OUT32 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TP_OUT64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// D(64 x N, s32) += A(64 x 32 s8) B(32 x N s8), both K-major in shared
+// memory through 128-byte-swizzle descriptors; N = 64 or 128 (d holds N / 2
+// sums a thread).
+template <int N>
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " TP_OUT32 ", %32, %33, p;\n}\n"
+        : TP_D32(TP_S32, 0)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " TP_OUT64 ", %64, %65, p;\n}\n"
+        : TP_D32(TP_S32, 0), TP_D32(TP_S32, 32)
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+
+// D(64 x N, f32) += A(64 x 16 bf16) B(16 x N bf16), both K-major in shared
+// memory through 128-byte-swizzle descriptors; N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t da, uint64_t db) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TP_OUT32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : TP_D32(TP_F32, 0)
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TP_OUT64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : TP_D32(TP_F32, 0), TP_D32(TP_F32, 32)
+        : "l"(da), "l"(db), "r"(1));
+  }
+}
+#undef TP_D8
+#undef TP_D32
+#undef TP_S32
+#undef TP_F32
+#undef TP_OUT32
+#undef TP_OUT64
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// ---- mmonly: two exact int8 products of the centre tap, streamed
+
+// Shared memory, from the 1024-aligned base: the block's hi and lo images
+// (resident), each warpgroup's ring of half tiles, the epilogue tile, the
+// block's scales and biases, the barriers.
+template <int NT>
+struct MmLayout {
+  static constexpr int OS = 2 * NT + 16;  // bytes an output row of the epilogue tile
+  size_t stage, a, out, par, bars, total;
+  __host__ __device__ explicit MmLayout(const TapArgs& g) {
+    stage = (size_t)g.nchunks * MM_BOX;
+    a = (size_t)2 * g.nchunks * NT * 128;
+    out = a + 2 * g.stages * stage;
+    par = out + (size_t)M_T * OS;
+    bars = par + 2 * NT * sizeof(float);
+    total = bars + (1 + 4 * g.stages) * sizeof(uint64_t) + 1024;
+  }
+};
+
+// y = (xc . S) * scale + bias with xc the centre tap (B, H, W, Cin) of xp
+// and S = hi * 128 + lo the summed weights: acc = xc . hi, acc *= 128, acc
+// += xc . lo, all in int32. xmap: xp as (Cin, W+2, H+2, B), boxes of (128
+// channels, TW, TH / 2, 1), 128-byte swizzle. hilo: (2, nchunks, Cout, 128)
+// int8, part 0 hi, part 1 lo. Block j takes output channels (j % nblk) NT
+// and every (gridDim.x / nblk)-th tile from j / nblk; warpgroup wg the
+// tile's rows wg TH / 2 .. (wg + 1) TH / 2 - 1 (64 pixels), through a ring
+// of its own, so that the two drift apart and one's epilogue runs beside
+// the other's products.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+mmonly_wgmma(const unsigned char* __restrict__ hilo, const float* __restrict__ scale,
+             const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, const TapArgs a,
+             const __grid_constant__ CUtensorMap xmap) {
+  using L = MmLayout<NT>;
+  constexpr int OS = L::OS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const L lay(a);
+  const int nch = a.nchunks;
+  unsigned char* w_s = smem;  // [hi, lo][chunk][NT][128]
+  unsigned char* a_ring = smem + lay.a;
+  unsigned char* out_s = smem + lay.out;
+  float* sc_s = reinterpret_cast<float*>(smem + lay.par);
+  float* bi_s = sc_s + NT;
+  uint64_t* wbar = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* a_full = wbar + 1;             // [warpgroup][stage]
+  uint64_t* a_empty = a_full + 2 * a.stages;
+  const int nb = blockIdx.x % a.nblk, first = blockIdx.x / a.nblk, stride = gridDim.x / a.nblk;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    for (int i = 0; i < 2 * a.stages; ++i) {
+      mbar_init(&a_full[i], 1);
+      mbar_init(&a_empty[i], 4);
+    }
+    fence_mbarrier_init();
+  }
+  for (int i = tid; i < NT; i += THREADS) {
+    sc_s[i] = scale[nb * NT + i];
+    bi_s[i] = bias[nb * NT + i];
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // producer: one lane copies the block's weight images once, then each
+    // tile's centre tap, one box a chunk and warpgroup
+    if (lane != 0) return;
+    mbar_arrive_expect_tx(wbar, (uint32_t)(2 * nch * NT * 128));
+    for (int p = 0; p < 2 * nch; ++p)
+      bulk_copy(w_s + (size_t)p * NT * 128, hilo + ((size_t)p * a.Cout + (size_t)nb * NT) * 128,
+                NT * 128, wbar);
+    int s = 0;
+    for (int t = first; t < a.tiles; t += stride, ++s) {
+      const int st = s % a.stages;
+      const int band = t % a.bands, rt = (t / a.bands) % ((a.H + a.TH - 1) / a.TH);
+      const int b = t / a.bands / ((a.H + a.TH - 1) / a.TH);
+      for (int w = 0; w < 2; ++w) {
+        const int k = w * a.stages + st;
+        mbar_wait(&a_empty[k], ((s / a.stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&a_full[k], (uint32_t)lay.stage);
+        for (int c = 0; c < nch; ++c)
+          tma_load_4d(a_ring + k * lay.stage + c * MM_BOX, &xmap, c * MM_KC, band * a.TW + 1,
+                      rt * a.TH + w * a.TH / 2 + 1, b, &a_full[k]);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns tile pixels 64 wg .. 64 wg + 63
+  const int wg = warp / 4, q = warp % 4, g = lane / 4, t4 = lane % 4;
+  const int last_ksteps = (a.Cin - (nch - 1) * MM_KC) / 32;  // 32-channel steps of the last chunk
+  const int rtiles = (a.H + a.TH - 1) / a.TH, tw_shift = __ffs(a.TW) - 1;  // TW a power of 2
+  mbar_wait(wbar, 0);
+  int acc[NT / 2];
+  int s = 0;
+  for (int t = first; t < a.tiles; t += stride, ++s) {
+    const int k = wg * a.stages + s % a.stages;
+    const unsigned char* at = a_ring + k * lay.stage;
+    mbar_wait(&a_full[k], (s / a.stages) & 1);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0;
+    // part 0: acc = xc . hi; part 1: acc = 128 acc + xc . lo
+    for (int part = 0; part < 2; ++part) {
+      if (part == 1) {
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[i] *= 128;
+      }
+      fence_regs(acc);
+      wgmma_fence();
+      for (int c = 0; c < nch; ++c) {
+        const int ks = c + 1 < nch ? 4 : last_ksteps;
+        const uint64_t da = wgmma_desc_sw128(at + c * MM_BOX);
+        const uint64_t db = wgmma_desc_sw128(w_s + ((size_t)part * nch + c) * NT * 128);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          if (kk < ks) wgmma_s8_ss<NT>(acc, da + 2 * kk, db + 2 * kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+    if (lane == 0) mbar_arrive(&a_empty[k]);  // this warp is done with its half tile
+
+    // epilogue: sum i is pixel 16q + g + 8 ((i / 2) % 2) of the warpgroup,
+    // channel 8 (i / 4) + 2 t4 + i % 2; dequantized, staged, stored 16
+    // bytes a thread while the next tile's products run
+    const int band = t % a.bands, rt = (t / a.bands) % rtiles, b = t / a.bands / rtiles;
+    const int row0 = 64 * wg + 16 * q + g;
+    named_sync(1 + wg, 128);  // the warpgroup's previous stores are done with its rows
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const float s0 = sc_s[col], s1 = sc_s[col + 1], b0 = bi_s[col], b1 = bi_s[col + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(out_s + (row0 + 8 * h) * OS + 2 * col) =
+            __floats2bfloat162_rn(dequant(acc[4 * j + 2 * h], s0, b0),
+                                  dequant(acc[4 * j + 2 * h + 1], s1, b1));
+    }
+    named_sync(1 + wg, 128);
+    for (int i = tid % 128; i < 64 * (NT / 8); i += 128) {
+      const int p = 64 * wg + i / (NT / 8), col = 8 * (i % (NT / 8));
+      const int r = rt * a.TH + (p >> tw_shift), c = band * a.TW + (p & (a.TW - 1));
+      if (r >= a.H || c >= a.W) continue;
+      *reinterpret_cast<uint4*>(y + (((size_t)b * a.H + r) * a.W + c) * a.Cout + nb * NT + col) =
+          *reinterpret_cast<const uint4*>(out_s + p * OS + 2 * col);
     }
   }
-};
+}
 
-struct ChannelAffine {
-  const float* __restrict__ scale;
-  const float* __restrict__ bias;
+size_t mm_smem(int nt, const TapArgs& a) {
+  return nt == 128 ? MmLayout<128>(a).total : MmLayout<64>(a).total;
+}
 
-  __device__ __forceinline__ float2 operator()(int co) const {
-    return make_float2(scale[co], bias[co]);
+// Tiles of TW x TH pixels (TW the smallest of 8, 16, 32, 64 at least W, at
+// most 64); NT the widest of 256, 128, 64 that divides Cout and leaves room
+// for two tiles in flight (three where they fit). False where none fits
+// (Cin above 512).
+bool plan_mmonly(TapArgs& a, int B) {
+  a.nchunks = (a.Cin + MM_KC - 1) / MM_KC;
+  a.TW = a.W > 32 ? 64 : a.W > 16 ? 32 : a.W > 8 ? 16 : 8;
+  a.TH = M_T / a.TW;
+  a.bands = (a.W + a.TW - 1) / a.TW;
+  const long long tiles = (long long)B * a.bands * ((a.H + a.TH - 1) / a.TH);
+  a.nt = 0;
+  for (int nt = 128; nt >= 64; nt /= 2) {
+    if (a.Cout % nt) continue;
+    for (a.stages = 4; a.stages > 2; --a.stages)
+      if (mm_smem(nt, a) <= (size_t)MAX_SMEM) break;
+    if (mm_smem(nt, a) <= (size_t)MAX_SMEM) {
+      a.nt = nt;
+      break;
+    }
+  }
+  if (a.nt == 0) return false;
+  a.nblk = a.Cout / a.nt;
+  if (tiles * a.nblk > (1ll << 30)) return false;
+  a.tiles = (int)tiles;
+  return true;
+}
+
+template <int NT>
+cudaError_t launch_mmonly(const unsigned char* hilo, const float* scale, const float* bias,
+                          __nv_bfloat16* y, const TapArgs& a, const CUtensorMap& xmap, int nsm,
+                          cudaStream_t stream) {
+  const size_t smem = MmLayout<NT>(a).total;
+  cudaError_t err = cudaFuncSetAttribute(mmonly_wgmma<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  // one block an SM, a whole number of blocks for each channel block
+  const int per_nb = nsm / a.nblk > 0 ? nsm / a.nblk : 1;
+  const int grid = (a.tiles < per_nb ? a.tiles : per_nb) * a.nblk;
+  mmonly_wgmma<NT><<<grid, THREADS, smem, stream>>>(hilo, scale, bias, y, a, xmap);
+  return cudaGetLastError();
+}
+
+cudaError_t run_mmonly(const void* xp, const void* hilo, const float* scale, const float* bias,
+                       __nv_bfloat16* y, int B, TapArgs& a, cudaStream_t stream) {
+  if (!plan_mmonly(a, B)) return cudaErrorInvalidValue;
+  const int nsm = sm_count();
+  CUtensorMap xmap;
+  const uint64_t dims[4] = {(uint64_t)a.Cin, (uint64_t)a.W + 2, (uint64_t)a.H + 2, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)a.Cin, (uint64_t)a.Cin * (a.W + 2),
+                               (uint64_t)a.Cin * (a.W + 2) * (a.H + 2)};
+  const uint32_t box[4] = {(uint32_t)MM_KC, (uint32_t)a.TW, (uint32_t)a.TH / 2, 1};
+  if (!make_tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xp, 4, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const auto* w = static_cast<const unsigned char*>(hilo);
+  if (a.nt == 128) return launch_mmonly<128>(w, scale, bias, y, a, xmap, nsm, stream);
+  return launch_mmonly<64>(w, scale, bias, y, a, xmap, nsm, stream);
+}
+
+// ---- taps9bf16: the int8 conv on bf16 wgmma
+
+// The int8 pairs (b0, b1) and (b2, b3) of w as two bf16x2 words, exactly:
+// byte b + 128 becomes the f32 2^23 + b + 128 by its bits, less 2^23 + 128;
+// the bf16 of so small an integer is the top half of its f32 bits.
+__device__ __forceinline__ void s8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// Shared memory: the ring of weight slices (NST of NT x 128 bytes), the
+// epilogue tile, the barriers, the int8 input tile as its tensor-map copy
+// lands it ([nrows][WT][64] bytes), and the same tile in bf16 as the
+// products read it (a 128-byte row of 64 channels a position, 128-byte
+// swizzled).
+template <int NT>
+struct T9Layout {
+  static constexpr int SLICE = NT * 128;  // bytes of a slice image: one tap, 64 channels
+  static constexpr int NST = NT == 128 ? 6 : 10;  // ring stages
+  static constexpr int OS = 2 * NT + 16;
+  static constexpr size_t OUT = (size_t)NST * SLICE;
+  static constexpr size_t BARS = OUT + (size_t)M_T * OS;
+  static constexpr size_t IN = (BARS + 256 + 1023) / 1024 * 1024;
+  size_t tile, total;
+  __host__ __device__ explicit T9Layout(const TapArgs& g) {
+    const size_t pos = (size_t)g.nrows * (g.TW + 2);
+    tile = IN + (pos * T9_KC + 1023) / 1024 * 1024;
+    total = tile + pos * 128 + 1024;
   }
 };
 
-// xp: (B, H+2, W+2, Cin) int8, zero halo. wq: (9, Cout, Cin) int8, tap =
-// 3*dy + dx. scale, bias: (Cout,) f32. y: (B, H, W, Cout) bf16. E = int8_t:
-// mmonly (the centre tap for all nine weight taps); E = bf16: taps9bf16.
-template <typename E, int TN>
-__global__ void __launch_bounds__(conv_tile::NTHREADS)
-taps_kernel(const int8_t* __restrict__ xp, const int8_t* __restrict__ wq,
-            const float* __restrict__ scale, const float* __restrict__ bias,
-            __nv_bfloat16* __restrict__ y, int H, int W, int Cin, int Cout) {
-  conv_tile::conv3x3_tile<E, TN, conv_tile::Operand<E>::kInt8>(
-      wq, y, H, W, Cin, Cout, PaddedInput<E>{xp, H + 2, W + 2, Cin}, ChannelAffine{scale, bias});
+// An item's indices, the channel block fastest (blocks that run together
+// share the input tile through L2).
+struct T9Item {
+  int b, band, tile, nb;
+  __device__ __forceinline__ T9Item(int item, const TapArgs& a) {
+    nb = item % a.nblk;
+    item /= a.nblk;
+    tile = item % a.tiles;
+    item /= a.tiles;
+    band = item % a.bands;
+    b = item / a.bands;
+  }
+};
+
+// y = conv3x3(xp, wq) * scale + bias, the int8 values as bf16 operands,
+// f32 sums. Within a band of TW image columns the outputs are taken at flat
+// positions P = r WT + c of the band's padded width WT = TW + 2 (c >= TW,
+// and past the image, computed and dropped), so that output P's tap (di,
+// dj) is input position P + di WT + dj of the band's padded rows: 64
+// consecutive outputs of a tap are 64 consecutive rows of the staged tile,
+// one descriptor (the swizzle follows the address bits, so a descriptor
+// may start at any row). xmap: xp as (Cin, W+2, H+2, B), boxes of (64
+// channels, WT, nrows, 1). wimg: (Cin / 64, 9, Cout, 64) bf16 slice images
+// (ops/probes.py::tap_images), rows 128-byte swizzled.
+template <int NT>
+__global__ void __launch_bounds__(THREADS, 1)
+taps9_wgmma(const unsigned char* __restrict__ wimg, const float* __restrict__ scale,
+            const float* __restrict__ bias, __nv_bfloat16* __restrict__ y, const TapArgs a,
+            const __grid_constant__ CUtensorMap xmap) {
+  using L = T9Layout<NT>;
+  constexpr int SLICE = L::SLICE, NST = L::NST, OS = L::OS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const L lay(a);
+  unsigned char* ring = smem;
+  unsigned char* out_s = smem + L::OUT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + NST;
+  uint64_t* in_full = empty + NST;
+  uint64_t* in_empty = in_full + 1;
+  const unsigned char* in_s = smem + L::IN;
+  unsigned char* tile_s = smem + lay.tile;
+  const int WT = a.TW + 2, npos = a.nrows * WT;
+  const uint64_t wt_mul = ((1ull << 40) + WT - 1) / WT;  // P / WT = P wt_mul >> 40 for P < 2^34
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS / 32);
+    }
+    mbar_init(in_full, 1);
+    mbar_init(in_empty, CONSUMERS / 32);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    // producer: one lane copies each chunk's int8 input rows (one
+    // tensor-map copy, zero filled past the image) once the consumers have
+    // converted the previous chunk's, and the chunk's nine slice images
+    if (lane != 0) return;
+    int step = 0, cstep = 0;
+    for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+      const T9Item it(item, a);
+      const int r_lo = it.tile * M_T / WT;
+      for (int c = 0; c < a.nchunks; ++c, ++cstep) {
+        mbar_wait(in_empty, (cstep & 1) ^ 1);
+        mbar_arrive_expect_tx(in_full, (uint32_t)(npos * T9_KC));
+        tma_load_4d(smem + L::IN, &xmap, c * T9_KC, it.band * a.TW, r_lo, it.b, in_full);
+        for (int tap = 0; tap < T9_TAPS; ++tap, ++step) {
+          const int st = step % NST;
+          mbar_wait(&empty[st], ((step / NST) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[st], SLICE);
+          bulk_copy(ring + st * SLICE,
+                    wimg + (((size_t)c * T9_TAPS + tap) * a.Cout + (size_t)it.nb * NT) * 128,
+                    SLICE, &full[st]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns the item's flat positions 64 wg .. 64 wg +
+  // 63, all NT channels
+  const int wg = warp / 4, q = warp % 4, g = lane / 4, t4 = lane % 4;
+  int step = 0, cstep = 0;
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    const T9Item it(item, a);
+    const int P0 = it.tile * M_T, r_lo = P0 / WT;
+    const int s0 = P0 - r_lo * WT + 64 * wg;  // staged row of this warpgroup's first output
+
+    float acc[NT / 2];
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+    for (int c = 0; c < a.nchunks; ++c, ++cstep) {
+      mbar_wait(in_full, cstep & 1);
+      named_sync(3, CONSUMERS);  // every warp's products of the previous chunk have retired
+      // the int8 rows into the bf16 tile, 8 channels a thread and step
+      for (int i = tid; i < npos * 8; i += CONSUMERS) {
+        const int pos = i >> 3, j = i & 7;
+        const uint2 v = *reinterpret_cast<const uint2*>(in_s + pos * 64 + 8 * j);
+        uint4 o;
+        s8x4_to_bf16(v.x, o.x, o.y);
+        s8x4_to_bf16(v.y, o.z, o.w);
+        *reinterpret_cast<uint4*>(tile_s + pos * 128 + ((j ^ (pos & 7)) << 4)) = o;
+      }
+      fence_proxy_async();  // the tile's generic writes before the products' reads
+      named_sync(3, CONSUMERS);
+      if (lane == 0) mbar_arrive(in_empty);  // the producer may copy the next chunk's rows
+      fence_regs(acc);
+#pragma unroll
+      for (int tap = 0; tap < T9_TAPS; ++tap, ++step) {
+        const int st = step % NST;
+        mbar_wait(&full[st], (step / NST) & 1);
+        wgmma_fence();
+        const uint64_t da = wgmma_desc_sw128(tile_s + (s0 + (tap / 3) * WT + tap % 3) * 128);
+        const uint64_t db = wgmma_desc_sw128(ring + st * SLICE);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) wgmma_bf16_ss<NT>(acc, da + 2 * k, db + 2 * k);
+        wgmma_commit();
+        if (tap >= 2) {  // at most three taps' products in flight
+          wgmma_wait<2>();
+          if (lane == 0) mbar_arrive(&empty[(step - 2) % NST]);  // this warp is done with it
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) {
+        mbar_arrive(&empty[(step - 2) % NST]);
+        mbar_arrive(&empty[(step - 1) % NST]);
+      }
+    }
+
+    // epilogue: sum i is position 64 wg + 16 q + g + 8 ((i / 2) % 2) of the
+    // item, channel 8 (i / 4) + 2 t4 + i % 2; dequantized, staged, stored
+    // 16 bytes a thread while the producer copies the next item's rows (the
+    // chunk barriers above have ordered the previous item's stores before
+    // these writes)
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j) {
+      const int col = 8 * j + 2 * t4, co = it.nb * NT + col;
+      const float s0c = __ldg(scale + co), s1c = __ldg(scale + co + 1);
+      const float b0c = __ldg(bias + co), b1c = __ldg(bias + co + 1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(out_s + (64 * wg + 16 * q + g + 8 * h) * OS +
+                                           2 * col) =
+            __floats2bfloat162_rn(__fadd_rn(__fmul_rn(acc[4 * j + 2 * h], s0c), b0c),
+                                  __fadd_rn(__fmul_rn(acc[4 * j + 2 * h + 1], s1c), b1c));
+    }
+    named_sync(3, CONSUMERS);
+    for (int i = tid; i < M_T * (NT / 8); i += CONSUMERS) {
+      const int p = i / (NT / 8), col = 8 * (i % (NT / 8));
+      const uint32_t P = P0 + p, r = (uint32_t)((P * wt_mul) >> 40), cc = P - r * WT;
+      const int x = it.band * a.TW + cc;
+      if (r >= (uint32_t)a.H || cc >= (uint32_t)a.TW || x >= a.W) continue;
+      *reinterpret_cast<uint4*>(y + (((size_t)it.b * a.H + r) * a.W + x) * a.Cout +
+                                it.nb * NT + col) =
+          *reinterpret_cast<const uint4*>(out_s + p * OS + 2 * col);
+    }
+  }
 }
 
-template <typename E, int TN>
-cudaError_t launch_taps(const int8_t* xp, const int8_t* wq, const float* scale,
-                        const float* bias, __nv_bfloat16* y, int B, int H, int W, int Cin,
-                        int Cout, cudaStream_t stream) {
-  using namespace conv_tile;
-  constexpr size_t smem = smem_bytes<E, TN>();
-  cudaError_t err = cudaFuncSetAttribute(taps_kernel<E, TN>,
+size_t t9_smem(int nt, const TapArgs& a) {
+  return nt == 128 ? T9Layout<128>(a).total : T9Layout<64>(a).total;
+}
+
+// Bands of at most 64 columns, as even as W allows; tiles of M_T flat
+// positions (nrows padded rows staged a tile); NT 128 where it divides
+// Cout, else 64.
+bool plan_taps9(TapArgs& a, int B) {
+  a.nchunks = a.Cin / T9_KC;
+  a.nt = a.Cout % 128 == 0 ? 128 : 64;
+  a.nblk = a.Cout / a.nt;
+  const int nb = (a.W + 63) / 64, WT = (a.W + nb - 1) / nb + 2;
+  a.TW = WT - 2;
+  a.bands = (a.W + a.TW - 1) / a.TW;
+  a.nrows = (WT - 1 + M_T + 2 * WT + 2 + WT - 1) / WT;  // rows a window of M_T + 2 WT + 2 spans
+  a.tiles = (a.H * WT + M_T - 1) / M_T;
+  if (t9_smem(a.nt, a) > (size_t)MAX_SMEM || (long long)a.H * WT >= (1ll << 30)) return false;
+  const long long items = (long long)B * a.bands * a.tiles * a.nblk;
+  if (items > (1ll << 30)) return false;
+  a.items = (int)items;
+  return true;
+}
+
+template <int NT>
+cudaError_t launch_taps9(const unsigned char* wimg, const float* scale, const float* bias,
+                         __nv_bfloat16* y, const TapArgs& a, const CUtensorMap& xmap, int nsm,
+                         cudaStream_t stream) {
+  const size_t smem = T9Layout<NT>(a).total;
+  cudaError_t err = cudaFuncSetAttribute(taps9_wgmma<NT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((H + TH - 1) / TH) * ((W + TW - 1) / TW), Cout / TN, B);
-  taps_kernel<E, TN><<<grid, NTHREADS, smem, stream>>>(xp, wq, scale, bias, y, H, W, Cin, Cout);
+  taps9_wgmma<NT><<<a.items < nsm ? a.items : nsm, THREADS, smem, stream>>>(wimg, scale, bias,
+                                                                            y, a, xmap);
   return cudaGetLastError();
 }
+
+cudaError_t run_taps9(const void* xp, const void* wimg, const float* scale, const float* bias,
+                      __nv_bfloat16* y, int B, TapArgs& a, cudaStream_t stream) {
+  if (!plan_taps9(a, B)) return cudaErrorInvalidValue;
+  CUtensorMap xmap;
+  const uint64_t dims[4] = {(uint64_t)a.Cin, (uint64_t)a.W + 2, (uint64_t)a.H + 2, (uint64_t)B};
+  const uint64_t strides[3] = {(uint64_t)a.Cin, (uint64_t)a.Cin * (a.W + 2),
+                               (uint64_t)a.Cin * (a.W + 2) * (a.H + 2)};
+  const uint32_t box[4] = {(uint32_t)T9_KC, (uint32_t)(a.TW + 2), (uint32_t)a.nrows, 1};
+  if (!make_tensor_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, xp, 4, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  const auto* w = static_cast<const unsigned char*>(wimg);
+  const int nsm = sm_count();
+  if (a.nt == 128) return launch_taps9<128>(w, scale, bias, y, a, xmap, nsm, stream);
+  return launch_taps9<64>(w, scale, bias, y, a, xmap, nsm, stream);
+}
+
+}  // namespace taps
 
 }  // namespace
 
@@ -804,30 +1332,28 @@ int probe_chain(const void* s, const void* wsh, const void* wgb, void* out, int 
   return (int)cudaGetLastError();
 }
 
-// Family 4: xp (B, H+2, W+2, Cin) int8 with a zero halo, wq (9, Cout, Cin)
-// int8, scale and bias (Cout,) f32 -> y (B, H, W, Cout) bf16. taps9bf16
-// selects the nine shifted taps in bf16; else mmonly.
-int probe_taps(int taps9bf16, const void* xp, const void* wq, const void* scale,
+// Family 4: xp (B, H+2, W+2, Cin) int8 with a zero halo, scale and bias
+// (Cout,) f32 -> y (B, H, W, Cout) bf16; Cin and Cout multiples of 64,
+// every pointer 16-byte aligned. images: ops/probes.py::tap_images, the
+// bf16 slice images (Cin / 64, 9, Cout, 64) for taps9bf16, else mmonly's hi
+// and lo images (2, ceil(Cin / 128), Cout, 128) int8 (Cin at most 512).
+int probe_taps(int taps9bf16, const void* xp, const void* images, const void* scale,
                const void* bias, void* y, int B, int H, int W, int Cin, int Cout, void* stream) {
-  using conv_tile::KC;
-  if (B < 1 || B > 65535 || H < 1 || W < 1 || Cin < KC || Cin % KC != 0 || Cout < 64 ||
-      Cout % 64 != 0 || Cout / 64 > 65535)
+  if (B < 1 || H < 1 || W < 1 || Cin < 64 || Cin % 64 != 0 || Cout < 64 || Cout % 64 != 0 ||
+      ((reinterpret_cast<uintptr_t>(xp) | reinterpret_cast<uintptr_t>(images) |
+        reinterpret_cast<uintptr_t>(y)) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const int8_t*>(xp);
-  const auto* w = static_cast<const int8_t*>(wq);
+  taps::TapArgs a;
+  a.H = H;
+  a.W = W;
+  a.Cin = Cin;
+  a.Cout = Cout;
   const auto* sc = static_cast<const float*>(scale);
   const auto* bi = static_cast<const float*>(bias);
   auto* out = static_cast<__nv_bfloat16*>(y);
-  const bool wide = Cout % 128 == 0;
-  cudaError_t err;
-  if (taps9bf16)
-    err = wide ? launch_taps<__nv_bfloat16, 128>(x, w, sc, bi, out, B, H, W, Cin, Cout, st)
-               : launch_taps<__nv_bfloat16, 64>(x, w, sc, bi, out, B, H, W, Cin, Cout, st);
-  else
-    err = wide ? launch_taps<int8_t, 128>(x, w, sc, bi, out, B, H, W, Cin, Cout, st)
-               : launch_taps<int8_t, 64>(x, w, sc, bi, out, B, H, W, Cin, Cout, st);
-  return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(taps9bf16 ? taps::run_taps9(xp, images, sc, bi, out, B, a, st)
+                         : taps::run_mmonly(xp, images, sc, bi, out, B, a, st));
 }
 
 const char* probes_error_string(int code) {

@@ -54,12 +54,14 @@ class QuantizedWeight(NamedTuple):
     """A 3x3 conv's weight in the kernel's layout: ``wq`` (9, Cout, Cin)
     int8 with tap = 3 * di + dj and the input channel contiguous, and
     ``scale`` (Cout,) f32; for a weight on the card also ``images``, wq as
-    the bf16 kernel's slice images (:func:`conv_slice_images`). The plain
-    version reads wq."""
+    the bf16 kernel's slice images (:func:`conv_slice_images`). ``taps``:
+    the conv probe's tap-product kernels' images of wq, where a caller made
+    them (``ops/probes.py::with_tap_images``). The plain versions read wq."""
 
     wq: torch.Tensor
     scale: torch.Tensor
     images: Optional[torch.Tensor] = None
+    taps: Optional[tuple] = None
 
 
 def int8_scale(absmax: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,9 @@ family).
 
 The layout probes take the JAX probes' own shapes and dtypes: the shapes are
 what each probe tests. The conv variants take any batch, height and width,
-with Cin and Cout multiples of 64.
+with Cin and Cout multiples of 64 (on the card mmonly takes Cin up to
+``MMONLY_MAX_CIN``); on the card they read the weight's tap images
+(:func:`with_tap_images`, made once per weight) and raise without them.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from shineon_tpu_torch.ops.int8_conv import (
     INT8_CONV_TOLERANCE,
     QuantizedWeight,
     activation_scale,
+    swizzle_128b,
 )
 
 KERNEL_SOURCE = "probes"
@@ -235,6 +238,66 @@ def quantize_padded(v: torch.Tensor) -> tuple:
     s = activation_scale(v)
     vq = torch.clamp(torch.round(v.float() / s), -127, 127).to(torch.int8)
     return F.pad(vq, (0, 0, 1, 1, 1, 1)), s
+
+
+# ----------------------------------------------- the tap-product images
+
+MMONLY_MAX_CIN = 512  # mmonly's resident hi and lo images and two input tiles fit in shared memory
+
+
+class TapImages(NamedTuple):
+    """The tap-product kernels' weights (:func:`tap_images`), rows 128-byte
+    swizzled (``int8_conv.swizzle_128b``). ``hilo`` (2, ceil(Cin / 128),
+    Cout, 128) int8, mmonly's: part 0 hi, part 1 lo of :func:`split_tap_sum`;
+    chunk c, row n holds input channels 128c .. 128c + 127 of output n, zero
+    past Cin. ``bf16`` (Cin / 64, 9, Cout, 64) bf16, taps9bf16's: slice
+    (c, tap), row n holds channels 64c .. 64c + 63 of wq[tap, n]."""
+
+    hilo: torch.Tensor
+    bf16: torch.Tensor
+
+
+def split_tap_sum(wq: torch.Tensor) -> tuple:
+    """(hi, lo) int8 (Cout, Cin) with S = 128 hi + lo exactly, S the sum of
+    the nine taps of ``wq`` in int32 (|S| <= 9 * 127 = 1143): lo = ((S + 64)
+    & 127) - 64 in [-64, 63], hi = (S - lo) / 128 in [-9, 9]. mmonly's
+    function is the centre tap times S: two int8 products."""
+    s = wq.to(torch.int32).sum(0)
+    lo = ((s + 64) & 127) - 64
+    hi = torch.div(s - lo, 128, rounding_mode="floor")  # exact: s - lo is a multiple of 128
+    return hi.to(torch.int8), lo.to(torch.int8)
+
+
+def tap_images(wq: torch.Tensor) -> TapImages:
+    """(9, Cout, Cin) int8 weights, Cin and Cout multiples of 64 -> the
+    tap-product kernels' images (:class:`TapImages`)."""
+    _, cout, cin = wq.shape
+    if cin % CHANNEL_TILE or cout % CHANNEL_TILE:
+        raise ValueError(f"tap_images: Cin={cin} and Cout={cout} must be multiples of "
+                         f"{CHANNEL_TILE}")
+    hi, lo = split_tap_sum(wq)
+    nch = -(-cin // 128)
+    hilo = wq.new_zeros(2, cout, nch * 128)
+    hilo[0, :, :cin] = hi
+    hilo[1, :, :cin] = lo
+    hilo = hilo.view(2, cout, nch, 128).permute(0, 2, 1, 3)
+    wb = wq.to(BF16).view(9, cout, cin // 64, 64).permute(2, 0, 1, 3)
+    return TapImages(swizzle_128b(hilo).contiguous(), swizzle_128b(wb).contiguous())
+
+
+def unpack_tap_images(images: TapImages, cin: int, cout: int) -> tuple:
+    """The inverse of :func:`tap_images`: (hi, lo) int8 (Cout, Cin) and the
+    (9, Cout, Cin) int8 weights."""
+    hilo = swizzle_128b(images.hilo).permute(0, 2, 1, 3).reshape(2, cout, -1)
+    wq = swizzle_128b(images.bf16).permute(1, 2, 0, 3).reshape(9, cout, cin)
+    return hilo[0, :, :cin], hilo[1, :, :cin], wq.to(torch.int8)
+
+
+def with_tap_images(qw: QuantizedWeight) -> QuantizedWeight:
+    """``qw`` with its tap images (:func:`tap_images`) in ``taps``. Made once
+    per weight, outside any timed call: on the card conv_mmonly and
+    conv_taps9bf16 read them and raise without them."""
+    return qw._replace(taps=tap_images(qw.wq))
 
 
 # ------------------------------------------------------------ the kernels
@@ -503,12 +566,14 @@ def _chain(s, wsh, wgb):
     return y
 
 
-def _taps(taps9bf16, xp, qw, scale, bias):
-    """Family 4: the tap products of the padded int8 input, bf16 out."""
+def _taps(taps9bf16, xp, qw, scale, bias, out=None):
+    """Family 4: the tap products of the padded int8 input from the weight's
+    tap images, bf16 out (written to ``out`` where given)."""
     B, Hp, Wp, cin = xp.shape
     cout = qw.wq.shape[1]
-    y = torch.empty((B, Hp - 2, Wp - 2, cout), dtype=BF16, device=xp.device)
-    _call("probe_taps", int(taps9bf16), xp.data_ptr(), qw.wq.data_ptr(), scale.data_ptr(),
+    images = qw.taps.bf16 if taps9bf16 else qw.taps.hilo
+    y = torch.empty((B, Hp - 2, Wp - 2, cout), dtype=BF16, device=xp.device) if out is None else out
+    _call("probe_taps", int(taps9bf16), xp.data_ptr(), images.data_ptr(), scale.data_ptr(),
           bias.data_ptr(), y.data_ptr(), B, Hp - 2, Wp - 2, cin, cout, device=xp.device)
     return y
 
@@ -632,11 +697,31 @@ def _conv_variant(wrapper, plain, taps9bf16, xp, qw, scale, bias):
            f"Cin={cin} and Cout={cout} must be multiples of {CHANNEL_TILE}")
     for label, t in (("scale", scale), ("bias", bias)):
         _check(t.dtype == F32 and tuple(t.shape) == (cout,), name, f"{label} must be f32 (Cout,)")
-    for label, t in (("xp", xp), ("wq", qw.wq), ("scale", scale), ("bias", bias)):
+    operands = [("xp", xp), ("wq", qw.wq), ("scale", scale), ("bias", bias)]
+    if xp.device.type != "cpu":
+        operands.append(("tap images", _check_tap_images(name, taps9bf16, qw, cin, cout)))
+    for label, t in operands:
         _check(t.device == xp.device, name, f"{label} is on {t.device}, xp on {xp.device}")
         _check(t.is_contiguous() and t.data_ptr() % 16 == 0, name,
                f"{label} must be contiguous and 16-byte aligned")
     return _dispatch(wrapper, plain, lambda *a: _taps(taps9bf16, *a), (xp, qw, scale, bias))
+
+
+def _check_tap_images(name, taps9bf16, qw, cin, cout) -> torch.Tensor:
+    """What a conv variant's kernel needs beyond its plain version: the
+    weight's tap images of its shape (:func:`with_tap_images`), and for
+    mmonly Cin <= MMONLY_MAX_CIN. Returns the images the kernel reads;
+    raises ValueError otherwise."""
+    _check(taps9bf16 or cin <= MMONLY_MAX_CIN, name,
+           f"the kernel takes Cin <= {MMONLY_MAX_CIN}, not {cin}")
+    _check(qw.taps is not None, name,
+           "the weight has no tap images: make them once with with_tap_images")
+    nch = -(-cin // 128)
+    want = ((2, nch, cout, 128), torch.int8) if not taps9bf16 else ((cin // 64, 9, cout, 64), BF16)
+    images = qw.taps.bf16 if taps9bf16 else qw.taps.hilo
+    _check((tuple(images.shape), images.dtype) == want, name,
+           f"tap images are {tuple(images.shape)} {images.dtype}, expected {want[0]} {want[1]}")
+    return images
 
 
 def conv_mmonly(xp: torch.Tensor, qw: QuantizedWeight, scale: torch.Tensor,
@@ -644,7 +729,8 @@ def conv_mmonly(xp: torch.Tensor, qw: QuantizedWeight, scale: torch.Tensor,
     """The conv probe's ``mmonly`` variant: the centre tap of the padded int8
     input times all nine weight taps, int32 sums, ``acc * scale + bias``,
     (B, H, W, Cout) bf16. ``scale`` is the activation scale times the
-    weight's per-channel scale."""
+    weight's per-channel scale. The kernel takes it as two int8 products
+    with the summed weights' two parts (:func:`split_tap_sum`)."""
     return _conv_variant(conv_mmonly, conv_mmonly_plain, False, xp, qw, scale, bias)
 
 

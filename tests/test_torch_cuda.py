@@ -309,8 +309,8 @@ def test_cuda_probe_kernel_matches_plain(name):
     before = wrapper.launches
     ref = wrapper(*args)
     assert wrapper.launches == before
-    cuda_args = tuple(ic.QuantizedWeight(a.wq.cuda(), a.scale.cuda()) if isinstance(a, tuple)
-                      else a.cuda() for a in args)
+    cuda_args = tuple(pr.with_tap_images(ic.QuantizedWeight(a.wq.cuda(), a.scale.cuda()))
+                      if isinstance(a, tuple) else a.cuda() for a in args)
     out = wrapper(*cuda_args)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
@@ -370,3 +370,37 @@ def test_cuda_bf16_chain_edges(case, quantized):
         assert ok, (ratio, rms)
     else:
         assert fs.error_ratio(out, ref) <= fs.KERNEL_TOLERANCE[torch.bfloat16]
+
+
+# ragged shapes of the tap-product kernels (B, H, W, Cin, Cout): H and W off
+# every tile, one pixel, several column bands; every Cin and Cout family
+TAP_CASES = ((1, 17, 23, 64, 64), (2, 17, 23, 128, 192), (3, 1, 1, 192, 256),
+             (2, 64, 200, 128, 128), (1, 5, 37, 64, 256), (2, 9, 130, 192, 64))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["conv_mmonly", "conv_taps9bf16"])
+@pytest.mark.parametrize("shape", TAP_CASES)
+def test_cuda_tap_kernels_ragged(name, shape):
+    """Each tap-product kernel at ragged shapes against its plain version
+    (INT8_CONV_TOLERANCE[bf16]), one launch each; the output sits before a
+    NaN tail that must stay NaN."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import int8_conv as ic
+    from shineon_tpu_torch.ops import probes as pr
+
+    B, H, W, cin, cout = shape
+    g = torch.Generator().manual_seed(sum(shape))
+    qw = pr.with_tap_images(ic.quantize_weight(0.05 * torch.randn(cout, cin, 3, 3, generator=g)
+                                               .cuda()))
+    xp, s = pr.quantize_padded(torch.randn(B, H, W, cin, generator=g).cuda())
+    scale, bias = (s * qw.scale).contiguous(), (0.1 * torch.randn(cout, generator=g)).cuda()
+    buf = torch.full((B * H * W * cout + 4096,), float("nan"), dtype=torch.bfloat16,
+                     device="cuda")
+    out = buf[:B * H * W * cout].view(B, H, W, cout)
+    pr._taps(name == "conv_taps9bf16", xp, qw, scale, bias, out=out)
+    ref = pr.plain_version(name)(xp, qw, scale, bias)
+    torch.cuda.synchronize()
+    ok, err, ratio = pr.agrees(name, out, ref)
+    assert ok, (err, ratio)
+    assert torch.isnan(buf[B * H * W * cout:].float()).all()
