@@ -12,8 +12,9 @@ Phases, each fatal on failure:
      SASS: HGMMA in the bf16 chain and attention, IGMMA in the quantized
      chain and the int8 conv; UBLKCP or UTMALDG in each; the chains' every
      hidden-activation instance; likewise IGMMA in the conv probe's mmonly
-     kernel and HGMMA in its taps9bf16 kernel) and ptxas reports no spills
-     for them;
+     kernel, HGMMA in its taps9bf16 kernel, in probe M's chain kernel and in
+     the probes' contraction kernel) and ptxas reports no spills for them
+     nor for the three transpose kernels;
   3. hold each kernel against its plain PyTorch version at every shape the
      serving clips give it (the clips' batch), in bf16 and f32, plus a
      ragged tile, element by element, and time kernel and plain version on
@@ -36,9 +37,12 @@ Phases, each fatal on failure:
      profiler sessions precede no clip timing): the 15 layout probes on
      seeded random inputs of their own shapes, NaN-guarded, and a ragged
      sweep of the contraction kernel (M and N off its tile, K 12 to 144,
-     A transposed or not, f32 and bf16 out, each A route) and of the
+     A transposed or not, f32 and bf16 out, each A route), of the
      gather kernel (seeded maps of rank 1-4 with offset bases, every unit
-     mode, f32 and bf16, each affine mode), the outputs before NaN tails;
+     mode, f32 and bf16, each affine mode) and of the transposes (R and C
+     off every tile of their three routes, 1 x 1 to 130 x 4100, misaligned
+     inputs, exact, each launch's reported route the plan's), and probe
+     M's chain at four more seeds, the outputs before NaN tails;
      then each probe timed by device time with L2 flushed before every
      call (a 128 MB fill, left out by kernel name), 5 traces of kernel and
      library call in turns, median (min-max), beside its bound, its plain
@@ -282,7 +286,7 @@ def sass_counts(cuda_build, source):
 
 
 # The bf16 serving bodies of each kernel source (a name their symbols hold)
-# and the wgmma their SASS must show.
+# and the wgmma their SASS must show (None: no wgmma, only no spills).
 # The chain bodies are one instance a hidden activation (the template
 # argument Act of csrc/fused_multispade.cu: 0 relu, 1 gelu, 2 swish, 3 sine).
 SERVING_BODIES = {
@@ -290,15 +294,18 @@ SERVING_BODIES = {
                          **{f"chain_kernel_q_bf16ILi{a}E": "IGMMA" for a in range(4)}},
     "int8_conv3x3": {"conv_wgmma": "IGMMA"},
     "sagan_attention": {"attention_wgmma": "HGMMA"},
-    # and the conv probe's tap-product kernels (no clip runs them)
-    "probes": {"mmonly_wgmma": "IGMMA", "taps9_wgmma": "HGMMA"},
+    # and the probes' kernels that no clip runs: the conv probe's tap
+    # products, the mini chain, the contraction, the transposes
+    "probes": {"mmonly_wgmma": "IGMMA", "taps9_wgmma": "HGMMA", "chain_wgmma": "HGMMA",
+               "gemm_wgmma": "HGMMA", "transpose8_kernel": None, "transpose_cols_kernel": None,
+               "transpose_slab_kernel": None},
 }
 
 
 def check_build(cuda_build, source, report):
     """Phase 2 for one library: each of its bf16 serving bodies runs on
     wgmma (SERVING_BODIES) fed by bulk or tensor-map copies, and ptxas
-    reports no spills for it."""
+    reports no spills for it (nor for the bodies named without a wgmma)."""
     bodies = SERVING_BODIES[source]
     failed, seen = [], set()
     for name, c in sass_counts(cuda_build, source).items():
@@ -308,7 +315,7 @@ def check_build(cuda_build, source, report):
         if body is None:
             continue
         seen.add(body)
-        if c[bodies[body]] == 0 or c["bulk"] == 0:
+        if bodies[body] is not None and (c[bodies[body]] == 0 or c["bulk"] == 0):
             failed.append(f"{name[:80]} has no {bodies[body]} or no bulk copy")
     failed += [f"no function {b} in the {source} library" for b in bodies if b not in seen]
     lines = report.splitlines()
@@ -426,32 +433,100 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+_marker_names = set()  # the device events of torch.cuda._sleep(0), device_times' call marker
+
+
+def marker_names(torch):
+    """The names of the device events that torch.cuda._sleep(0) launches
+    (a one-thread kernel), read once from a trace of a few calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        if _marker_names:
+            break
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.cuda._sleep(0)
+            torch.cuda.synchronize()
+        _marker_names.update(e.name for e in prof.events() if e.device_type.name == "CUDA")
+    if not _marker_names:
+        raise SystemExit("the profiler shows no event of torch.cuda._sleep")
+    return _marker_names
+
+
+def traced_calls(torch, fn, marker, owns, reps):
+    """The device events of the last ``reps`` of reps + max(reps, 16) calls
+    of fn in one torch.profiler trace, begun after a 50 ms pause: each call
+    is preceded by ``marker()``, whose device events (``owns(name)``) cut
+    the trace's raw events, in time order, into calls. Returns [[event,
+    ...] a call]. In a long process the profiler drops the first events of
+    a session (a full run's traces kept the last 14 of 20 calls; deep into
+    the run, 4 of 10), so the calls counted are the last ones, each found
+    by its own marker."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(reps + max(reps, 16)):
+            marker()
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    calls = []
+    for e in events:
+        if owns(e.name):
+            calls.append([])
+        elif calls:
+            calls[-1].append(e)
+    return calls[-reps:]
+
+
+def call_means(calls, reps, groups):
+    """{group: mean device ms a call} over ``calls`` (traced_calls), each
+    group the summed duration of the events whose name holds one of its
+    names (None: every event of the call), or None where the trace is
+    short: fewer than reps calls, or a group whose kernel count differs
+    between calls or is 0 in them."""
+    if len(calls) < reps:
+        return None
+    out = {}
+    for group, names in groups.items():
+        picked = [[e.time_range.elapsed_us() for e in c
+                   if names is None or any(n in e.name for n in names)] for c in calls]
+        counts = {len(p) for p in picked}
+        if len(counts) != 1 or 0 in counts:
+            return None
+        out[group] = sum(sum(p) for p in picked) / 1e3 / len(calls)
+    return out
+
+
 def device_times(torch, fn, reps, groups):
     """Device time a call of fn, for each group of kernel names: the summed
     device time of the kernels whose name holds one of the group's names
-    (None: every kernel) in a torch.profiler trace of reps calls after a
-    warm-up call. At the probes' sizes a call's event time measures the
-    host path (wrapper, allocation, launch), this the kernels alone; at the
-    chain sites it leaves out the wrapper's segmap concatenation and
-    allocation. A trace that now and then comes back without device events
-    of every group is taken again, up to five times in all."""
-    from torch.profiler import ProfilerActivity, profile
-
+    (None: every kernel of the call), the mean over the last reps traced
+    calls after a warm-up call (traced_calls, each call marked by
+    torch.cuda._sleep(0), a one-thread kernel left out of every sum). At
+    the probes' sizes a call's event time measures the host path (wrapper,
+    allocation, launch), this the kernels alone; at the chain sites it
+    leaves out the wrapper's segmap concatenation and allocation. The sums
+    divide by the calls the trace holds, each found by its marker: a sum
+    over a whole trace over reps read low where the profiler dropped a
+    session's first events. A trace with fewer calls than reps, or a group
+    whose kernel count differs between calls, is taken again, up to five
+    times in all."""
+    markers = marker_names(torch)
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, 6):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        times = {group: sum(e.self_device_time_total for e in events
-                            if names is None or any(n in e.key for n in names)) / 1e3 / reps
-                 for group, names in groups.items()}
-        if all(t > 0 for t in times.values()):
+        calls = traced_calls(torch, fn, lambda: torch.cuda._sleep(0), markers.__contains__, reps)
+        times = call_means(calls, reps, groups)
+        if times is not None:
             return times
-        log(f"the profiler trace shows no device time (attempt {attempt} of 5)")
-    raise SystemExit("the profiler shows no device time")
+        log(f"the trace of {sorted(groups)} lost events: {len(calls)} marked calls "
+            f"(attempt {attempt} of 5)")
+    raise SystemExit(f"the profiler lost events of {sorted(groups)} five times")
 
 
 def device_ms(torch, fn, reps, names=None):
@@ -1071,6 +1146,68 @@ def gather_sweep(torch, pr):
     return failed
 
 
+# the ragged sweep of the transposes (R, C, x off 16-byte alignment by an
+# element): one element, a row, a column; R and C off every tile edge of
+# the three routes (8 x 8 blocks; 8-column groups of 12 rows; slabs of up
+# to 64 rows and 48 to 256 columns) up to 130 x 4100; aligned shapes that
+# the first two routes leave to the slabs; probe C's and C2's shapes beside
+# them; misaligned inputs
+TRANSPOSE_SWEEP = ((1, 1, 0), (1, 9, 0), (7, 1, 0), (13, 37, 0), (13, 40, 0), (8, 264, 0),
+                   (12, 4001, 0), (12, 4000, 1), (12, 4008, 0), (2, 8, 0), (14, 72, 0),
+                   (6, 4000, 0), (65, 4000, 0), (65, 4001, 0), (64, 4096, 0), (127, 4000, 0),
+                   (128, 4008, 0), (130, 4100, 0), (136, 20, 0), (72, 24, 1), (16, 257, 0),
+                   (4001, 7, 0))
+CHAIN_SEEDS = (1400, 1401, 1402, 1403)  # probe M's inputs beyond phase 3e's own seed
+
+
+def transpose_sweep(torch, pr):
+    """pr.transpose_routed at TRANSPOSE_SWEEP exactly against x.t(), the
+    input at the head of a NaN-filled buffer (one element in where the case
+    says so), the output before a NaN tail that must stay NaN. Returns the
+    failures; the route the kernels report must be pr.transpose_plan's at
+    every case, and all three routes must run."""
+    failed, routes = [], set()
+    for R, C, shift in TRANSPOSE_SWEEP:
+        g = torch.Generator().manual_seed(R * C + shift)
+        x = torch.randn(R * C + shift, generator=g).to(torch.bfloat16).to(DEVICE)
+        x = guarded(torch, x)[shift:].view(R, C)
+        out, tail = guarded_out(torch, (C, R), torch.bfloat16)
+        _, route = pr.transpose_routed(x, out=out)
+        routes.add(route)
+        planned = pr.transpose_plan(R, C, (x.data_ptr(), out.data_ptr())).route
+        torch.cuda.synchronize()
+        if not (torch.equal(out, x.t()) and bool(torch.isnan(tail.float()).all())):
+            failed.append(f"transpose {(R, C)} shift {shift}")
+        if route != planned:
+            failed.append(f"transpose {(R, C)} shift {shift}: launched {route}, planned {planned}")
+    log(f"ragged sweep, transposes: {len(TRANSPOSE_SWEEP)} cases, routes {sorted(routes)}: "
+        f"{'ok' if not failed else 'FAIL ' + '; '.join(failed)}")
+    if routes != set(pr.TRANSPOSE_ROUTES):
+        failed.append(f"the transpose sweep ran only {sorted(routes)}")
+    return failed
+
+
+def chain_sweep(torch, pr):
+    """Probe M's chain at CHAIN_SEEDS against probe_m_plain (pr.TOLERANCE),
+    inputs guarded, the output before a NaN tail that must stay NaN.
+    Returns the failures."""
+    failed, ratios = [], []
+    for seed in CHAIN_SEEDS:
+        args = tuple(guarded(torch, t) for t in pr.random_inputs("probe_m", seed, DEVICE))
+        out, tail = guarded_out(torch, pr.SPECS["probe_m"].out[0], torch.float32)
+        pr._chain(*args, out=out)
+        ref = pr.probe_m_plain(*args)
+        torch.cuda.synchronize()
+        ok, err, ratio = pr.agrees("probe_m", out, ref)
+        ratios.append(ratio)
+        if not (ok and bool(torch.isnan(tail).all())):
+            failed.append(f"probe_m seed {seed}: {ratio:.3g}")
+    log(f"sweep, chain: {len(CHAIN_SEEDS)} seeds, max|d|/(|ref|+rms) "
+        f"{', '.join(f'{r:.3g}' for r in ratios)} (limit {pr.TOLERANCE['probe_m']:g}): "
+        f"{'ok' if not failed else 'FAIL ' + '; '.join(failed)}")
+    return failed
+
+
 # the ragged sweep of the tap-product kernels (B, H, W, Cin, Cout): H and W
 # off every tile (17 x 23), one pixel, several column bands (64 x 200);
 # batches 1-3, Cin 64, 128 and 192, Cout 64, 128, 192 and 256
@@ -1113,8 +1250,10 @@ PROBE_REPS = 20  # calls a trace, each after a flush
 # phase 3e's device-time filter: each probe family's kernels, in this tree
 # and in the designs before it (probe_sites.py times the parent's too)
 PROBE_KERNELS = {"contraction": ("gemm_wgmma", "gemm_kernel"),
-                 "movement": ("gather32_kernel", "gather_kernel", "transpose_kernel"),
-                 "chain": ("chain_kernel",),
+                 "movement": ("gather32_kernel", "gather_kernel", "transpose8_kernel",
+                              "transpose_cols_kernel", "transpose_slab_kernel",
+                              "transpose_kernel"),
+                 "chain": ("chain_wgmma", "chain_kernel"),
                  "tap products": ("taps_kernel", "mmonly_wgmma", "taps9_wgmma")}
 
 
@@ -1137,42 +1276,21 @@ class L2Flush:
 
 
 def flushed_device_ms(torch, fn, flush, names=None, reps=PROBE_REPS):
-    """Device time a call of fn with L2 flushed before each call. A
-    torch.profiler trace of 2 reps (flush, call) pairs, begun after a 20 ms
-    pause, is cut into pairs at each flush (its raw device events in time
-    order); a pair's time is the summed duration of its events but the
-    flush's, or of those whose name holds one of ``names`` where given; the
-    result is the mean of the last reps pairs. In a long process the
-    profiler drops the first events of a session (a full run's traces kept
-    the last 14 of 20 pairs), so a sum over a whole trace reads low; here
-    the timed pairs come last, each is found by its own flush, and a trace
-    whose last pairs are fewer than reps or differ in their kernel count is
-    taken again, up to five times in all."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time a call of fn with L2 flushed before each call: the mean
+    over the last reps (flush, call) pairs of one trace
+    (traced_calls, the flush's fill as the marker) of the summed duration
+    of a call's events, or of those whose name holds one of ``names`` where
+    given. A trace whose last pairs are fewer than reps or differ in their
+    kernel count is taken again, up to five times in all."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, 6):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.02)
-            for _ in range(2 * reps):
-                flush()
-                fn()
-            torch.cuda.synchronize()
-        events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
-                        key=lambda e: e.time_range.start)
-        pairs = []
-        for e in events:
-            if flush.owns(e.name):
-                pairs.append([])
-            elif pairs and (names is None or any(n in e.name for n in names)):
-                pairs[-1].append(e.time_range.elapsed_us())
-        last = pairs[-reps:]
-        counts = {len(p) for p in last}
-        if len(last) == reps and len(counts) == 1 and 0 not in counts:
-            return sum(sum(p) for p in last) / 1e3 / reps
-        log(f"the trace of {names or 'the call'} lost events: {len(pairs)} flushes, kernels a "
-            f"pair {sorted(counts)} (attempt {attempt} of 5)")
+        calls = traced_calls(torch, fn, flush, flush.owns, reps)
+        times = call_means(calls, reps, {"call": names})
+        if times is not None:
+            return times["call"]
+        log(f"the trace of {names or 'the call'} lost events: {len(calls)} flushed calls "
+            f"(attempt {attempt} of 5)")
     raise SystemExit(f"the profiler lost events of {names or 'the call'} five times")
 
 
@@ -1285,8 +1403,9 @@ def check_probes(torch, pr, ic, fs, card):
     version on seeded random inputs of the probe's shapes and dtypes (exact
     for movement and transposes; pr.TOLERANCE for contractions and the
     chain), each input at the head of a NaN-filled buffer so that a read
-    past it shows; the ragged sweeps of the contraction and movement
-    kernels (gemm_sweep, gather_sweep); then each probe timed: its kernel
+    past it shows; the ragged sweeps of the contraction, gather and
+    transpose kernels (gemm_sweep, gather_sweep, transpose_sweep) and probe
+    M at more seeds (chain_sweep); then each probe timed: its kernel
     and the one PyTorch call that computes it by device time with L2
     flushed before every call, PROBE_TRACES traces each in turns (median,
     min, max), beside its bound, its plain version and the event time of a
@@ -1312,7 +1431,8 @@ def check_probes(torch, pr, ic, fs, card):
         errors[name] = err
         if not ok:
             failed.append(name)
-    failed += gemm_sweep(torch, pr, fs) + gather_sweep(torch, pr) + tap_sweep(torch, pr, ic)
+    failed += (gemm_sweep(torch, pr, fs) + gather_sweep(torch, pr) + transpose_sweep(torch, pr)
+               + chain_sweep(torch, pr) + tap_sweep(torch, pr, ic))
     if failed:
         raise SystemExit(f"probe kernels disagree with their plain versions at "
                          f"{', '.join(failed)}")

@@ -26,10 +26,19 @@
 //     contiguous last dim. A thread moves four units a pass and issues all
 //     four loads before its first store; the grid is capped at four blocks
 //     an SM (a grid-stride loop beyond), and E's channel scales are read
-//     into shared memory once a block. transpose_kernel (C, C2) goes
-//     through a 32 x 33 f32 tile in shared memory, so reads and writes are
-//     both coalesced and neither conflicts on a bank; ragged edges are
-//     masked.
+//     into shared memory once a block. The transposes (C, C2) move 16-byte
+//     pieces too. Where R and C are multiples of 8 (C2: 128 x 4000),
+//     transpose8_kernel gives each thread one 8 x 8 block: eight 16-byte
+//     loads, the transpose in registers by byte permutes, eight 16-byte
+//     stores, row groups fastest across a warp so that its stores fill
+//     whole 256-byte output rows; no shared memory, no barrier. Where R is
+//     12 (C: 12 x 4000, 24-byte output rows, which no 16-byte piece of a
+//     row fits), transpose_cols_kernel gives each thread 8 columns of the
+//     12 rows, whose output is one contiguous 192-byte run: 12 16-byte
+//     loads and stores, the transpose by byte permutes. Any other R and C
+//     (no probe's) take transpose_slab_kernel: a slab of up to 64 input
+//     rows staged in shared memory an element at a time, masked at ragged
+//     edges.
 //  2. contraction (A, A2, D, I): gemm_wgmma, C[M,N] = sum_k A[m,k] B[k,N],
 //     bf16 operands, f32 sums, out f32 or bf16 rounded once from the f32 sum
 //     (A). What bounds it at K <= 32: the bytes (0.1-0.6 us of HBM) under a
@@ -53,15 +62,26 @@
 //     its A fragment from it with 32-bit shared loads for a register-A
 //     wgmma. K tails and ragged M or N are zero filled by the boxes (never
 //     read past) or masked. K > 64 streams through a ring of two stages.
-//  3. mini chain (M): chain_kernel, one block per (grid index i, 8 columns).
-//     Stage one takes the nine K = 3 taps of the hidden map on CUDA cores in
-//     f32, each tap a product sum over the 3 channels and the taps summed in
-//     the reference's (di, dj) order, then ReLU and one rounding to bf16 after
-//     the full sum. As in the reference, every dj of a row tap contracts the
-//     same rows: the probe has no column shift. Stage two is three row-tap
-//     products h[di + r] . wgb[di] (K = 128) on mma.sync with f32 sums. The
-//     three 128 x 128 wgb slabs (104 KB padded) are copied with cp.async while
-//     stage one runs; only the 10 hidden rows the output needs are computed.
+//  3. mini chain (M): chain_wgmma. What bounds it: the bytes of its f32
+//     output (1.84 MB; the operations take two thirds of that time at the
+//     bf16 peak), under a chain of copies, two stages and a store. Stage
+//     one stays on CUDA cores: tensor cores sum the 27 products of a hidden
+//     value in their own order, and where that sum lies at a bf16 rounding
+//     boundary the hidden value flips by a bf16 step against the
+//     reference's, which moves an output by up to 2^-8 of one of its 384
+//     terms (measured 1.6e-3 of |ref| + rms, over probe M's 1e-3 limit). So
+//     stage one takes the reference's f32 roundings one for one, 35
+//     operations a value, and is what the kernel's time is made of. A block
+//     owns a strip of 8 columns and 64 output channels (112 blocks of two
+//     warpgroups): with no column shift, a strip needs the hidden map of its
+//     own 8 columns only (10 rows, 80 positions), computed once a block
+//     (the two channel halves of a strip each compute it: sharing it through
+//     global memory or a cluster's shared memory measured slower than the
+//     work it saves), and tap di's A is its hidden positions 8 di .. 8 di +
+//     63, one descriptor at an 8-row boundary. Stage two: three taps of 8
+//     wgmma m64n64k16, both operands by descriptor. The segmap strip, wsh and
+//     wgb's slices come by TMA, all issued at once; the sums are staged and
+//     stored in 16-byte pieces.
 //  4. tap products (mmonly, taps9bf16), over the zero-padded int8 input xp
 //     (B, H+2, W+2, Cin); both dequantize acc * scale[c] + bias[c]
 //     (__fmul_rn, then __fadd_rn: never contracted) and store bf16. Blocks
@@ -303,24 +323,116 @@ int sm_count() {
   return n;
 }
 
-constexpr int TT = 32;  // transpose tile
+// ---- transposes (C, C2): y (C, R) = x (R, C)^T, bf16
 
-// y (C, R) = x (R, C)^T, bf16.
-__global__ void transpose_kernel(const __nv_bfloat16* __restrict__ x,
-                                 __nv_bfloat16* __restrict__ y, int R, int C) {
-  __shared__ float tile[TT][TT + 1];
-  const int c = blockIdx.x * TT + threadIdx.x;
-  const int r0 = blockIdx.y * TT;
-  for (int j = threadIdx.y; j < TT; j += blockDim.y) {
-    const int r = r0 + j;
-    if (r < R && c < C) tile[j][threadIdx.x] = __bfloat162float(x[(size_t)r * C + c]);
+constexpr int T8_THREADS = 64;    // transpose8_kernel: threads a block
+constexpr int TC_THREADS = 32;    // transpose_cols_kernel: threads a block
+constexpr int TC_R = 12;          // its rows (probe C's)
+constexpr int TS_THREADS = 128;   // transpose_slab_kernel: threads a block
+constexpr int TS_ROWS = 64;       // a slab's input rows at most
+constexpr int TS_ELEMS = 3072;    // a slab's elements at most (6 KB)
+constexpr int TS_MAX_COLS = 256;  // a slab's input columns at most
+
+// probe_transpose's routes, as it reports them (ops/probes.py::TRANSPOSE_ROUTES)
+enum TransposeRoute { kTiles = 0, kCols = 1, kSlab = 2 };
+
+// Element k of each of the eight 8-element rows in[0..7] (one input row
+// each) as out[k]: word w of out[k] packs rows 2w and 2w + 1.
+__device__ __forceinline__ void transpose8x8(const uint4 (&in)[8], uint4 (&out)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const uint32_t sel = k % 2 ? 0x7632u : 0x5410u;
+    uint32_t w[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const uint32_t* lo = reinterpret_cast<const uint32_t*>(&in[2 * v]);
+      const uint32_t* hi = reinterpret_cast<const uint32_t*>(&in[2 * v + 1]);
+      w[v] = __byte_perm(lo[k / 2], hi[k / 2], sel);
+    }
+    out[k] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// R and C multiples of 8, x and y 16-byte aligned (C2): thread t moves the
+// 8 x 8 block of row group t % (R / 8) and column group t / (R / 8): eight
+// 16-byte loads, all issued before its first store, 32 byte permutes in
+// registers, eight 16-byte stores. Row groups run fastest, so a warp's
+// stores fill whole output rows and its loads whole 32-byte sectors.
+__global__ void __launch_bounds__(T8_THREADS)
+transpose8_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, int R,
+                  int C) {
+  const uint32_t rgs = (uint32_t)R / 8;
+  const uint32_t t = blockIdx.x * T8_THREADS + threadIdx.x;
+  if (t >= rgs * ((uint32_t)C / 8)) return;
+  const uint32_t rg = t % rgs, cg = t / rgs;
+  const __nv_bfloat16* src = x + (size_t)8 * rg * C + 8 * cg;
+  uint4 in[8], out[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) in[i] = __ldg(reinterpret_cast<const uint4*>(src + (size_t)i * C));
+  transpose8x8(in, out);
+  __nv_bfloat16* dst = y + (size_t)8 * cg * R + 8 * rg;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) *reinterpret_cast<uint4*>(dst + (size_t)k * R) = out[k];
+}
+
+// R = 12, C a multiple of 8, x and y 16-byte aligned (C: 24-byte output
+// rows): thread t moves columns 8 t .. 8 t + 7 of the 12 rows: 12 16-byte
+// loads, all issued before its first store; its output is the contiguous
+// run of 96 elements from output row 8 t (192 bytes, 16-byte aligned),
+// whose word w packs rows r and r + 1 (r = 2 w % 12) of column 2 w / 12,
+// taken from the loads by byte permutes; 12 16-byte stores.
+__global__ void __launch_bounds__(TC_THREADS)
+transpose_cols_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y,
+                      int C) {
+  const int t = blockIdx.x * TC_THREADS + threadIdx.x;
+  if (t >= C / 8) return;
+  uint4 in[TC_R];
+#pragma unroll
+  for (int r = 0; r < TC_R; ++r)
+    in[r] = __ldg(reinterpret_cast<const uint4*>(x + (size_t)r * C + 8 * t));
+  uint4* dst = reinterpret_cast<uint4*>(y + (size_t)8 * t * TC_R);
+#pragma unroll
+  for (int j = 0; j < TC_R; ++j) {  // output piece j: words 4 j .. 4 j + 3
+    uint32_t w[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int k = 2 * (4 * j + v), c = k / TC_R, r = k % TC_R;
+      const uint32_t* lo = reinterpret_cast<const uint32_t*>(&in[r]);
+      const uint32_t* hi = reinterpret_cast<const uint32_t*>(&in[r + 1]);
+      w[v] = __byte_perm(lo[c / 2], hi[c / 2], c % 2 ? 0x7632u : 0x5410u);
+    }
+    dst[j] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The slab route's input columns a block at TR rows (mirrored by
+// ops/probes.py::transpose_plan).
+__host__ __device__ constexpr int slab_cols(int TR) {
+  return TS_ELEMS / TR < TS_MAX_COLS ? TS_ELEMS / TR : TS_MAX_COLS;
+}
+
+// Any R and C: block b stages the slab of input rows r0 .. r0 + TR - 1
+// (TR = min(R, 64)) and columns c0 .. c0 + TC - 1 (column slabs fastest)
+// in shared memory an element at a time, columns fastest across threads,
+// and writes element (r, c) to output (c0 + c, r0 + r), rows fastest
+// across threads: where TR = R one contiguous run of tc R elements.
+// Ragged slabs are masked.
+__global__ void __launch_bounds__(TS_THREADS)
+transpose_slab_kernel(const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ y, int R,
+                      int C) {
+  __shared__ __nv_bfloat16 tile[TS_ELEMS + TS_ROWS];  // a row's pitch TC + 1
+  const int TR = R < TS_ROWS ? R : TS_ROWS, TC = slab_cols(TR), TP = TC + 1;
+  const uint32_t cblocks = ((uint32_t)C + TC - 1) / TC;
+  const int c0 = (int)(blockIdx.x % cblocks) * TC, r0 = (int)(blockIdx.x / cblocks) * TR;
+  const int tr = min(TR, R - r0), tc = min(TC, C - c0);  // this slab's rows and columns
+  for (int e = threadIdx.x; e < tr * tc; e += TS_THREADS) {
+    const int r = e / tc, c = e % tc;
+    tile[r * TP + c] = x[(size_t)(r0 + r) * C + c0 + c];
   }
   __syncthreads();
-  const int r = r0 + threadIdx.x;
-  const int c0 = blockIdx.x * TT;
-  for (int j = threadIdx.y; j < TT; j += blockDim.y) {
-    const int cc = c0 + j;
-    if (cc < C && r < R) y[(size_t)cc * R + r] = __float2bfloat16_rn(tile[threadIdx.x][j]);
+  for (int e = threadIdx.x; e < tr * tc; e += TS_THREADS) {
+    const int c = e / tr, r = e % tr;
+    y[(size_t)(c0 + c) * R + r0 + r] = tile[r * TP + c];
   }
 }
 
@@ -582,93 +694,158 @@ bool matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_
 
 // ----------------------------------------------------------- 3. mini chain
 
+// The first 1024-byte boundary at or after p (the 128-byte swizzle's atom).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
 constexpr int MCS = 3, MTH = 8, MNH = 128, MC2 = 128;  // the probe's widths
-constexpr int MTW = 8;                  // pixel columns a block
-constexpr int MHR = MTH + 2;            // hidden rows the output needs
-constexpr int MSR = MHR + 2;            // segmap rows they need
-constexpr int MHS = MNH + 8;            // 272-byte rows of h and wgb: conflict-free ldmatrix
-constexpr size_t CHAIN_SMEM = (size_t)3 * MNH * MHS * 2 + (size_t)MHR * MTW * MHS * 2 +
-                              (size_t)MCS * MSR * MTW * 4 + (size_t)9 * MCS * MNH * 4;
+constexpr int MSR = MTH + 4;      // segmap rows a grid index reads: hidden rows 0..9, taps 0..2
+constexpr int MHR = MTH + 2;      // hidden rows a grid index's output reads
+constexpr int MK1 = 9 * MCS;      // stage one's products a hidden value: 9 taps x 3 channels
+constexpr int MTW = 8;            // columns a strip: 8 x 8 = 64 output positions (wgmma's rows)
+constexpr int MNT = 64;           // output channels a block: half of C2
+constexpr int M_THREADS = 256;    // two warpgroups: both take stage one, the first stage two
+constexpr int M_WGB_BOX = MNH * 128;       // wgb[di]'s 64 output channels, 128 k rows (16 KB)
+constexpr int M_HCHUNK = MHR * MTW * 128;  // 64 hidden channels of a strip's 80 rows (10 KB)
+constexpr int M_OPITCH = MNT + 4;          // floats a staged output row (272 bytes)
+constexpr size_t M_H = 3 * M_WGB_BOX, M_OUT = M_H + 2 * M_HCHUNK,
+                 M_SEGF = M_OUT + (size_t)MTH * MTW * M_OPITCH * 4,
+                 M_SEG = M_SEGF + (size_t)MCS * MSR * MTW * 4,
+                 M_WSH = M_SEG + 1024,  // the segmap strip (576 bytes), then 128-byte aligned
+                 M_BARS = M_WSH + (size_t)MK1 * MNH * 2,
+                 CHAIN_SMEM = M_BARS + 4 * sizeof(uint64_t) + 1024;
+static_assert(MCS * MSR * MTW * 2 <= 1024 && M_SEG % 128 == 0, "the strip's room");
 
-// s (CS, rows, W2), wsh (9, CS, NH), wgb (3, NH, C2) bf16 -> out (G, TH, W2, C2) f32.
-__global__ void __launch_bounds__(128)
-chain_kernel(const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ wsh,
-             const __nv_bfloat16* __restrict__ wgb, float* __restrict__ out, int rows, int W2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* wgb_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [3][NH][MHS]
-  __nv_bfloat16* h_s = wgb_s + 3 * MNH * MHS;                       // [MHR * MTW][MHS]
-  float* seg_s = reinterpret_cast<float*>(h_s + MHR * MTW * MHS);    // [CS][MSR][MTW]
-  float* wsh_s = seg_s + MCS * MSR * MTW;                            // [9][CS][NH]
-  const int w0 = blockIdx.x * MTW, i = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
+__device__ __forceinline__ float lane4(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
 
-  for (int j = tid; j < 3 * MNH * (MC2 / 8); j += blockDim.x) {  // 16-byte pieces
-    const int row = j / (MC2 / 8), piece = j % (MC2 / 8);
-    cp_async16(wgb_s + row * MHS + 8 * piece, wgb + (size_t)row * MC2 + 8 * piece);
-  }
-  cp_async_commit();
-  for (int j = tid; j < MCS * MSR * MTW; j += blockDim.x) {
-    const int c = j / (MSR * MTW), r = (j / MTW) % MSR, w = j % MTW;
-    seg_s[j] = __bfloat162float(s[((size_t)c * rows + MTH * i + r) * W2 + w0 + w]);
-  }
-  for (int j = tid; j < 9 * MCS * MNH; j += blockDim.x) wsh_s[j] = __bfloat162float(wsh[j]);
-  __syncthreads();
+// out (G, 8, W2, 128) f32 from s (3, rows, W2), wsh (9, 3, 128) and wgb (3,
+// 128, 128) bf16. Block (nh, a, i) computes grid index i's output rows 0..7
+// at columns 8 a .. 8 a + 7 (64 positions, position 8 r + wl) and channels
+// 64 nh .. 64 nh + 63. Its hidden map is the strip's rows hr = 0..9 (80
+// positions, position 8 hr + wl), all 128 channels: h = bf16(relu(sum over
+// taps t = 3 di + dj in order of ((s0 w0 + s1 w1) + s2 w2))), sc = s[c, 8 i
+// + di + hr, 8 a + wl], wc = wsh[t, c]: the reference's f32 roundings one
+// for one (every product of two bf16 values is exact in f32, so an FMA
+// rounds as the separate add does; every dj reads the same rows: the probe
+// has no column shift); thread t computes channel t % 128 of hidden rows
+// 5 (t / 128) .. + 4, four positions at a time, into K-major
+// 128-byte-swizzled rows. Stage two, the first warpgroup: position 8 r + wl
+// is sum_di h[8 (r + di) + wl] . wgb[di], so tap di's A is the strip's
+// hidden positions 8 di .. 8 di + 63: three taps of 8 wgmma m64n64k16, both
+// operands by descriptor. By TMA, all issued at once: the segmap's 12 rows
+// of the strip (smap: s as (3 rows, W2), boxes of 8 x 12 x 3) and wsh
+// (wshmap: as (27, 128), one box) on one barrier, wgb's three 64-channel
+// slices (wgbmap: wgb as (384, 128), boxes of 64 x 128, 128-byte swizzled,
+// read MN-major through wgmma's transpose bit) on one barrier each.
+__global__ void __launch_bounds__(M_THREADS, 1)
+chain_wgmma(float* __restrict__ out, int W2, const __grid_constant__ CUtensorMap smap,
+            const __grid_constant__ CUtensorMap wshmap,
+            const __grid_constant__ CUtensorMap wgbmap) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* wgb_s = smem;      // [di][k 128][n 64]
+  unsigned char* h_s = smem + M_H;  // [k half][row 80][k 64], K-major
+  float* staged = reinterpret_cast<float*>(smem + M_OUT);
+  float* segf = reinterpret_cast<float*>(smem + M_SEGF);                // [c][row 12][wl 8]
+  __nv_bfloat16* seg = reinterpret_cast<__nv_bfloat16*>(smem + M_SEG);  // the same, as copied
+  const __nv_bfloat16* wsh_s = reinterpret_cast<const __nv_bfloat16*>(smem + M_WSH);  // [k][n]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + M_BARS);  // segmap and wsh, wgb[di]
+  const int nh = blockIdx.x, a = blockIdx.y, i = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t4 = lane % 4;
 
-  // stage one: h[hr, w, n] = relu(sum_di sum_dj sum_c seg[c, di + hr, w] wsh[3di+dj, c, n])
-  for (int j = tid; j < MHR * MTW * MNH; j += blockDim.x) {
-    const int p = j / MNH, n = j % MNH, hr = p / MTW, w = p % MTW;
-    float h = 0.f;
-#pragma unroll
+  if (tid == 0) {
+    for (int b = 0; b < 4; ++b) mbar_init(&bars[b], 1);
+    fence_mbarrier_init();
+    mbar_arrive_expect_tx(&bars[0], MCS * MSR * MTW * 2 + MK1 * MNH * 2);
+    tma_load_3d(seg, &smap, MTW * a, MTH * i, 0, &bars[0]);
+    tma_load_3d(smem + M_WSH, &wshmap, 0, 0, 0, &bars[0]);
     for (int di = 0; di < 3; ++di) {
-      const float s0 = seg_s[(0 * MSR + di + hr) * MTW + w];
-      const float s1 = seg_s[(1 * MSR + di + hr) * MTW + w];
-      const float s2 = seg_s[(2 * MSR + di + hr) * MTW + w];
-#pragma unroll
-      for (int dj = 0; dj < 3; ++dj) {
-        const float* wt = wsh_s + (3 * di + dj) * MCS * MNH + n;
-        const float tap = __fadd_rn(__fadd_rn(__fmul_rn(s0, wt[0]), __fmul_rn(s1, wt[MNH])),
-                                    __fmul_rn(s2, wt[2 * MNH]));
-        h = (di == 0 && dj == 0) ? tap : __fadd_rn(h, tap);
-      }
+      mbar_arrive_expect_tx(&bars[1 + di], M_WGB_BOX);
+      tma_load_3d(wgb_s + di * M_WGB_BOX, &wgbmap, MNT * nh, MNH * di, 0, &bars[1 + di]);
     }
-    h_s[p * MHS + n] = __float2bfloat16_rn(fmaxf(h, 0.f));
   }
-  cp_async_wait<0>();
+  __syncthreads();  // the barriers' initialisation before any wait
+
+  // stage one: thread t holds wsh[tap, c, t % 128] for every (tap, c), k = 3 tap + c
+  const int n = tid % MNH, hr0 = (tid / MNH) * (MHR / 2);
+  mbar_wait(&bars[0], 0);
+  float wr[MK1];
+#pragma unroll
+  for (int k = 0; k < MK1; ++k) wr[k] = __bfloat162float(wsh_s[k * MNH + n]);
+  for (int e = tid; e < MCS * MSR * MTW; e += M_THREADS) segf[e] = __bfloat162float(seg[e]);
+  __syncthreads();
+  // segf[(12 c + row) 8 + wl] = s[c, 8 i + row, 8 a + wl]: four positions of
+  // a tap are one 16-byte load
+  const float4* sp = reinterpret_cast<const float4*>(segf);
+  unsigned char* hcol = h_s + (n / 64) * M_HCHUNK + 2 * (n % 8);
+#pragma unroll
+  for (int p4 = 0; p4 < MHR; ++p4) {
+    const int hr = hr0 + p4 / 2, wl0 = 4 * (p4 % 2);
+    float4 sv[3][MCS];
+#pragma unroll
+    for (int di = 0; di < 3; ++di)
+#pragma unroll
+      for (int c = 0; c < MCS; ++c) sv[di][c] = sp[((c * MSR + di + hr) * MTW + wl0) / 4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float h = 0.f;
+#pragma unroll
+      for (int di = 0; di < 3; ++di) {
+        const float s0 = lane4(sv[di][0], j), s1 = lane4(sv[di][1], j), s2 = lane4(sv[di][2], j);
+#pragma unroll
+        for (int dj = 0; dj < 3; ++dj) {
+          const float* w = wr + 3 * (3 * di + dj);
+          const float tap = __fmaf_rn(s2, w[2], __fmaf_rn(s1, w[1], __fmul_rn(s0, w[0])));
+          h = di == 0 && dj == 0 ? tap : __fadd_rn(h, tap);
+        }
+      }
+      const int row = MTW * hr + wl0 + j;
+      *reinterpret_cast<__nv_bfloat16*>(hcol + row * 128 + ((((n % 64) / 8) ^ (row & 7)) << 4)) =
+          __float2bfloat16_rn(fmaxf(h, 0.f));
+    }
+  }
+  fence_proxy_async();  // h's generic stores before the products' reads
   __syncthreads();
 
-  // stage two: warp w owns output pixels 16w .. 16w + 15 (rows 2w, 2w + 1 of
-  // the tile); tap di reads hidden pixels 8 di further on
-  const int l_row = lane % 16, l_col = 8 * (lane / 16);
-  float acc[MC2 / 8][4];
+  // stage two, the first warpgroup: tap di's A is h's rows 8 di .. 8 di + 63
+  if (warp < 4) {
+    float acc[32];
 #pragma unroll
-  for (int nt = 0; nt < MC2 / 8; ++nt)
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    fence_regs(acc);
+    for (int di = 0; di < 3; ++di) mbar_wait(&bars[1 + di], 0);
+    wgmma_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  for (int di = 0; di < 3; ++di) {
-    const __nv_bfloat16* wd = wgb_s + di * MNH * MHS;
-#pragma unroll 2
-    for (int ks = 0; ks < MNH / 16; ++ks) {
-      uint32_t af[4];
-      ldmatrix_x4(af, h_s + (16 * warp + MTW * di + l_row) * MHS + 16 * ks + l_col);
+    for (int di = 0; di < 3; ++di)
 #pragma unroll
-      for (int np = 0; np < MC2 / 16; ++np) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(bf, wd + (16 * ks + l_row) * MHS + 16 * np + l_col);
-        mma_bf16(acc[2 * np], af, bf[0], bf[1]);
-        mma_bf16(acc[2 * np + 1], af, bf[2], bf[3]);
-      }
-    }
+      for (int ks = 0; ks < MNH / 16; ++ks)
+        wgmma_m64n64k16_ss<0, 1>(
+            acc, wgmma_desc_sw128(h_s + (ks / 4) * M_HCHUNK + MTW * di * 128) + 2 * (ks % 4),
+            gemm_desc_mn(wgb_s + di * M_WGB_BOX + ks * 2048));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // sum e is position 16 warp + g + 8 ((e / 2) % 2), channel 8 (e / 4) + 2 t4 + e % 2
+#pragma unroll
+    for (int j = 0; j < MNT / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(staged + (16 * warp + g + 8 * hh) * M_OPITCH + 8 * j +
+                                   2 * t4) = make_float2(acc[4 * j + 2 * hh],
+                                                         acc[4 * j + 2 * hh + 1]);
   }
-  // element e of n-tile nt: tile row 2*warp + e/2, column g, channel 8nt + 2t + e%2
+  __syncthreads();
+  // the sums in 16-byte pieces: position 8 r + wl is output row r, column 8 a + wl
 #pragma unroll
-  for (int nt = 0; nt < MC2 / 8; ++nt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = 2 * warp + half;
-      store2(out + (((size_t)i * MTH + r) * W2 + w0 + g) * MC2 + 8 * nt + 2 * t,
-             acc[nt][2 * half], acc[nt][2 * half + 1]);
-    }
+  for (int it = 0; it < MTH * MTW * MNT / 4 / M_THREADS; ++it) {
+    const int p = tid + M_THREADS * it, pos = p / (MNT / 4), c = 4 * (p % (MNT / 4));
+    float* o = out + (((size_t)i * MTH + pos / MTW) * W2 + MTW * a + pos % MTW) * MC2 + MNT * nh;
+    *reinterpret_cast<float4*>(o + c) = *reinterpret_cast<const float4*>(staged + pos * M_OPITCH + c);
+  }
 }
 
 // --------------------------------------------------------- 4. tap products
@@ -758,11 +935,6 @@ __device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 2], uint64_t da, ui
 #undef TP_F32
 #undef TP_OUT32
 #undef TP_OUT64
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) &
-                                          ~uintptr_t(1023));
-}
 
 // ---- mmonly: two exact int8 products of the centre tap, streamed
 
@@ -1276,12 +1448,31 @@ int probe_gather(int is_bf16, const void* x, void* y, const uint32_t* plan, cons
                        : gather_rank<float>(l, rank, mode, affine));
 }
 
-// Family 1, transpose: y (C, R) = x (R, C)^T, bf16.
-int probe_transpose(const void* x, void* y, int R, int C, void* stream) {
-  if (R < 1 || C < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((C + TT - 1) / TT, (R + TT - 1) / TT);
-  transpose_kernel<<<grid, dim3(TT, 8), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), R, C);
+// Family 1, transpose: y (C, R) = x (R, C)^T, bf16, R C < 2^31; *route
+// is set to the kernel launched. With both pointers 16-byte aligned and C
+// a multiple of 8, R a multiple of 8 takes transpose8_kernel and R = 12
+// transpose_cols_kernel; the rest transpose_slab_kernel
+// (ops/probes.py::transpose_plan mirrors the choice).
+int probe_transpose(const void* x, void* y, int R, int C, int* route, void* stream) {
+  if (R < 1 || C < 1 || (long long)R * C >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const auto* X = static_cast<const __nv_bfloat16*>(x);
+  auto* Y = static_cast<__nv_bfloat16*>(y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool aligned = !((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) &&
+                       C % 8 == 0;
+  if (aligned && R % 8 == 0) {
+    *route = kTiles;
+    const long long blocks = ((long long)R * C / 64 + T8_THREADS - 1) / T8_THREADS;
+    transpose8_kernel<<<(unsigned)blocks, T8_THREADS, 0, st>>>(X, Y, R, C);
+  } else if (aligned && R == TC_R) {
+    *route = kCols;
+    transpose_cols_kernel<<<(C / 8 + TC_THREADS - 1) / TC_THREADS, TC_THREADS, 0, st>>>(X, Y, C);
+  } else {
+    *route = kSlab;
+    const int TR = R < TS_ROWS ? R : TS_ROWS, TC = slab_cols(TR);
+    const long long blocks = (long long)((C + TC - 1) / TC) * ((R + TR - 1) / TR);
+    transpose_slab_kernel<<<(unsigned)blocks, TS_THREADS, 0, st>>>(X, Y, R, C);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1318,17 +1509,34 @@ int probe_gemm(const void* a, const void* b, void* out, int M, int N, int K, int
 }
 
 // Family 3: s (3, rows, W2), wsh (9, 3, 128), wgb (3, 128, 128) bf16 ->
-// out (G, 8, W2, 128) f32, rows >= 8 G + 4, W2 a multiple of 8.
+// out (G, 8, W2, 128) f32; rows >= 8 G + 4, W2 a multiple of 8, G <= 65535,
+// every pointer 16-byte aligned.
 int probe_chain(const void* s, const void* wsh, const void* wgb, void* out, int G, int rows,
                 int W2, void* stream) {
-  if (G < 1 || W2 < MTW || W2 % MTW != 0 || rows < MTH * G + MSR - MTH)
+  if (G < 1 || G > 65535 || W2 < MTW || W2 % MTW != 0 || W2 / MTW > 65535 ||
+      rows < MTH * G + MSR - MTH ||
+      ((reinterpret_cast<uintptr_t>(s) | reinterpret_cast<uintptr_t>(wsh) |
+        reinterpret_cast<uintptr_t>(wgb) | reinterpret_cast<uintptr_t>(out)) & 15))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  CUtensorMap smap, wshmap, wgbmap;
+  const uint64_t sdims[3] = {(uint64_t)W2, (uint64_t)rows, (uint64_t)MCS};
+  const uint64_t sstrides[2] = {2ull * W2, 2ull * W2 * rows};
+  const uint32_t sbox[3] = {(uint32_t)MTW, (uint32_t)MSR, (uint32_t)MCS};
+  const uint64_t wdims[3] = {(uint64_t)MNH, (uint64_t)MK1, 1};
+  const uint64_t wstrides[2] = {2ull * MNH, 2ull * MNH * MK1};
+  const uint32_t wbox[3] = {(uint32_t)MNH, (uint32_t)MK1, 1};
+  if (!make_tensor_map(&smap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, s, 3, sdims, sstrides, sbox,
+                       CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_tensor_map(&wshmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, wsh, 3, wdims, wstrides, wbox,
+                       CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !matrix_map(&wgbmap, wgb, 3 * MNH, MC2, 64, MNH))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(chain_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)CHAIN_SMEM);
   if (err != cudaSuccess) return (int)err;
-  chain_kernel<<<dim3(W2 / MTW, G), 128, CHAIN_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(s), static_cast<const __nv_bfloat16*>(wsh),
-      static_cast<const __nv_bfloat16*>(wgb), static_cast<float*>(out), rows, W2);
+  chain_wgmma<<<dim3(MC2 / MNT, W2 / MTW, G), M_THREADS, CHAIN_SMEM,
+                 static_cast<cudaStream_t>(stream)>>>(static_cast<float*>(out), W2, smap, wshmap,
+                                                      wgbmap);
   return (int)cudaGetLastError();
 }
 

@@ -316,7 +316,7 @@ def _library():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn, args in (
         (lib.probe_gather, [i, p, p, ctypes.POINTER(ctypes.c_uint32), p, f, f, p]),
-        (lib.probe_transpose, [p, p, i, i, p]),
+        (lib.probe_transpose, [p, p, i, i, ctypes.POINTER(i), p]),
         (lib.probe_gemm, [p, p, p] + [i] * 5 + [p]),
         (lib.probe_chain, [p] * 4 + [i] * 3 + [p]),
         (lib.probe_taps, [i] + [p] * 5 + [i] * 5 + [p]),
@@ -483,12 +483,68 @@ def _gather(x, shape, strides, base, chan=None, a=1.0, b=0.0, affine=COPY, out=N
     return y
 
 
-def _transpose(x):
-    """Family 1, tiled path: x (R, C) bf16 -> (C, R)."""
+# the transpose kernels' geometry (csrc/probes.cu): transpose8_kernel's
+# threads a block (one 8 x 8 block a thread); transpose_cols_kernel's (8
+# columns of the 12 rows a thread) and its rows; the slab route's threads a
+# block, its rows, elements and columns a slab at most
+T8_THREADS = 64
+COLS_THREADS, COLS_ROWS = 32, 12
+SLAB_THREADS, SLAB_ROWS, SLAB_ELEMS, SLAB_MAX_COLS = 128, 64, 3072, 256
+TRANSPOSE_ROUTES = ("tiles", "cols", "slab")  # by the number probe_transpose reports
+
+
+class TransposePlan(NamedTuple):
+    """The transpose's launch: ``route`` "tiles" (transpose8_kernel: R and C
+    multiples of 8, both pointers 16-byte aligned, one 8 x 8 block a
+    thread, row groups fastest), "cols" (transpose_cols_kernel: R = 12, C a
+    multiple of 8, aligned; ``tile`` = (12, 8) a thread) or "slab"
+    (transpose_slab_kernel, anything else: slabs of ``tile`` = (TR, TC)
+    input rows and columns, one a block, column slabs fastest); ``blocks``
+    of ``threads``."""
+
+    route: str
+    tile: tuple
+    threads: int
+    blocks: int
+
+
+def transpose_plan(R, C, ptrs=(0, 0)) -> TransposePlan:
+    """The launch of y (C, R) = x (R, C)^T for x and y at ``ptrs``, as
+    csrc/probes.cu::probe_transpose chooses it; raises ValueError for what
+    the kernels do not take (R or C below 1, R C of 2^31 or more)."""
+    if R < 1 or C < 1 or R * C >= INDEX_LIMIT:
+        raise ValueError(f"transpose: R={R} and C={C} must be positive with R*C < 2^31")
+    aligned = ptrs[0] % 16 == 0 and ptrs[1] % 16 == 0 and C % 8 == 0
+    if aligned and R % 8 == 0:
+        return TransposePlan("tiles", (8, 8), T8_THREADS, -(-(R * C // 64) // T8_THREADS))
+    if aligned and R == COLS_ROWS:
+        return TransposePlan("cols", (R, 8), COLS_THREADS, -(-(C // 8) // COLS_THREADS))
+    tr = min(R, SLAB_ROWS)
+    tc = min(SLAB_ELEMS // tr, SLAB_MAX_COLS)
+    return TransposePlan("slab", (tr, tc), SLAB_THREADS, -(-C // tc) * -(-R // tr))
+
+
+def transpose_routed(x, out=None):
+    """Family 1's transposes: x (R, C) bf16, contiguous -> y (C, R) (written
+    to ``out``, contiguous, where given). Returns y and the route (one of
+    TRANSPOSE_ROUTES) that the C entry reports it launched."""
+    _check(x.dim() == 2 and x.dtype == BF16, "transpose", "x must be (R, C) bf16")
     R, C = x.shape
-    y = torch.empty((C, R), dtype=x.dtype, device=x.device)
-    _call("probe_transpose", x.data_ptr(), y.data_ptr(), R, C, device=x.device)
-    return y
+    transpose_plan(R, C)
+    _check(x.is_contiguous(), "transpose", "x must be contiguous")
+    y = torch.empty((C, R), dtype=x.dtype, device=x.device) if out is None else out
+    _check(tuple(y.shape) == (C, R) and y.dtype == BF16 and y.is_contiguous()
+           and y.device == x.device, "transpose",
+           f"out must be a contiguous ({C}, {R}) bf16 tensor on {x.device}")
+    route = ctypes.c_int(-1)
+    _call("probe_transpose", x.data_ptr(), y.data_ptr(), R, C, ctypes.byref(route),
+          device=x.device)
+    return y, TRANSPOSE_ROUTES[route.value]
+
+
+def _transpose(x, out=None):
+    """Family 1's transposes, by :func:`transpose_routed`: y (C, R) = x^T."""
+    return transpose_routed(x, out)[0]
 
 
 # --------------------------------------------- the contraction kernel's plan
@@ -557,12 +613,57 @@ def _gemm(a, b, M, N, K, a_trans, out_dtype, out=None):
     return y
 
 
-def _chain(s, wsh, wgb):
-    """Family 3: probe M's chain, (8, 8, 56, 128) f32."""
-    G = (s.shape[1] - 6) // MC_TH
-    y = torch.empty((G, MC_TH, s.shape[2], wgb.shape[2]), dtype=F32, device=s.device)
-    _call("probe_chain", s.data_ptr(), wsh.data_ptr(), wgb.data_ptr(), y.data_ptr(), G,
-          s.shape[1], s.shape[2], device=s.device)
+CHAIN_STRIP = 8  # columns a block of chain_wgmma: 8 x 8 = 64 output positions
+CHAIN_HALF = 64  # output channels a block of chain_wgmma
+
+
+class ChainPlan(NamedTuple):
+    """chain_wgmma's launch: ``grid`` = (channel halves, column strips,
+    grid indices); block (nh, a, i) computes output rows 0..7 of grid index
+    i at columns ``strip`` a .. + strip - 1 (position 8 r + wl) and channels
+    64 nh .. 64 nh + 63, from the ``hidden`` = 80 hidden positions of the
+    same columns and hidden rows 0..9 (position 8 hr + wl); tap di's A is
+    hidden positions 8 di .. 8 di + 63."""
+
+    grid: tuple
+    strip: int
+    hidden: int
+
+
+def chain_plan(G, rows, W2) -> ChainPlan:
+    """The launch plan of probe M's chain at G grid indices over a segmap
+    of ``rows`` rows and W2 columns; raises ValueError for what the kernel
+    does not take: W2 off a multiple of 8 (whole strips, the segmap's rows
+    16-byte TMA rows), fewer than 8 G + 4 rows, G outside 1..65535."""
+    if not 1 <= G <= 65535:
+        raise ValueError(f"chain: G={G} grid indices, 1 to 65535")
+    if W2 < CHAIN_STRIP or W2 % CHAIN_STRIP or W2 // CHAIN_STRIP > 65535:
+        raise ValueError(f"chain: W2={W2} must be a multiple of {CHAIN_STRIP} (at most 65535 "
+                         "strips)")
+    if rows < MC_TH * G + 4:
+        raise ValueError(f"chain: {rows} segmap rows, {G} grid indices need {MC_TH * G + 4}")
+    return ChainPlan((128 // CHAIN_HALF, W2 // CHAIN_STRIP, G), CHAIN_STRIP,
+                     (MC_TH + 2) * CHAIN_STRIP)
+
+
+def _chain(s, wsh, wgb, out=None):
+    """Family 3: probe M's chain, s (3, rows, W2), wsh (9, 3, 128), wgb (3,
+    128, 128) bf16 -> (G, 8, W2, 128) f32, G = (rows - 6) // 8 as in the
+    probe (written to ``out`` where given)."""
+    _check(s.dim() == 3 and s.shape[0] == 3 and s.dtype == BF16, "chain",
+           "s must be (3, rows, W2) bf16")
+    _check(tuple(wsh.shape) == (9, 3, 128) and tuple(wgb.shape) == (3, 128, 128)
+           and wsh.dtype == BF16 and wgb.dtype == BF16, "chain",
+           "wsh must be (9, 3, 128) and wgb (3, 128, 128) bf16")
+    G, rows, W2 = (s.shape[1] - 6) // MC_TH, s.shape[1], s.shape[2]
+    chain_plan(G, rows, W2)
+    y = torch.empty((G, MC_TH, W2, 128), dtype=F32, device=s.device) if out is None else out
+    _check(tuple(y.shape) == (G, MC_TH, W2, 128) and y.dtype == F32 and y.device == s.device,
+           "chain", f"out must be ({G}, {MC_TH}, {W2}, 128) f32 on {s.device}")
+    _check(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (s, wsh, wgb, y)), "chain",
+           "operands and output must be contiguous and 16-byte aligned")
+    _call("probe_chain", s.data_ptr(), wsh.data_ptr(), wgb.data_ptr(), y.data_ptr(), G, rows, W2,
+          device=s.device)
     return y
 
 

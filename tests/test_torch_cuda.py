@@ -404,3 +404,30 @@ def test_cuda_tap_kernels_ragged(name, shape):
     ok, err, ratio = pr.agrees(name, out, ref)
     assert ok, (err, ratio)
     assert torch.isnan(buf[B * H * W * cout:].float()).all()
+
+
+# ragged transposes (R, C): each route (8 x 8 blocks, 8-column groups of
+# 12 rows, slabs) with R and C off their tiles, one element, probe C's and
+# C2's shapes
+TRANSPOSE_CASES = ((1, 1), (13, 37), (12, 4000), (12, 4001), (14, 72), (128, 4000),
+                   (130, 4100), (136, 20), (4001, 7))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,C", TRANSPOSE_CASES)
+def test_cuda_transpose_ragged(R, C):
+    """The transpose kernels at ragged shapes equal x.t() exactly, by the
+    route the plan gives; the output sits before a NaN tail that must stay
+    NaN."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.ops import probes as pr
+
+    g = torch.Generator().manual_seed(R * C)
+    x = torch.randn(R, C, generator=g).to(torch.bfloat16).cuda()
+    buf = torch.full((R * C + 4096,), float("nan"), dtype=torch.bfloat16, device="cuda")
+    out = buf[:R * C].view(C, R)
+    _, route = pr.transpose_routed(x, out=out)
+    torch.cuda.synchronize()
+    assert route == pr.transpose_plan(R, C, (x.data_ptr(), out.data_ptr())).route
+    assert torch.equal(out, x.t())
+    assert torch.isnan(buf[R * C:].float()).all()

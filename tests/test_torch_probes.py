@@ -6,7 +6,8 @@ inputs made with numpy, against the JAX kernel body replayed in interpret
 mode; the port's two probe tools, shineon_tpu_torch.tools.layout_caps
 and conv_probe, on the CPU; and the kernels' host plans: the movement
 kernel's collapsed maps and multiply-shift divisors against numpy's index
-arithmetic, the contraction kernel's launch plan and its refusals."""
+arithmetic, the contraction kernel's launch plan and its refusals, and the
+transposes' three routes emulated by their own index arithmetic."""
 
 import functools
 import os.path as osp
@@ -423,3 +424,170 @@ def test_gemm_plan_refusals_and_ring():
     assert (plan.a_route, plan.bk, plan.stages) == ("tma", 64, 2)
     assert pr.gemm_plan(200, 72, 100, False)[:5] == ("flat", "tma", (64, 64), 64, 2)
     assert pr.gemm_plan(64, 64, 64, False).stages == 1
+
+
+# ------------------------------------------------------------ transposes
+
+def byte_perm(x, y, sel):
+    """CUDA's __byte_perm on uint32 arrays: byte i of the result is byte
+    (sel >> 4 i) & 7 of the eight bytes y:x (x's bytes first)."""
+    both = np.stack([x, y], -1).astype(np.uint32).view(np.uint8).reshape(*np.shape(x), 8)
+    picks = [(sel >> (4 * i)) & 7 for i in range(4)]
+    return np.ascontiguousarray(both[..., picks]).view(np.uint32)[..., 0]
+
+
+def _emulate_tiles(x):
+    """transpose8_kernel by its own arithmetic: thread t takes row group
+    t % (R / 8) and column group t / (R / 8), loads eight 16-byte rows as
+    uint32 words, permutes them (transpose8x8's selectors) and stores eight
+    16-byte pieces. Returns (y, writes per output element)."""
+    R, C = x.shape
+    rgs = R // 8
+    t = np.arange(rgs * (C // 8))
+    rg, cg = t % rgs, t // rgs
+    words = x.view(np.uint32).reshape(R, C // 2)
+    # w[t, i, j]: word j of the 16 bytes row 8 rg + i, columns 8 cg ..
+    w = words[(8 * rg)[:, None, None] + np.arange(8)[None, :, None],
+              (4 * cg)[:, None, None] + np.arange(4)[None, None, :]]
+    y = np.zeros((C, R), np.uint16)
+    count = np.zeros((C, R), np.int64)
+    for k in range(8):
+        sel = 0x7632 if k % 2 else 0x5410
+        piece = np.stack([byte_perm(w[:, 2 * v, k // 2], w[:, 2 * v + 1, k // 2], sel)
+                          for v in range(4)], -1)
+        cols = (8 * rg)[:, None] + np.arange(8)[None, :]
+        y[(8 * cg + k)[:, None], cols] = piece.view(np.uint16).reshape(-1, 8)
+        np.add.at(count, ((8 * cg + k)[:, None], cols), 1)
+    return y, count
+
+
+def _emulate_cols(x):
+    """transpose_cols_kernel by its own arithmetic: thread t loads columns
+    8 t .. 8 t + 7 of the 12 rows as four uint32 words a row and writes the
+    run of 96 output elements from output row 8 t, its word w the byte
+    permute of rows r and r + 1 (r = 2 w % 12) at column 2 w / 12."""
+    R, C = x.shape
+    t = np.arange(C // 8)
+    words = x.view(np.uint32).reshape(R, C // 2)
+    w = words[np.arange(R)[None, :, None], (4 * t)[:, None, None] + np.arange(4)[None, None, :]]
+    y = np.zeros(C * R, np.uint16)
+    count = np.zeros(C * R, np.int64)
+    for wi in range(4 * R):
+        k = 2 * wi
+        c, r = k // R, k % R
+        word = byte_perm(w[:, r, c // 2], w[:, r + 1, c // 2], 0x7632 if c % 2 else 0x5410)
+        at = 8 * t * R + k
+        assert np.all(at % 2 == 0)
+        y[at], y[at + 1] = word.astype(np.uint32) & 0xFFFF, word.astype(np.uint32) >> 16
+        count[at] += 1
+        count[at + 1] += 1
+    return y.reshape(C, R), count.reshape(C, R)
+
+
+def _emulate_slab(x, plan):
+    """transpose_slab_kernel by its own arithmetic: block b stages rows r0
+    .. r0 + tr - 1 and columns c0 .. c0 + tc - 1 of x (column slabs
+    fastest) at a row pitch of TC + 1 inside the block's shared tile, then
+    writes element (r, c) to output (c0 + c, r0 + r). Returns (y, writes
+    per output element)."""
+    R, C = x.shape
+    TR, TC = plan.tile
+    TP = TC + 1
+    assert TR * TC <= pr.SLAB_ELEMS and TR <= pr.SLAB_ROWS
+    y = np.zeros(C * R, np.uint16)
+    count = np.zeros(C * R, np.int64)
+    cblocks = -(-C // TC)
+    for b in range(plan.blocks):
+        c0, r0 = (b % cblocks) * TC, (b // cblocks) * TR
+        tr, tc = min(TR, R - r0), min(TC, C - c0)
+        tile = np.full(pr.SLAB_ELEMS + pr.SLAB_ROWS, 0xFFFF, np.uint16)
+        e = np.arange(tr * tc)
+        r, c = e // tc, e % tc
+        tile[r * TP + c] = x[r0 + r, c0 + c]
+        c, r = e // tr, e % tr
+        y[(c0 + c) * R + r0 + r] = tile[r * TP + c]
+        np.add.at(count, (c0 + c) * R + r0 + r, 1)
+    return y.reshape(C, R), count.reshape(C, R)
+
+
+# (R, C, x misaligned by an element): the probes (C through 8-column
+# groups, C2 through 8 x 8 tiles), one element, a row, a column, R and C off
+# every tile edge (8, 64 rows, 48, 236 and 256 columns), aligned shapes that
+# the first two routes leave to the slabs (even R other than 12), and
+# inputs off 16-byte alignment
+TRANSPOSE_CASES = ((12, 4000, 0), (128, 4000, 0), (1, 1, 0), (1, 9, 0), (7, 1, 0),
+                   (13, 37, 0), (13, 40, 0), (8, 264, 0), (65, 4000, 0), (65, 4001, 0),
+                   (130, 4100, 0), (136, 20, 0), (72, 24, 1), (16, 257, 0), (2, 8, 0),
+                   (14, 72, 0), (6, 4008, 0), (12, 4000, 1))
+
+
+@pytest.mark.parametrize("R,C,shift", TRANSPOSE_CASES)
+def test_transpose_plan_covers_output(R, C, shift):
+    """The transpose's route at (R, C) for operands at these offsets,
+    emulated by its kernel's own arithmetic on seeded bf16 bits: every
+    output element is written exactly once, every read lies inside x, and
+    the result is x.t() bit for bit."""
+    rng = np.random.RandomState(R * C + shift)
+    x = rng.randint(0, 1 << 16, size=(R, C)).astype(np.uint16)
+    plan = pr.transpose_plan(R, C, (2 * shift, 0))
+    aligned = shift == 0 and C % 8 == 0
+    want = "tiles" if aligned and R % 8 == 0 else "cols" if aligned and R == 12 else "slab"
+    assert plan.route == want
+    y, count = {"tiles": _emulate_tiles, "cols": _emulate_cols}.get(
+        plan.route, lambda x: _emulate_slab(x, plan))(x)
+    np.testing.assert_array_equal(count, 1)
+    np.testing.assert_array_equal(y, x.T)
+
+
+def test_transpose_plan_of_probes():
+    """C: 500 threads of 8 columns x 12 rows (16 blocks of 32); C2: 125
+    blocks of 64 threads, one 8 x 8 block a thread; a misaligned C the
+    slab route's 16 slabs of 12 x 256 (6 KB); the routes are the C entry's
+    by number."""
+    assert tuple(pr.transpose_plan(12, 4000)) == ("cols", (12, 8), 32, 16)
+    assert tuple(pr.transpose_plan(12, 4000, (2, 0))) == ("slab", (12, 256), 128, 16)
+    assert tuple(pr.transpose_plan(128, 4000)) == ("tiles", (8, 8), 64, 125)
+    assert pr.transpose_plan(130, 4100).tile == (64, 48)
+    assert pr.transpose_plan(13, 40).tile == (13, 236)
+    assert pr.transpose_plan(128, 4000, (0, 2)).route == "slab"
+    assert pr.transpose_plan(14, 72).route == "slab"
+    assert pr.TRANSPOSE_ROUTES == ("tiles", "cols", "slab")
+
+
+# (x, out) pairs the transpose refuses at probe C's (12, 4000): an input view
+# that is not contiguous; outputs of another shape, dtype or layout
+TRANSPOSE_BAD = {
+    "x view": (lambda: torch.empty((4000, 12), dtype=torch.bfloat16, device="meta").t(), None),
+    "out shape": (lambda: torch.empty((12, 4000), dtype=torch.bfloat16, device="meta"),
+                  lambda: torch.empty((12, 4000), dtype=torch.bfloat16, device="meta")),
+    "out dtype": (lambda: torch.empty((12, 4000), dtype=torch.bfloat16, device="meta"),
+                  lambda: torch.empty((4000, 12), device="meta")),
+    "out layout": (lambda: torch.empty((12, 4000), dtype=torch.bfloat16, device="meta"),
+                   lambda: torch.empty((12, 4000), dtype=torch.bfloat16, device="meta").t()),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(TRANSPOSE_BAD))
+def test_transpose_refuses_bad_operands(bad):
+    """The transpose refuses, on meta tensors and before any build, an
+    input or ``out`` its kernels would read or write out of place."""
+    x, out = TRANSPOSE_BAD[bad]
+    with pytest.raises(ValueError, match="must be contiguous|out must be"):
+        pr._transpose(x(), out=out() if out else None)
+
+
+def test_transpose_refuses_before_dispatch():
+    """The transpose refuses, on meta tensors and before any build or
+    launch, an operand that is not 2-D bf16 and R C of 2^31 or more."""
+    before = pr.probe_c.launches
+    with pytest.raises(ValueError, match="R\\*C < 2\\^31"):
+        pr._transpose(torch.empty((1 << 16, 1 << 15), dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="\\(R, C\\) bf16"):
+        pr._transpose(torch.empty((12, 4000), device="meta"))
+    with pytest.raises(ValueError, match="\\(R, C\\) bf16"):
+        pr._transpose(torch.empty((2, 12, 4000), dtype=torch.bfloat16, device="meta"))
+    with pytest.raises(ValueError, match="R=0"):
+        pr.transpose_plan(0, 5)
+    with pytest.raises(ValueError, match="probe_c2: input 0"):
+        pr.probe_c2(torch.empty((128, 4001), dtype=torch.bfloat16, device="meta"))
+    assert pr.probe_c.launches == before
