@@ -155,7 +155,29 @@ Phases, each fatal on failure:
      its checkpoint with --int8_spade (kernel 2 and its pre-pass 150 times
      each a batch), the test entry without a checkpoint (refused), and the
      documented GMM and TOM commands with --fast_dev_run (attention 6 times
-     a TOM forward), each with every launch count at 0 before it.
+     a TOM forward), each with every launch count at 0 before it;
+ 11. (a) the QA loop, shineon_tpu_torch.tools.e2e_quality.run_e2e, at the
+     production options (256x192, 5-frame clips, flow warp, widths
+     2^6..2^10, 3 middle blocks, remat, bf16, the exact GAN step) on a
+     synthetic VVT tree of 2 videos x QA_FRAMES frames: the export at init,
+     Trainer.fit through train.run (QA_FRAMES / 4 steps), the trained
+     export and its --int8_spade export, all scored by
+     shineon_tpu_torch.calculate_metrics in a subprocess; every launch count
+     at 0 before each stage and checked after it (kernel 1 150 times an fp
+     export batch and once for the fit's step-0 images; kernel 2, its
+     pre-pass, kernel 4 and its quantize pass 150, 150, 110 and 110 times an
+     int8 export batch); SSIM and PSNR at init, trained and int8, the int8
+     export within the JAX test's envelope of the fp export
+     (tests/test_e2e_quality.py:61-62), the share of constant frames, each
+     stage's wall time and the fit's steps; (b) a reference-layout SAMS
+     generator checkpoint (Lightning names, seeded) at full width through
+     tools.convert_lightning_checkpoint and the test entry's export (kernel
+     1 150 times), its size and times; at phase 4's small widths the
+     converted generator's f32 clip on the card against the CPU plain path;
+     (c) the production SAMS exact step through parallel/ddp.py in an NCCL
+     group of one rank against the bare step from the same state (bit for
+     bit where two bare steps agree bit for bit, deterministic algorithms
+     on), no kernel launched, and 3 timed steps with and without the group.
 
 Phase 3d also holds the attention kernel at TOM's shapes: one frame and
 five frames at TOM's batch of 8, each timed, and the small step's shapes
@@ -2808,6 +2830,9 @@ def run_cli(torch, counters, clip_sites, card):
     import shutil
     import tempfile
 
+    import numpy as np
+    from PIL import Image
+
     from shineon_tpu_torch import train as cli
     from shineon_tpu_torch.models.sams_model import SamsModel
     from shineon_tpu_torch.options import TrainOptions, sams_options
@@ -2973,6 +2998,351 @@ def run_cli(torch, counters, clip_sites, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 11: the QA loop at full width (tools/e2e_quality.run_e2e at the
+# production options: 256x192, 5-frame clips, flow warp, remat, bf16, the
+# exact GAN step, lr 2e-4 as the JAX package's production quality curve),
+# on a synthetic VVT tree of 2 videos x QA_FRAMES frames: vid0 trains and is
+# exported (QA_FRAMES / 4 batches), vid1 is the validation split
+QA_FRAMES = 12
+QA_ENVELOPE = (0.02, 1.0)  # |dSSIM|, |dPSNR| of int8 against fp: tests/test_e2e_quality.py:61-62
+# 11b: the reference layout's widths at full width and at phase 4's small ones
+LIGHTNING_SMALL = dict(fine_height=128, fine_width=96, n_frames_total=3, n_frames_now=3,
+                       ngf_pow_outer=6, ngf_pow_inner=8, num_middle=1, precision=32)
+
+
+def constant_share(folder):
+    """The share of an export's frames that hold one value (an untrained
+    clip that blew up and was clamped): PSNR reads -inf there."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    frames = [os.path.join(d, f) for d, _, files in os.walk(folder) for f in files]
+    flat = [np.asarray(Image.open(f)) for f in frames]
+    return sum(int(a.max() == a.min()) for a in flat) / max(len(flat), 1), len(flat)
+
+
+def run_qa(torch, counters, n_frames, card):
+    """Phase 11a: run_e2e at the production options with an int8 export of
+    the trained state; every launch count at 0 before each stage and read
+    after it. Returns the readings."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from shineon_tpu_torch.models.sams_model import SamsModel
+    from shineon_tpu_torch.tools.e2e_quality import run_e2e
+
+    batches = QA_FRAMES // BATCH
+    clip_sites = sum(site[4] for site in SITES) * n_frames
+    n_convs = sum(shape[4] for shape in CONVS) * n_frames
+    fp = {n: 0 for n in counters}
+    fp["fused_multispade"] = batches * clip_sites
+    int8 = {n: 0 for n in counters}
+    int8.update({"fused_multispade_int8": batches * clip_sites,
+                 "multispade_hidden_absmax": batches * clip_sites,
+                 "int8_conv3x3": batches * n_convs, "int8_quantize": batches * n_convs})
+    # the fit's one eval-mode clip: the board's images at step 0
+    fit = {**{n: 0 for n in counters}, "fused_multispade": clip_sites}
+    want = {"export_init": fp, "fit": fit, "export_trained": fp, "export_int8": int8}
+    launches = {}
+
+    @contextlib.contextmanager
+    def observe(stage):
+        zero_counts(counters)
+        yield
+        launches[stage] = launch_counts(counters)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, restore = step_watch(torch, SamsModel)
+    tmp = tempfile.mkdtemp(prefix="shineon_qa_")
+    t0 = time.perf_counter()
+    try:
+        r = run_e2e(model_name="sams", fine_height=FRAME[0], fine_width=FRAME[1],
+                    n_frames=n_frames, frames_per_video=QA_FRAMES, batch_size=BATCH,
+                    epochs=1, lr=2e-4, precision=16, workdir=tmp, device=DEVICE,
+                    arch_overrides={"remat": True, "decay_epochs": 0},
+                    extra_exports={"int8": {"int8_spade": True}}, observe=observe)
+        wall = time.perf_counter() - t0
+        constant = {name: constant_share(folder) for name, folder in r["exports"].items()}
+    finally:
+        restore()
+        shutil.rmtree(tmp, ignore_errors=True)
+    d_ssim = abs(r["ssim_int8"] - r["ssim_trained"])
+    # two exports of one constant value each read -inf: they agree
+    d_psnr = 0.0 if r["psnr_int8"] == r["psnr_trained"] else abs(r["psnr_int8"]
+                                                                 - r["psnr_trained"])
+    ok = (launches == want and r["frames_scored"] == QA_FRAMES and r["train_steps"] == batches
+          and all(n == QA_FRAMES for _, n in constant.values())
+          and d_ssim < QA_ENVELOPE[0] and d_psnr < QA_ENVELOPE[1])
+    seconds = r["seconds"]
+    log(f"11a QA loop (tools.e2e_quality.run_e2e, production options, {QA_FRAMES} test "
+        f"frames, {batches} fit steps): {wall:.1f} s wall; stages "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + f"; fit steps {[round(v, 1) for v in rec['ms']]} ms (synchronized) [{card}]")
+    log(f"11a SSIM init {r['ssim_init']} trained {r['ssim_trained']} int8 {r['ssim_int8']}; "
+        f"PSNR init {r['psnr_init']} trained {r['psnr_trained']} int8 {r['psnr_int8']}; "
+        f"int8 against fp |dSSIM| {d_ssim:.4f} |dPSNR| {d_psnr:.2f} (limits {QA_ENVELOPE}); "
+        f"constant frames " + ", ".join(f"{k} {c:.3f} of {n}" for k, (c, n) in constant.items())
+        + f"; {r['frames_scored']} frames scored {'ok' if ok else 'FAIL'}")
+    log(f"11a launches by stage {launches} (expected {want}) "
+        f"{'ok' if launches == want else 'FAIL'}")
+    if not ok:
+        raise SystemExit("11a: the QA loop failed its checks")
+    return dict(result=r, launches=launches, wall_s=wall, step_ms=rec["ms"],
+                constant=constant)
+
+
+def reference_generator_state_dict(torch, gen, seed):
+    """The reference's SamsGenerator ``state_dict`` (its Lightning
+    checkpoint's names, sams_generator.py:133-212 of the reference: encode
+    conv and [resblock, Upsample] pairs, middle resblocks, [Upsample,
+    resblock] pairs and the out conv; each SPADE's param_free_norm,
+    mlp_shared.0, mlp_gamma, mlp_beta and MultiSpade's spade_layers.<label>;
+    spectral convs as weight_orig, weight_u, weight_v) with the shapes of
+    the port generator ``gen``, drawn from ``seed``: kernels N(0, 0.5 /
+    fan_in), biases N(0, 0.01), running means N(0, 0.1), variances in [0.5,
+    1.5), u and v unit vectors with v along W^T u."""
+    g = torch.Generator().manual_seed(seed)
+    blocks = {"encode_conv_in": "encode_layers.0",
+              "decode_conv_out": f"decode_layers.{2 * len(gen.decoder)}"}
+    blocks.update({n: f"encode_layers.{2 * i + 1}" for i, n in enumerate(gen.encoder)})
+    blocks.update({n: f"middle_layers.{i}" for i, n in enumerate(gen.middle)})
+    blocks.update({n: f"decode_layers.{2 * i + 1}" for i, n in enumerate(gen.decoder)})
+    out = {}
+    state = gen.state_dict()
+    for key, value in state.items():
+        block, rest = key.split(".", 1)
+        parts = []
+        for part in rest.split("."):
+            if part.startswith("spade_") and part[6:] not in ("0", "1"):
+                parts += ["spade_layers", part[6:]]
+            elif part == "norm":
+                parts.append("param_free_norm")
+            elif part in ("mlp_shared", "mlp_final"):
+                parts += [part, "0"]
+            else:
+                parts.append(part)
+        name = f"generator.{blocks[block]}.{'.'.join(parts)}"
+        leaf = parts[-1]
+        shape = value.shape
+        if leaf == "sigma":
+            continue
+        if leaf == "u":
+            w = out[name[:-1] + "weight_orig"]
+            u = torch.randn(shape[1], generator=g)
+            u /= u.norm()
+            v = w.reshape(w.shape[0], -1).t() @ u
+            out[name[:-1] + "weight_u"], out[name[:-1] + "weight_v"] = u, v / v.norm()
+        elif leaf == "weight" and value.dim() == 4:
+            w = torch.randn(shape, generator=g) * (0.5 / shape[1:].numel() ** 0.5)
+            spectral = key[:-len("weight")] + "u" in state
+            out[name + ("_orig" if spectral else "")] = w
+        elif leaf == "running_mean":
+            out[name] = torch.randn(shape, generator=g) * 0.1
+        elif leaf == "running_var":
+            out[name] = torch.rand(shape, generator=g) + 0.5
+        elif leaf == "gamma":
+            out[name] = torch.full(shape, 0.5)
+        else:
+            out[name] = torch.randn(shape, generator=g) * 0.01
+    return out
+
+
+def run_lightning(torch, counters, clip_sites, card):
+    """Phase 11b: a reference-layout SAMS generator checkpoint at full width
+    (seeded) through tools.convert_lightning_checkpoint, then
+    ``python -m shineon_tpu_torch.test --checkpoint`` in process on a
+    synthetic VVT test video (one batch: the chain kernel 150 times); at
+    phase 4's small widths the converted generator's f32 clip on the card
+    against the CPU plain path. Returns the readings."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from shineon_tpu_torch import train as cli
+    from shineon_tpu_torch.models.sams_model import SamsModel
+    from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator
+    from shineon_tpu_torch.options import sams_options
+    from shineon_tpu_torch.serving import build_inference, make_one_clip
+    from shineon_tpu_torch.tools import convert_lightning_checkpoint as lightning
+    from shineon_tpu_torch.tools import synthetic_data
+
+    def generator_of(opt):
+        return SamsGenerator(norm_G=opt.norm_G, ngf_pow_outer=opt.ngf_pow_outer,
+                             ngf_pow_inner=opt.ngf_pow_inner, num_middle=opt.num_middle,
+                             n_frames_total=opt.n_frames_total, flow_warp=opt.flow_warp,
+                             encoder_input=opt.encoder_input,
+                             inputs=tuple(list(opt.person_inputs) + list(opt.cloth_inputs)))
+
+    tmp = tempfile.mkdtemp(prefix="shineon_lightning_")
+    out = {}
+    try:
+        opt = sams_options(is_train=False)
+        reference = reference_generator_state_dict(torch, generator_of(opt), 1100)
+        ckpt = os.path.join(tmp, "sams.ckpt")
+        torch.save({"state_dict": reference, "hyper_parameters": {
+            "ngf_base": 2, "ngf_pow_outer": 6, "ngf_pow_inner": 10, "ngf_pow_step": 1}}, ckpt)
+        target = os.path.join(tmp, "converted")
+        t0 = time.perf_counter()
+        lightning.main(["--model", "sams", "--ckpt", ckpt, "--out", target, "--flow_warp",
+                        "--n_frames_total", "5"])
+        convert_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(target, "state.pt"))
+        vvt, res = os.path.join(tmp, "vvt"), os.path.join(tmp, "res")
+        synthetic_data.make_vvt_tree(vvt, n_videos=1, frames=BATCH, datamode="test", seed=11)
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        state = cli.main(False, [
+            "--model", "sams", "--dataset", "vvt", "--flow_warp", "--n_frames_total", "5",
+            "--batch_size", str(BATCH), "--vvt_dataroot", vvt, "--checkpoint", target,
+            "--result_dir", res, "--name", "lightning"])
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        launches = launch_counts(counters)
+        want = {**{n: 0 for n in counters}, "fused_multispade": clip_sites}
+        pngs = glob.glob(os.path.join(res, "**", "*.png"), recursive=True)
+        frames = [np.asarray(Image.open(p)) for p in pngs]
+        moved = sum(int(f.max() != f.min()) for f in frames)
+        ok = launches == want and len(pngs) == BATCH and sorted(state.nets) == ["generator"]
+        log(f"11b Lightning checkpoint at full width: converted in {convert_s:.2f} s, state.pt "
+            f"{size / 2 ** 30:.3f} GiB; python -m shineon_tpu_torch.test --checkpoint: "
+            f"{test_s:.1f} s wall (load and export), {len(pngs)} PNGs ({moved} not constant), "
+            f"launches {launches} (expected {want}) [{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("11b: the converted Lightning checkpoint failed the test entry")
+        del state
+        out.update(convert_s=convert_s, size_gib=size / 2 ** 30, test_s=test_s,
+                   launches=launches["fused_multispade"])
+
+        # small widths: the converted generator's clip, card against CPU
+        small_opt = sams_options(is_train=False, **LIGHTNING_SMALL)
+        reference = reference_generator_state_dict(torch, generator_of(small_opt), 1101)
+        _, converted = lightning.to_state_dict("sams", reference, dict(
+            ngf_base=2, ngf_pow_outer=6, ngf_pow_inner=8, ngf_pow_step=1))
+        _, warp, sams, raw, _ = build_inference(2, device=DEVICE, seed=7, **LIGHTNING_SMALL)
+        sams.generator.load_state_dict(converted, strict=True)
+        zero_counts(counters)
+        clip = make_one_clip(warp, sams)(raw).cpu()
+        small_launches = launch_counts(counters)["fused_multispade"]
+        cpu_sams = SamsModel(sams.opt, "cpu")
+        cpu_sams.generator.load_state_dict(converted, strict=True)
+        from shineon_tpu_torch.models.warp_model import WarpModel
+
+        cpu_warp = WarpModel(warp.opt, "cpu")
+        cpu_warp.gmm.load_state_dict(warp.gmm.state_dict())
+        ref = make_one_clip(cpu_warp, cpu_sams)({k: v.cpu() for k, v in raw.items()})
+        err = (clip - ref).abs().max().item() / ref.abs().max().item()
+        ok = small_launches > 0 and bool(torch.isfinite(clip).all()) and err <= 1e-3
+        log(f"11b converted small generator (2, 3, 128, 96) f32 clip: card vs CPU plain max rel "
+            f"err {err:.3g} (limit 1e-3), {small_launches} chain launches "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("11b: the converted generator's clip disagrees with the CPU")
+        out.update(small_err=err)
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_ddp(torch, counters, card):
+    """Phase 11c: the production SAMS exact step (bench.build_train, batch
+    4, remat, bf16) through parallel/ddp.py in an NCCL group of one rank
+    against the bare step from the same state: the same losses and state
+    bit for bit where two bare steps agree bit for bit (deterministic
+    algorithms on), else within twice their spread; every launch count 0
+    in both. Then each step's time, 3 chained steps with and without the
+    group. Returns the readings."""
+    import socket
+
+    from shineon_tpu_torch.bench import build_train
+    from shineon_tpu_torch.parallel import ddp
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model, state, step, raw, _ = build_train(BATCH)
+        start = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in state_tensors(state).items()}
+
+        def restart():
+            with torch.no_grad():
+                for k, v in state_tensors(state).items():
+                    if isinstance(v, torch.Tensor):
+                        v.copy_(start[k])
+            state.step = start["step"]
+            for name, net in state.nets.items():
+                net.optimizer.count = start[f"{name}.count"]
+
+        def one():
+            restart()
+            zero_counts(counters)
+            metrics = {k: float(v) for k, v in step(state, raw).items()}
+            torch.cuda.synchronize()
+            return metrics, {k: v.clone() if isinstance(v, torch.Tensor) else v
+                             for k, v in state_tensors(state).items()}, launch_counts(counters)
+
+        def spread(a, b):
+            return max((x - b[k]).abs().max().item() / max(b[k].abs().max().item(), 1e-30)
+                       for k, x in a.items() if isinstance(x, torch.Tensor)
+                       and x.is_floating_point())
+
+        bare1, bare2 = one(), one()
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        ddp.setup(torch.device(DEVICE), f"tcp://localhost:{port}", 0, 1)
+        backend = torch.distributed.get_backend()
+        wrapped = one()
+        exact = bare1[0] == bare2[0] and not differing(torch, bare1[1], bare2[1])
+        same = wrapped[0] == bare1[0] and not differing(torch, wrapped[1], bare1[1])
+        base = spread(bare2[1], bare1[1])
+        gap = spread(wrapped[1], bare1[1])
+        zero = {n: 0 for n in counters}
+        ok = (same if exact else gap <= 2 * base + 1e-6) and all(
+            r[2] == zero for r in (bare1, bare2, wrapped)) and backend == (
+            "nccl" if DEVICE == "cuda" else "gloo")
+
+        def timed(n=3):
+            restart()
+            ms = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                float(step(state, raw)["loss"])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return ms
+
+        ddp_ms = timed()
+        ddp.teardown()
+        bare_ms = timed()
+        log(f"11c DDP in a {backend} group of one rank: the exact step against the bare step "
+            f"{'bit for bit' if same else f'max rel diff {gap:.3g}'} (two bare steps "
+            f"{'bit for bit' if exact else f'apart by {base:.3g}'}); launches "
+            f"{wrapped[2]}; step with the group {[round(v, 1) for v in ddp_ms]} ms, bare "
+            f"{[round(v, 1) for v in bare_ms]} ms, median ratio "
+            f"{statistics.median(ddp_ms) / statistics.median(bare_ms):.3f} [{card}] "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("11c: the DDP step differs from the bare step")
+        return dict(exact=exact, same=same, ddp_ms=ddp_ms, bare_ms=bare_ms)
+    finally:
+        ddp.teardown()
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def main() -> int:
     import torch
 
@@ -3125,6 +3495,17 @@ def main() -> int:
     cli = run_cli(torch, q_counters, n_sites * n_frames, card)
     log(f"phase 10b (the command line): {time.perf_counter() - t0:.1f} s")
 
+    # phase 11: the QA loop, a converted Lightning checkpoint, DDP
+    t0 = time.perf_counter()
+    qa = run_qa(torch, q_counters, n_frames, card)
+    log(f"phase 11a (the QA loop): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lightning = run_lightning(torch, q_counters, n_sites * n_frames, card)
+    log(f"phase 11b (a converted Lightning checkpoint): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_ddp(torch, q_counters, card)
+    log(f"phase 11c (DDP at world size 1): {time.perf_counter() - t0:.1f} s")
+
     # the int8 models' own count of int8 convs, against the list above
     log(f"int8 convs in the built generators: {built}, with attention {a_built} "
         f"(expected {n_convs} a frame)")
@@ -3213,6 +3594,11 @@ def main() -> int:
         "activations": activations,
         "activation_site": site(act_key),
         "cli_train_launches": cli["train"]["launches"],
+        # phase 11: the QA loop's init and trained exports and its fit's
+        # images, and the converted Lightning checkpoint's test entry
+        "qa_loop_launches": {stage: qa["launches"][stage]["fused_multispade"]
+                             for stage in ("export_init", "fit", "export_trained")},
+        "lightning_test_launches": lightning["launches"],
     }, {
         "name": "fused_multispade_int8",
         "route": "cuda",
@@ -3238,6 +3624,10 @@ def main() -> int:
         # phase 10b: the test entry with --int8_spade (swish)
         "cli_test_launches": cli["test"]["launches"],
         "cli_test_prepass_launches": cli["test"]["prepass_launches"],
+        # phase 11a: the QA loop's int8 export
+        "qa_int8_export_launches": qa["launches"]["export_int8"]["fused_multispade_int8"],
+        "qa_int8_export_prepass_launches": qa["launches"]["export_int8"][
+            "multispade_hidden_absmax"],
     }, {
         "name": "int8_conv3x3",
         "route": "cuda",
@@ -3262,6 +3652,7 @@ def main() -> int:
                  "dtype": "bfloat16"},
         "clip_ms": med["int8"],
         "clip_kernel_ms": per_clip(c_timings)[0],
+        "qa_int8_export_launches": qa["launches"]["export_int8"]["int8_conv3x3"],
     }, {
         "name": "int8_quantize",
         "route": "cuda",
@@ -3278,6 +3669,7 @@ def main() -> int:
         "library_ms": None,
         "site": {"B": BATCH, "H": c_top[0], "W": c_top[1], "Cin": c_top[2], "dtype": "bfloat16"},
         "clip_kernel_ms": qz_clip,
+        "qa_int8_export_launches": qa["launches"]["export_int8"]["int8_quantize"],
     }, {
         "name": "sagan_attention",
         "route": "cuda",

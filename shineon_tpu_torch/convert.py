@@ -138,3 +138,84 @@ def flownet2_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         name = ".".join([FLOWNET2_NETS[net], layer] + (["0"] if sequential else []) + [_LEAF[leaf]])
         out[name] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
     return out
+
+
+# ------------------------------------------------------ a JAX train state
+
+# each train-state network's renames (the JAX and the port name them alike)
+TRAIN_STATE_RENAMES = {"gmm": GMM_RENAMES, "unet": UNET_RENAMES, "generator": GENERATOR_RENAMES,
+                       "d_multi": DISCRIMINATOR_RENAMES, "d_temporal": DISCRIMINATOR_RENAMES}
+
+
+def _unflatten(flat: Mapping[str, np.ndarray], prefix: str) -> Dict:
+    """The entries of ``flat`` under ``prefix`` as a nested dict of their
+    remaining '/'-separated path."""
+    tree: Dict = {}
+    for key, value in flat.items():
+        if key.startswith(prefix):
+            *scopes, leaf = key[len(prefix):].split("/")
+            node = tree
+            for scope in scopes:
+                node = node.setdefault(scope, {})
+            node[leaf] = value
+    return tree
+
+
+def _moments(flat, prefix: str, module: torch.nn.Module, renames):
+    """An optax moment tree (``prefix`` + a parameter's flax path) as tensors
+    in ``module.parameters()``'s order."""
+    by_name = flax_to_state_dict({"params": _unflatten(flat, prefix)}, renames)
+    names = [name for name, _ in module.named_parameters()]
+    if sorted(by_name) != sorted(names):
+        raise ValueError(f"{prefix} does not hold one entry a parameter of the module")
+    return [by_name[name] for name in names]
+
+
+@torch.no_grad()
+def load_jax_train_state(flat: Mapping[str, np.ndarray], template):
+    """Load the JAX package's ``TrainState``, flattened to '/'-joined paths
+    (``flax.traverse_util.flatten_dict(flax.serialization.to_state_dict(state),
+    sep="/")`` of an orbax restore, e.g. an ``.npz``), into ``template`` (a
+    port :class:`~shineon_tpu_torch.training.state.TrainState` from the
+    model's ``init_state``, on any device), in place, and return it. For
+    every network of the template it maps:
+
+    * ``nets/<net>/params`` and ``nets/<net>/stats/batch_stats`` (running
+      statistics, spectral ``u`` and ``sigma``) onto the module's
+      ``state_dict`` (:func:`flax_to_state_dict`, strictly);
+    * optax's Adam state, ``opt_state/0/{count, mu, nu}`` (under
+      ``opt_state/inner_opt_state/`` with ``--accumulated_batches`` > 1),
+      onto the optimizer's count and moments, and optax.MultiSteps'
+      ``acc_grads`` and ``mini_step`` onto :class:`MultiSteps`' running mean
+      and mini-step count;
+    * ``step`` onto the state's step.
+
+    The state must hold the template's networks and no other, and an
+    accumulating optimizer exactly where the template has one."""
+    nets = sorted({key.split("/")[1] for key in flat if key.startswith("nets/")})
+    if nets != sorted(template.nets):
+        raise ValueError(f"the JAX state holds {nets}, the template {sorted(template.nets)}")
+    for name, net in template.nets.items():
+        renames, root = TRAIN_STATE_RENAMES[name], f"nets/{name}/"
+        variables = {"params": _unflatten(flat, root + "params/"),
+                     "batch_stats": _unflatten(flat, root + "stats/batch_stats/")}
+        net.module.load_state_dict(flax_to_state_dict(variables, renames), strict=True)
+        accumulating = any(k.startswith(root + "opt_state/acc_grads/") for k in flat)
+        if accumulating != hasattr(net.optimizer, "acc"):
+            raise ValueError(f"{name}: the JAX optimizer {'does' if accumulating else 'does not'} "
+                             f"accumulate gradients; the template's optimizer "
+                             f"{'does not' if accumulating else 'does'}")
+        adam_root = root + ("opt_state/inner_opt_state/0/" if accumulating else "opt_state/0/")
+        adam = net.optimizer.inner if accumulating else net.optimizer
+        for slot in ("mu", "nu"):
+            for mine, theirs in zip(getattr(adam, slot),
+                                    _moments(flat, adam_root + slot + "/", net.module, renames)):
+                mine.copy_(theirs)
+        adam.count = int(flat[adam_root + "count"])
+        if accumulating:
+            acc = _moments(flat, root + "opt_state/acc_grads/", net.module, renames)
+            for mine, theirs in zip(net.optimizer.acc, acc):
+                mine.copy_(theirs)
+            net.optimizer.mini_step = int(flat[root + "opt_state/mini_step"])
+    template.step = int(flat["step"])
+    return template

@@ -35,6 +35,7 @@ from shineon_tpu_torch.datasets.channels import channels_for
 from shineon_tpu_torch.datasets.loader import DataLoader
 from shineon_tpu_torch.datasets.n_frames_interface import fold_frames_into_channels
 from shineon_tpu_torch.datasets.preprocess import PreprocessConfig, preprocess_batch
+from shineon_tpu_torch.parallel import ddp
 from shineon_tpu_torch.training.optimizers import make_optimizer
 from shineon_tpu_torch.training.state import NetState
 from shineon_tpu_torch.utils import str2num
@@ -153,14 +154,18 @@ class BaseModel:
                         f"({len(self.val_dataset)} samples)")
 
     def train_dataloader(self) -> DataLoader:
+        """``batch_size`` samples a rank, strided by rank under data
+        parallelism (the JAX loader's process striding)."""
         return DataLoader(self.train_dataset, batch_size=self.opt.batch_size,
                           shuffle=not self.opt.no_shuffle, workers=self.opt.workers,
-                          limit_batches=str2num(self.opt.limit_train_batches))
+                          limit_batches=str2num(self.opt.limit_train_batches),
+                          process_index=ddp.rank(), process_count=ddp.world_size())
 
     def val_dataloader(self) -> DataLoader:
         return DataLoader(self.val_dataset, batch_size=self.opt.batch_size,
                           shuffle=not self.opt.no_shuffle, workers=self.opt.workers,
-                          limit_batches=str2num(self.opt.limit_val_batches))
+                          limit_batches=str2num(self.opt.limit_val_batches),
+                          process_index=ddp.rank(), process_count=ddp.world_size())
 
     def test_dataloader(self) -> DataLoader:
         """In order, the ragged last batch kept."""
@@ -257,6 +262,9 @@ def last_frame_names(names: List) -> List:
 
 def gradients(loss: torch.Tensor, params):
     """d loss / d params, zeros for a parameter the loss does not reach;
-    no ``.grad`` is written."""
+    no ``.grad`` is written. Under data parallelism, their mean over the
+    ranks (:func:`shineon_tpu_torch.parallel.ddp.average_gradients`): each
+    optimizer's update takes the global batch's gradient."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+    return ddp.average_gradients(
+        [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])

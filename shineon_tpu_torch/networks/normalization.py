@@ -11,6 +11,7 @@ from torch import nn
 
 from shineon_tpu_torch.networks.layers import EvalCache, compute_dtype, conv2d_nhwc
 from shineon_tpu_torch.ops.int8_conv import conv3x3_int8, quantize_weight
+from shineon_tpu_torch.parallel import ddp
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5, return_affine: bool = False,
@@ -31,8 +32,10 @@ class SyncBatchNorm(nn.Module):
     """Batch norm over every axis but the last, with flax BatchNorm's
     numerics: eps 1e-5, biased variance E[x^2] - E[x]^2, running update
     ``ra = 0.9 ra + 0.1 batch`` (momentum 0.9), and the affine-folded output
-    ``(x * a + b)`` cast to the output dtype. On one card the batch is the
-    global batch, so the sync is trivially exact."""
+    ``(x * a + b)`` cast to the output dtype. Under data parallelism the
+    training statistics are the global batch's
+    (:func:`shineon_tpu_torch.parallel.ddp.global_means`); on one process
+    the batch is the global batch."""
 
     def __init__(self, num_features: int, affine: bool = True, momentum: float = 0.9,
                  eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
@@ -53,8 +56,11 @@ class SyncBatchNorm(nn.Module):
         else:
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = (xf * xf).mean(dim=axes) - mean * mean
+            if ddp.world_size() > 1:  # the global batch's, across the ranks
+                mean, mean_sq = ddp.global_means(xf, axes)
+            else:
+                mean, mean_sq = xf.mean(dim=axes), (xf * xf).mean(dim=axes)
+            var = mean_sq - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

@@ -4,7 +4,7 @@ MultiSPADE chain."""
 import torch
 
 from shineon_tpu_torch.ops.correlation import global_correlation  # noqa: F401
-from shineon_tpu_torch.ops.grid_sample import grid_sample, resample2d  # noqa: F401
+from shineon_tpu_torch.ops.grid_sample import affine_grid, grid_sample, resample2d  # noqa: F401
 from shineon_tpu_torch.ops.tps import TpsGridGen  # noqa: F401
 
 

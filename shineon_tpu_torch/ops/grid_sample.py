@@ -118,3 +118,19 @@ def resample2d(image: torch.Tensor, flow: torch.Tensor,
     ny = 2.0 * gy / (H - 1) - 1.0
     grid = torch.stack([nx, ny], dim=-1)
     return grid_sample(image, grid, padding_mode=padding_mode, align_corners=True)
+
+
+def affine_grid(theta: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Affine sampling grid from (B, 2, 3) matrices: (B, height, width, 2),
+    normalized, on half-pixel centres (``F.affine_grid`` with
+    align_corners=False; the reference's AffineGridGen, cpvton/warp.py:102-113).
+    Counterpart of the JAX package's ``affine_grid``: the same base
+    coordinates and one f32 product."""
+    B = theta.shape[0]
+    kw = dict(dtype=torch.float32, device=theta.device)
+    xs = (torch.arange(width, **kw) * 2 + 1) / width - 1.0
+    ys = (torch.arange(height, **kw) * 2 + 1) / height - 1.0
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    base = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1).reshape(-1, 3)  # (H*W, 3)
+    grid = torch.einsum("bij,pj->bpi", theta.float(), base)
+    return grid.reshape(B, height, width, 2)

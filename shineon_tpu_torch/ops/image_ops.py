@@ -48,6 +48,12 @@ def normalize_rgb(img_u8: torch.Tensor) -> torch.Tensor:
     return img_u8.to(torch.float32) / 127.5 - 1.0
 
 
+def denormalize_to_uint8(img: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] float -> uint8, rounded half to even (the export's save path,
+    visualization.py:74-76 of the reference)."""
+    return torch.round(torch.clamp((img.float() + 1.0) * 0.5 * 255.0, 0, 255)).to(torch.uint8)
+
+
 def cloth_mask_from_image(
     cloth_u8: torch.Tensor, threshold: int = 240, reference_quirk: bool = False
 ) -> torch.Tensor:

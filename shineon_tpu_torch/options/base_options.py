@@ -17,7 +17,10 @@ The hardware options:
   --gpu_ids            comma list of CUDA device indices; the port runs on
                        one card, the first of them. ``-1`` (no index left)
                        runs on the CPU.
-  --distributed_backend  kept for parity with the reference.
+  --distributed_backend  "ddp" (the default): under torchrun, data
+                       parallelism across the launched processes
+                       (``parallel/ddp.py``); a process not started by a
+                       launcher trains alone.
   --precision {16,32}  16 -> bfloat16 compute (parameters, losses, sampling
                        grids and norm statistics stay f32), 32 -> float32.
 
@@ -42,8 +45,8 @@ class BaseOptions:
         # compute
         parser.add_argument(
             "--distributed_backend", default="ddp",
-            help="how to do distributed multi-device training (kept for parity: the port "
-            "runs on one device)",
+            help="how to do distributed multi-device training: under torchrun, 'ddp' trains "
+            "data-parallel across the launched processes, one device each",
         )
         parser.add_argument(
             "--gpu_ids", default="0",

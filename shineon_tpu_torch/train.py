@@ -20,6 +20,7 @@ import torch
 
 from shineon_tpu_torch.models import find_model_using_name
 from shineon_tpu_torch.options import TestOptions, TrainOptions
+from shineon_tpu_torch.parallel import ddp
 from shineon_tpu_torch.training.checkpointing import load_checkpoint
 from shineon_tpu_torch.training.loop import Trainer
 from shineon_tpu_torch.utils.log import get_logger
@@ -44,7 +45,13 @@ def main(train: bool = True, argv=None):
     """Parse ``argv`` (``sys.argv[1:]`` when None) and train, or test; returns
     the train state."""
     options_obj = TrainOptions() if train else TestOptions()
-    opt = options_obj.parse(argv)
+    return run(options_obj.parse(argv), train)
+
+
+def run(opt, train: bool = True):
+    """Train, or test, from a parsed namespace ``opt``; returns the train
+    state. Under ``torchrun`` with ``--distributed_backend ddp`` each rank
+    joins the process group first (:mod:`shineon_tpu_torch.parallel.ddp`)."""
     logger.setLevel(getattr(logging, opt.loglevel.upper()))
 
     if not train and not opt.checkpoint and not opt.allow_random_init:
@@ -55,6 +62,16 @@ def main(train: bool = True, argv=None):
         )
 
     device = device_of(opt)
+    if train and ddp.launched(opt):
+        device = ddp.setup(device)
+        try:
+            return _run_on(opt, train, device)
+        finally:
+            ddp.teardown()
+    return _run_on(opt, train, device)
+
+
+def _run_on(opt, train: bool, device: torch.device):
     model_class = find_model_using_name(opt.model)
     model = model_class(opt, device)
     state = None

@@ -27,7 +27,11 @@ host before the next step runs.
 
 A resumed ``fit`` restarts at epoch 0 with ``global_step`` from the state's
 step, as the JAX package's does (loop.py:98-99,124). Runs on the card
-unless the trainer is made with ``device="cpu"``.
+unless the trainer is made with ``device="cpu"``. Under data parallelism
+(:mod:`shineon_tpu_torch.parallel.ddp`) every rank runs this loop on its
+share of the batches, starts from rank 0's state, and averages its
+validation means with the others'; rank 0 alone writes the board and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ import numpy as np
 import torch
 
 from shineon_tpu_torch.datasets.loader import DataLoader
+from shineon_tpu_torch.parallel import ddp
 from shineon_tpu_torch.serving import resolve_device
 from shineon_tpu_torch.training.checkpointing import CheckpointKeeper
 from shineon_tpu_torch.training.state import TrainState
@@ -62,7 +67,10 @@ class Trainer:
         os.makedirs(self.experiment_dir, exist_ok=True)
         from torch.utils.tensorboard import SummaryWriter
 
-        self.board = SummaryWriter(log_dir=osp.join(self.experiment_dir, "tb"))
+        # under data parallelism rank 0 alone writes the board and the checkpoints
+        self.chief = ddp.rank() == 0
+        self.board = (SummaryWriter(log_dir=osp.join(self.experiment_dir, "tb")) if self.chief
+                      else _Silent())
         self.keeper: Optional[CheckpointKeeper] = None
         self.global_step = 0
         self._step_times: List[float] = []
@@ -90,12 +98,13 @@ class Trainer:
             # rebuilds its model's optimizers (init_state) for it
             for net in state.nets.values():
                 net.optimizer.schedule.steps_per_epoch = steps_per_epoch
+        ddp.broadcast_state(state)
         train_step = model.make_train_step()
         val_step = model.make_val_step()
         visual_fn = model.make_visual_step()
 
-        self.keeper = CheckpointKeeper(osp.join(self.experiment_dir, "checkpoints"),
-                                       save_count=opt.save_count)
+        self.keeper = (CheckpointKeeper(osp.join(self.experiment_dir, "checkpoints"),
+                                        save_count=opt.save_count) if self.chief else _Silent())
         self.keeper.write_hparams(opt)
         self.board.add_text("hparams", _format_hparams(opt))
 
@@ -117,7 +126,7 @@ class Trainer:
                     if trace_dir and self.global_step == TRACE_STEPS[0]:
                         profiler = _start_trace()
                     metrics = self._run_step(train_step, state, device_batch)
-                    if self.global_step % opt.display_count == 0:
+                    if self.global_step % opt.display_count == 0 and self.chief:
                         self._log_scalars(metrics, prefix="")
                         model.visualize_from(visual_fn, state, device_batch, batch, self.board,
                                              self.global_step, tag="train")
@@ -174,11 +183,12 @@ class Trainer:
             for k, v in val_step(state, device_batch).items():
                 losses[k].append(float(v))
             last = (device_batch, batch)
-        means = {k: float(np.mean(v)) for k, v in losses.items()}
+        # each rank's means, averaged over the ranks (their batches are as many)
+        means = ddp.mean_scalars({k: float(np.mean(v)) for k, v in losses.items()})
         self._log_scalars(means, prefix="val_")
         checkpoint_on = means.get("checkpoint_on", means.get("loss", 0.0))
         self.keeper.save_validation(self.global_step, state, checkpoint_on)
-        if last is not None:  # the last val batch's images (base_model.py:155-163)
+        if last is not None and self.chief:  # the last val batch's images (base_model.py:155-163)
             model.visualize_from(visual_fn, state, last[0], last[1], self.board,
                                  self.global_step, tag="validation")
 
@@ -226,6 +236,8 @@ class Trainer:
             return None
 
     def _save_interrupt(self, state: TrainState, name: str):
+        if not self.chief:
+            return
         if self.keeper is None:
             logger.warning("Nothing to checkpoint: training has not started.")
             return
@@ -246,6 +258,14 @@ class Trainer:
         logger.info("profiler | steps=%d mean=%.1fms p50=%.1fms p95=%.1fms" % (
             len(times), 1e3 * times.mean(), 1e3 * np.percentile(times, 50),
             1e3 * np.percentile(times, 95)))
+
+
+class _Silent:
+    """The board and the checkpoint keeper of a rank other than 0: every
+    call does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *args, **kwargs: None
 
 
 def _versions(state: TrainState) -> List[int]:

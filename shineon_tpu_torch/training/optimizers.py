@@ -77,6 +77,10 @@ class Adam:
         update moves one."""
         return [t._version for t in self.mu + self.nu] + [self.count]
 
+    def tensors(self) -> List[torch.Tensor]:
+        """The state tensors, on the parameters' device."""
+        return self.mu + self.nu
+
     def state_dict(self) -> dict:
         """The moments (host copies, taken now) and the update count; the
         schedule is the caller's, as optax keeps it out of its state."""
@@ -130,6 +134,9 @@ class MultiSteps:
 
     def versions(self) -> List[int]:
         return self.inner.versions() + [t._version for t in self.acc] + [self.mini_step]
+
+    def tensors(self) -> List[torch.Tensor]:
+        return self.inner.tensors() + self.acc
 
     def state_dict(self) -> dict:
         """The inner Adam's state, the running mean and the mini-step count."""

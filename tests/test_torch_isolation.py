@@ -1,6 +1,9 @@
 """The port stands alone: no module of shineon_tpu_torch, and not
-chip_smoke.py, imports JAX, flax or the JAX package; and its entry points
-do not quietly fall back to the CPU."""
+chip_smoke.py, imports JAX, flax or the JAX package, nor the repository's
+own root modules (the JAX tools package ``tools``, the tests' ``fixtures``,
+the root scripts): an absolute import whose first name is one of them is
+refused, so ``shineon_tpu_torch.tools`` stays allowed. Its entry points do
+not quietly fall back to the CPU."""
 
 import ast
 import subprocess
@@ -11,7 +14,10 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shineon_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "shineon_tpu",
+             # the repository's root package and modules
+             "tools", "fixtures", "bench", "calculate_metrics", "plot_all_videos",
+             "convert_folders_to_animated", "train", "test", "__graft_entry__")
 
 
 def _port_sources():
@@ -63,3 +69,14 @@ def test_chain_sites_exits_without_cuda():
     assert proc.returncode == 1
     assert "no CUDA device" in proc.stderr
     assert "site" not in proc.stdout
+
+
+def test_root_module_imports_are_refused(tmp_path):
+    """The check sees the repository's root modules by their first name and
+    leaves the port's own ``tools`` package and relative imports alone."""
+    src = tmp_path / "probe.py"
+    src.write_text("import fixtures\nfrom tools.e2e_quality import run_e2e\nimport test\n"
+                   "from shineon_tpu_torch.tools import e2e_quality\nfrom . import train\n"
+                   "from .tools import quality_curve\n")
+    assert sorted(r for r in _imported_roots(src) if r in FORBIDDEN) == [
+        "fixtures", "test", "tools"]
