@@ -177,7 +177,16 @@ Phases, each fatal on failure:
      (c) the production SAMS exact step through parallel/ddp.py in an NCCL
      group of one rank against the bare step from the same state (bit for
      bit where two bare steps agree bit for bit, deterministic algorithms
-     on), no kernel launched, and 3 timed steps with and without the group.
+     on), no kernel launched, and 3 timed steps with and without the group;
+ 12. the JAX system's measurement tools, ported (shineon_tpu_torch/tools),
+     at full width with their repeats cut, every launch count at 0 before
+     each (run_tools): (a) serving_stages at batch 16 int8 and batch 4
+     bf16, each stage's launches a call exact and the stage functions
+     composed against one_clip; (b) every train_ablate config, one window
+     of 2 steps; (c) flop_census of the fp graph within 10% of the
+     analytic count; (d) serving_roof_census at the fp and int8 graphs'
+     shapes above 0.01 TFLOP, beside a traced clip of each; (e)
+     input_pipeline at 1 and 4 threads against (a)'s int8 clip rate.
 
 Phase 3d also holds the attention kernel at TOM's shapes: one frame and
 five frames at TOM's batch of 8, each timed, and the small step's shapes
@@ -191,6 +200,7 @@ result, without a CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import gc
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -455,100 +465,29 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-_marker_names = set()  # the device events of torch.cuda._sleep(0), device_times' call marker
-
-
-def marker_names(torch):
-    """The names of the device events that torch.cuda._sleep(0) launches
-    (a one-thread kernel), read once from a trace of a few calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(5):
-        if _marker_names:
-            break
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
-                torch.cuda._sleep(0)
-            torch.cuda.synchronize()
-        _marker_names.update(e.name for e in prof.events() if e.device_type.name == "CUDA")
-    if not _marker_names:
-        raise SystemExit("the profiler shows no event of torch.cuda._sleep")
-    return _marker_names
-
-
-def traced_calls(torch, fn, marker, owns, reps):
-    """The device events of the last ``reps`` of reps + max(reps, 16) calls
-    of fn in one torch.profiler trace, begun after a 50 ms pause: each call
-    is preceded by ``marker()``, whose device events (``owns(name)``) cut
-    the trace's raw events, in time order, into calls. Returns [[event,
-    ...] a call]. In a long process the profiler drops the first events of
-    a session (a full run's traces kept the last 14 of 20 calls; deep into
-    the run, 4 of 10), so the calls counted are the last ones, each found
-    by its own marker."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)
-        for _ in range(reps + max(reps, 16)):
-            marker()
-            fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
-                    key=lambda e: e.time_range.start)
-    calls = []
-    for e in events:
-        if owns(e.name):
-            calls.append([])
-        elif calls:
-            calls[-1].append(e)
-    return calls[-reps:]
-
-
-def call_means(calls, reps, groups):
-    """{group: mean device ms a call} over ``calls`` (traced_calls), each
-    group the summed duration of the events whose name holds one of its
-    names (None: every event of the call), or None where the trace is
-    short: fewer than reps calls, or a group whose kernel count differs
-    between calls or is 0 in them."""
-    if len(calls) < reps:
-        return None
-    out = {}
-    for group, names in groups.items():
-        picked = [[e.time_range.elapsed_us() for e in c
-                   if names is None or any(n in e.name for n in names)] for c in calls]
-        counts = {len(p) for p in picked}
-        if len(counts) != 1 or 0 in counts:
-            return None
-        out[group] = sum(sum(p) for p in picked) / 1e3 / len(calls)
-    return out
+def timing():
+    """The device-time protocol (traced, marked calls), the one in
+    shineon_tpu_torch/tools/__init__.py of the checkout that holds this
+    script, loaded by its path: tools/chain_sites.py and tools/probe_sites.py
+    time another checkout's kernels with this one's protocol."""
+    if "chip_smoke_timing" not in sys.modules:
+        path = Path(__file__).resolve().parent / "shineon_tpu_torch" / "tools" / "__init__.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke_timing", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules["chip_smoke_timing"] = module
+    return sys.modules["chip_smoke_timing"]
 
 
 def device_times(torch, fn, reps, groups):
     """Device time a call of fn, for each group of kernel names: the summed
     device time of the kernels whose name holds one of the group's names
     (None: every kernel of the call), the mean over the last reps traced
-    calls after a warm-up call (traced_calls, each call marked by
-    torch.cuda._sleep(0), a one-thread kernel left out of every sum). At
-    the probes' sizes a call's event time measures the host path (wrapper,
+    calls, each marked by torch.cuda._sleep(0) (tools.device_times). At the
+    probes' sizes a call's event time measures the host path (wrapper,
     allocation, launch), this the kernels alone; at the chain sites it
-    leaves out the wrapper's segmap concatenation and allocation. The sums
-    divide by the calls the trace holds, each found by its marker: a sum
-    over a whole trace over reps read low where the profiler dropped a
-    session's first events. A trace with fewer calls than reps, or a group
-    whose kernel count differs between calls, is taken again, up to five
-    times in all."""
-    markers = marker_names(torch)
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, 6):
-        calls = traced_calls(torch, fn, lambda: torch.cuda._sleep(0), markers.__contains__, reps)
-        times = call_means(calls, reps, groups)
-        if times is not None:
-            return times
-        log(f"the trace of {sorted(groups)} lost events: {len(calls)} marked calls "
-            f"(attempt {attempt} of 5)")
-    raise SystemExit(f"the profiler lost events of {sorted(groups)} five times")
+    leaves out the wrapper's segmap concatenation and allocation."""
+    return timing().device_times(fn, groups, reps)
 
 
 def device_ms(torch, fn, reps, names=None):
@@ -1299,21 +1238,10 @@ class L2Flush:
 
 def flushed_device_ms(torch, fn, flush, names=None, reps=PROBE_REPS):
     """Device time a call of fn with L2 flushed before each call: the mean
-    over the last reps (flush, call) pairs of one trace
-    (traced_calls, the flush's fill as the marker) of the summed duration
-    of a call's events, or of those whose name holds one of ``names`` where
-    given. A trace whose last pairs are fewer than reps or differ in their
-    kernel count is taken again, up to five times in all."""
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, 6):
-        calls = traced_calls(torch, fn, flush, flush.owns, reps)
-        times = call_means(calls, reps, {"call": names})
-        if times is not None:
-            return times["call"]
-        log(f"the trace of {names or 'the call'} lost events: {len(calls)} flushed calls "
-            f"(attempt {attempt} of 5)")
-    raise SystemExit(f"the profiler lost events of {names or 'the call'} five times")
+    over the last reps (flush, call) pairs of one trace (tools.device_times,
+    the flush's fill as the marker) of the summed duration of a call's
+    events, or of those whose name holds one of ``names`` where given."""
+    return timing().device_times(fn, {"call": names}, reps, flush, flush.owns)["call"]
 
 
 def in_turns(torch, calls, flush, traces=PROBE_TRACES, reps=PROBE_REPS):
@@ -3343,6 +3271,180 @@ def run_ddp(torch, counters, card):
         torch.backends.cudnn.deterministic = deterministic
 
 
+# phase 12: the JAX system's measurement tools at full width, repeats cut:
+# stage timing (batch 16 int8, the JAX bench's configuration, and batch 4
+# bf16, this file's clip), the train-step ablation, the FLOP census, the
+# conv roof census and the host input pipeline
+TOOL_STAGE_CELLS = ((16, True), (BATCH, False))  # (serving batch, int8)
+TOOL_ITERS = 2  # serving_stages' --iters: windows of 2 and 8 calls (gen_scan, one_clip: 5, 20)
+TOOL_MIN_TFLOP = 0.01  # the roof census's --min_tflop (the JAX tool's default)
+TOOL_LOADER_THREADS = (1, 4)
+
+
+def run_tools(torch, counters, card):
+    """Phase 12: each measurement tool's function at full width with its
+    repeats cut, every launch count at 0 before each tool. (a)
+    tools.serving_stages at TOOL_STAGE_CELLS: each stage's launches a call
+    exact (gen_frame one frame's chain sites and, int8, its int8 convs;
+    gen_scan and one_clip the clip's), the stage functions composed within
+    the bf16 chain tolerance of one_clip on the same batch; (b) every
+    tools.train_ablate config, one window of 2 steps: finite losses,
+    no_vgg's VGG term 0, num_D_1 one discriminator scale, no kernel
+    launched; (c) tools.flop_census of the fp graph within 10% of the
+    analytic count, and of the int8 graph; (d) tools.serving_roof_census at
+    both graphs' shapes above TOOL_MIN_TFLOP, each beside a traced clip of
+    its graph ((a)'s clips: fp at batch 4, int8 at 16); (e)
+    tools.input_pipeline at TOOL_LOADER_THREADS beside (a)'s int8 clip
+    rate. Returns the readings."""
+    from shineon_tpu_torch.ops import fused_spade as fs
+    from shineon_tpu_torch.serving import build_inference
+    from shineon_tpu_torch.tools import (
+        flop_census,
+        input_pipeline,
+        serving_roof_census,
+        serving_stages,
+        train_ablate,
+    )
+
+    n_sites = sum(site[4] for site in SITES)
+    n_convs = sum(shape[4] for shape in CONVS)
+    out = {"stages": {}, "ablation": {}, "census": {}, "roof": {}}
+    clips = {}
+    t0 = time.perf_counter()
+    for batch, int8 in TOOL_STAGE_CELLS:
+        mode = "int8" if int8 else "bf16"
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        one_clip, warp, sams, raw, n_frames = build_inference(batch, int8_spade=int8)
+        built_s = time.perf_counter() - t1
+        frame = {n: 0 for n in counters}
+        if int8:
+            frame.update(fused_multispade_int8=n_sites, multispade_hidden_absmax=n_sites,
+                         int8_conv3x3=n_convs, int8_quantize=n_convs)
+        else:
+            frame["fused_multispade"] = n_sites
+        clip = {n: v * n_frames for n, v in frame.items()}
+        none = {n: 0 for n in counters}
+        want = {"features": none, "gmm_warp": none, "gen_frame": frame, "gen_scan": clip,
+                "one_clip": clip}
+        zero_counts(counters)
+        t1 = time.perf_counter()
+        stages = serving_stages.build_stages(warp, sams, raw)
+        t = serving_stages.measure_stages(stages, n_frames, batch, DEVICE, TOOL_ITERS, repeats=1)
+        measured_s = time.perf_counter() - t1
+        total = launch_counts(counters)
+        got = {s: t[f"{s}_launches"] for s in serving_stages.STAGES}
+        with torch.no_grad():
+            ref = one_clip(raw).float()
+            comp = serving_stages.compose_stages(stages).float()
+        err = fs.error_ratio(comp, ref)
+        ok = (got == want and all(total[n] >= clip[n] for n in counters)
+              and comp.shape == (batch, n_frames) + FRAME + (3,)
+              and bool(torch.isfinite(comp).all()) and err <= fs.KERNEL_TOLERANCE[torch.bfloat16])
+        log(f"12a stages {mode} batch {batch}: " + ", ".join(
+            f"{s} {t[s + '_ms']:.3f} ms (busy {t[s + '_busy_ms']:.3f}, idle "
+            f"{t[s + '_idle']:.3f}; traced {t[s + '_traced_ms']:.3f}, idle there "
+            f"{t[s + '_traced_idle']:.3f})"
+            for s in serving_stages.STAGES)
+            + f"; scan_minus_5xframe {t['scan_minus_5xframe_ms']:.3f} ms, clip_minus_stages "
+            f"{t['clip_minus_stages_ms']:.3f} ms, clip_fps {t['clip_fps']:.2f} "
+            f"(--iters {TOOL_ITERS}, 1 repeat; built and warmed in {built_s:.1f} s, measured in "
+            f"{measured_s:.1f} s) [{card}]")
+        log(f"12a launches a call {got} (expected {want}); composed stages against one_clip "
+            f"{err:.3g} (limit {fs.KERNEL_TOLERANCE[torch.bfloat16]}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"12a: the {mode} stage timing failed its checks")
+        out["stages"][f"{mode} batch {batch}"] = t
+        clips[int8] = (one_clip, raw)
+        del warp, sams, stages, ref, comp
+    log(f"12a (stage timing): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for name in train_ablate.CONFIGS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts(counters)
+        r = train_ablate.measure_config(name, device=DEVICE, steps=2, repeats=1)
+        launched = launch_counts(counters)
+        ok = (not any(launched.values()) and r["num_D"] == (1 if name == "num_D_1" else 2)
+              and (r["losses"]["loss/G/vgg"] == 0) == (name == "no_vgg"))
+        log(f"12b ablation {name}: step {r['step_s'] * 1e3:.1f} ms, {r['fps']:.2f} frames/s, "
+            f"peak {r['peak_mem_gib']:.2f} GiB, num_D {r['num_D']}, loss "
+            f"{r['losses']['loss']:.4f}, VGG term {r['losses']['loss/G/vgg']:.4f}, launches "
+            f"{launched} {'ok' if ok else 'FAIL'} [{card}]")
+        if not ok:
+            raise SystemExit(f"12b: the {name} ablation failed its checks")
+        out["ablation"][name] = r
+    log(f"12b (train-step ablation): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    zero_counts(counters)
+    censuses = {int8: flop_census.generator_census(16 if int8 else BATCH, int8)
+                for int8 in (False, True)}
+    fp = censuses[False]
+    ratio = fp["total_flops"] / flop_census.analytic_generator_flops(BATCH)
+    ok = abs(ratio - 1) < flop_census.TOLERANCE and not any(launch_counts(counters).values())
+    log(f"12c FLOP census (CPU plain path, 64x48 x16): fp {fp['total_flops'] / 1e12:.4f} TFLOP "
+        f"a forward at batch {BATCH}, {ratio:.4f} of the analytic count, {len(fp['convs'])} "
+        f"shape-routes; int8 {censuses[True]['total_flops'] / 1e12:.4f} TFLOP at batch 16 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("12c: the FLOP census disagrees with the analytic count by over 10%")
+    out["census"] = {"ratio": ratio, "fp_tflop": fp["total_flops"] / 1e12,
+                     "int8_tflop": censuses[True]["total_flops"] / 1e12}
+    log(f"12c (FLOP census): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for int8, census in censuses.items():
+        mode = "int8" if int8 else "bf16"
+        zero_counts(counters)
+        rows, summary = serving_roof_census.run(census, DEVICE, TOOL_MIN_TFLOP, iters=1,
+                                                repeats=1, clip=clips[int8])
+        launched = launch_counts(counters)
+        i8_rows = [r for r in rows if r["i8_ms"] is not None]
+        ok = (bool(rows) and all(r["bf16_ms"] > 0 for r in rows)
+              and all(r["i8_ms"] > 0 and r["i8_conv_ms"] > 0 for r in i8_rows)
+              and launched["int8_conv3x3"] >= len(i8_rows) and summary["clip_busy_ms"] > 0
+              and all(v.get("traced_clip_ms", 0) > 0 for v in summary["routes"].values())
+              and summary["clip_other_ms"] >= 0)
+        log(f"12d roof census {mode} batch {census['batch']}: {len(rows)} shapes above "
+            f"{TOOL_MIN_TFLOP} TFLOP ({len(i8_rows)} with an int8 route); conv roof "
+            f"{summary['conv_roof_ms_per_forward']:.3f} ms a forward (best dispatch "
+            f"{summary['conv_roof_ms_best_dispatch']:.3f}), clip "
+            f"{summary['clip_conv_roof_ms']:.3f} ms against the traced clip's busy "
+            f"{summary['clip_busy_ms']:.3f} ms of "
+            f"{summary['clip_traced_ms']:.3f}; misgated {summary['misgated']} "
+            f"{'ok' if ok else 'FAIL'} [{card}]")
+        for route, v in summary["routes"].items():
+            log(f"12d   {route}: isolated {v['isolated_clip_ms']:.3f} ms a clip, traced "
+                f"{v.get('traced_clip_ms', 0.0):.3f} ms")
+        log(f"12d   other kernels of the traced clip: {summary['clip_other_ms']:.3f} ms")
+        for r in rows:
+            log(f"12d   {json.dumps(r)}")
+        if not ok:
+            raise SystemExit(f"12d: the {mode} roof census failed its checks")
+        out["roof"][mode] = summary
+    clips.clear()
+    log(f"12d (roof census): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    serving_fps = out["stages"]["int8 batch 16"]["clip_fps"]
+    loader = input_pipeline.run(TOOL_LOADER_THREADS, repeats=1, serving_fps=serving_fps,
+                                device=DEVICE)
+    ok = [r["workers"] for r in loader["rows"]] == list(TOOL_LOADER_THREADS) and all(
+        r["frames_per_sec"] > 0 for r in loader["rows"])
+    log("12e input pipeline (VVT, 256x192, batch 16 x 5 frames, to the card): " + ", ".join(
+        f"{r['workers']} threads {r['ms_per_batch']:.1f} ms a batch, {r['frames_per_sec']:.1f} "
+        f"frames/s, {r['vs_serving']:.3f} of the int8 clip's {serving_fps:.1f}"
+        for r in loader["rows"]) + f" {'ok' if ok else 'FAIL'} [{card}]")
+    if not ok:
+        raise SystemExit("12e: the input pipeline failed its checks")
+    out["loader"] = loader
+    log(f"12e (input pipeline): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3361,7 +3463,7 @@ def main() -> int:
     from shineon_tpu_torch.models.flownet import FlowNet
     from shineon_tpu_torch.ops import probes as pr
     from shineon_tpu_torch.serving import build_inference
-    from shineon_tpu_torch.tools import conv_probe
+    from shineon_tpu_torch.tools import conv_probe, serving_counters
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3395,16 +3497,12 @@ def main() -> int:
     check_attention(torch, fa, fs, SMALL_TOM_ATTENTION_SHAPES, 2)
     check_small_clip(torch)
 
-    fmm, att = fs.fused_multispade_modulate, fa.sagan_attention
     n_sites = sum(site[4] for site in SITES)
     n_att_sites = sum(site[5] for site in SITES)
     n_convs = sum(shape[4] for shape in CONVS)
     n_att = sum(shape[3] for shape in ATTENTION_SHAPES)
-    fp_counters = {"fused_multispade": (fmm, "launches"), "sagan_attention": (att, "launches")}
-    q_counters = {**fp_counters, "fused_multispade_int8": (fmm, "int8_launches"),
-                  "multispade_hidden_absmax": (fmm, "absmax_launches"),
-                  "int8_conv3x3": (ic.conv3x3_int8, "launches"),
-                  "int8_quantize": (ic.quantize_int8, "launches")}
+    q_counters = serving_counters()
+    fp_counters = {n: q_counters[n] for n in ("fused_multispade", "sagan_attention")}
     q_expected = {"fused_multispade": 0, "fused_multispade_int8": n_sites,
                   "multispade_hidden_absmax": n_sites, "int8_conv3x3": n_convs,
                   "int8_quantize": n_convs}
@@ -3506,6 +3604,13 @@ def main() -> int:
     run_ddp(torch, q_counters, card)
     log(f"phase 11c (DDP at world size 1): {time.perf_counter() - t0:.1f} s")
 
+    # phase 12: the measurement tools at full width
+    t0 = time.perf_counter()
+    measured = run_tools(torch, q_counters, card)
+    stage_clips = {mode: measured["stages"][cell]["one_clip_launches"]
+                   for mode, cell in (("bf16", f"bf16 batch {BATCH}"), ("int8", "int8 batch 16"))}
+    log(f"phase 12 (the measurement tools): {time.perf_counter() - t0:.1f} s")
+
     # the int8 models' own count of int8 convs, against the list above
     log(f"int8 convs in the built generators: {built}, with attention {a_built} "
         f"(expected {n_convs} a frame)")
@@ -3599,6 +3704,8 @@ def main() -> int:
         "qa_loop_launches": {stage: qa["launches"][stage]["fused_multispade"]
                              for stage in ("export_init", "fit", "export_trained")},
         "lightning_test_launches": lightning["launches"],
+        # phase 12a: one_clip of the stage timing tool, bf16 at batch 4
+        "stages_tool_clip_launches": stage_clips["bf16"]["fused_multispade"],
     }, {
         "name": "fused_multispade_int8",
         "route": "cuda",
@@ -3628,6 +3735,8 @@ def main() -> int:
         "qa_int8_export_launches": qa["launches"]["export_int8"]["fused_multispade_int8"],
         "qa_int8_export_prepass_launches": qa["launches"]["export_int8"][
             "multispade_hidden_absmax"],
+        # phase 12a: one_clip of the stage timing tool, int8 at batch 16
+        "stages_tool_clip_launches": stage_clips["int8"]["fused_multispade_int8"],
     }, {
         "name": "int8_conv3x3",
         "route": "cuda",
@@ -3653,6 +3762,7 @@ def main() -> int:
         "clip_ms": med["int8"],
         "clip_kernel_ms": per_clip(c_timings)[0],
         "qa_int8_export_launches": qa["launches"]["export_int8"]["int8_conv3x3"],
+        "stages_tool_clip_launches": stage_clips["int8"]["int8_conv3x3"],
     }, {
         "name": "int8_quantize",
         "route": "cuda",
@@ -3670,6 +3780,7 @@ def main() -> int:
         "site": {"B": BATCH, "H": c_top[0], "W": c_top[1], "Cin": c_top[2], "dtype": "bfloat16"},
         "clip_kernel_ms": qz_clip,
         "qa_int8_export_launches": qa["launches"]["export_int8"]["int8_quantize"],
+        "stages_tool_clip_launches": stage_clips["int8"]["int8_quantize"],
     }, {
         "name": "sagan_attention",
         "route": "cuda",

@@ -106,15 +106,19 @@ def time_train_steps(step, state, batch, repeats: int = REPEATS, steps: int = TR
                      loss_key: str = "loss"):
     """Seconds a step: (median, min, max) over ``repeats`` windows of
     ``steps`` chained steps, after one warm-up step; each window ends in a
-    synchronize and a fetch of the loss (metric ``loss_key``)."""
+    synchronize (on the card: the device of the batch's tensors) and a
+    fetch of the loss (metric ``loss_key``)."""
+    cuda = any(torch.is_tensor(v) and v.is_cuda for v in batch.values())
     float(step(state, batch)[loss_key])
     times = []
     for _ in range(repeats):
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
             metrics = step(state, batch)
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
         loss = float(metrics[loss_key])
         times.append((time.perf_counter() - t0) / steps)
     if loss != loss or abs(loss) == float("inf"):

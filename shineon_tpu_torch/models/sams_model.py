@@ -222,8 +222,9 @@ class SamsModel(BaseModel):
         """SAMS keeps the frames axis: (B, N, H, W, C) features."""
         return preprocess_batch(raw_batch, self.preprocess_config)
 
-    def _frame(self, window, prev_maps, current_maps, train: bool):
-        """One frame's generator call; in training it updates the running
+    def frame(self, window, prev_maps, current_maps, train: bool):
+        """One frame's generator call, the clip loop's body (its inputs
+        from :meth:`loop_inputs`); in training it updates the running
         statistics and spectral ``u``. With ``remat`` and gradients on, the
         frame's activations are recomputed in the backward pass
         (``jax.checkpoint`` in the JAX package) by :func:`checkpointed`."""
@@ -232,6 +233,34 @@ class SamsModel(BaseModel):
             return checkpointed(g, window, prev_maps, current_maps, train=True,
                                 update_stats=True)
         return g(window, prev_maps, current_maps, train=train, update_stats=train)
+
+    def loop_inputs(self, feats: Dict[str, torch.Tensor], train: bool):
+        """What the clip loop's generator calls read: (the empty
+        previous-frame window, ``frame_maps``), where ``frame_maps(t)`` is
+        frame t's (prev_maps, current_maps): the encoder maps of the frames
+        before t (zeros where there are none) and frame t's label maps. In
+        eval mode the window and the maps are in the compute dtype."""
+        opt = self.opt
+        N = self.n_frames_total
+        labelmap = {key: feats[key] for key in self.inputs}
+        enc_maps = feats[opt.encoder_input]  # (B, N, H, W, enc_ch)
+        image = feats["image"]
+        if not train and self.compute_dtype is not None:
+            labelmap = {k: v.to(self.compute_dtype) for k, v in labelmap.items()}
+            enc_maps = enc_maps.to(self.compute_dtype)
+        win_dtype = image.dtype if train else (self.compute_dtype or image.dtype)
+        # the previous-frame window [oldest .. newest], zeros until generated
+        window = torch.zeros(image.shape[:1] + (N - 1,) + image.shape[2:],
+                             dtype=win_dtype, device=image.device)
+
+        def frame_maps(t: int):
+            k = (N - 1) - t
+            prev_maps = torch.cat(
+                [torch.zeros_like(enc_maps[:, :k]), enc_maps[:, k:N - 1]], dim=1
+            )
+            return prev_maps, {key: v[:, t] for key, v in labelmap.items()}
+
+        return window, frame_maps
 
     def generate_n_frames(self, feats: Dict[str, torch.Tensor], train: bool):
         """Autoregressive clip synthesis (sams_model.py:244-396 of the JAX
@@ -250,17 +279,12 @@ class SamsModel(BaseModel):
         opt = self.opt
         N = self.n_frames_total
         start_idx = N - self.n_frames_now
-        labelmap = {key: feats[key] for key in self.inputs}
-        enc_maps = feats[opt.encoder_input]  # (B, N, H, W, enc_ch)
-        image = feats["image"]
         flows = feats.get("flow") if opt.flow_warp else None  # stays f32
-        if not train and self.compute_dtype is not None:
-            labelmap = {k: v.to(self.compute_dtype) for k, v in labelmap.items()}
-            enc_maps = enc_maps.to(self.compute_dtype)
+        window, frame_maps = self.loop_inputs(feats, train)
 
         if N == 1:
-            current_maps = {k: v[:, 0] for k, v in labelmap.items()}
-            out = self._frame(None, None, current_maps, train)
+            _, current_maps = frame_maps(0)
+            out = self.frame(None, None, current_maps, train)
             fake = out[..., :RGB_CHANNELS]
             if opt.flow_warp:
                 wmask = out[..., RGB_CHANNELS:]
@@ -268,18 +292,10 @@ class SamsModel(BaseModel):
                 fake = (1 - wmask) * warped + wmask * fake
             return fake, current_maps, fake[:, None]
 
-        win_dtype = image.dtype if train else (self.compute_dtype or image.dtype)
-        # the previous-frame window [oldest .. newest], zeros until generated
-        window = torch.zeros(image.shape[:1] + (N - 1,) + image.shape[2:],
-                             dtype=win_dtype, device=image.device)
         fakes = []
         for t in range(start_idx, N):
-            k = (N - 1) - t
-            prev_maps = torch.cat(
-                [torch.zeros_like(enc_maps[:, :k]), enc_maps[:, k:N - 1]], dim=1
-            )
-            current_maps = {key: v[:, t] for key, v in labelmap.items()}
-            out = self._frame(window.detach(), prev_maps, current_maps, train)
+            prev_maps, current_maps = frame_maps(t)
+            out = self.frame(window.detach(), prev_maps, current_maps, train)
             fake = out[..., :RGB_CHANNELS]
             if opt.flow_warp:
                 wmask = out[..., RGB_CHANNELS:]
@@ -294,8 +310,7 @@ class SamsModel(BaseModel):
                 [gen_frames.new_zeros(gen_frames[:, :1].shape).repeat(1, start_idx, 1, 1, 1),
                  gen_frames], dim=1,
             )
-        current_maps = {k: v[:, N - 1] for k, v in labelmap.items()}
-        return fakes[-1], current_maps, gen_frames
+        return fakes[-1], current_maps, gen_frames  # current_maps: the last frame's
 
     # ------------------------------------------------------------ training
 

@@ -67,21 +67,51 @@ def synthetic_raw_batch(opt, batch: int, seed: int = 0, device="cpu") -> Dict[st
     return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
 
 
+# The clip's stages, in the order one_clip runs them; the stage timing tool
+# (tools/serving_stages.py) times each on its own.
+
+def gmm_warp(warp: WarpModel, feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The GMM's TPS grid from the last frame's person (agnostic, densepose)
+    and cloth, and that cloth warped by it (border padding): (B, H, W, 3)."""
+    person = torch.cat([feats["agnostic"][:, -1], feats["densepose"][:, -1]], dim=-1)
+    cloth_in = feats["cloth"][:, -1]
+    grid, _ = warp.gmm(person, cloth_in, train=False)
+    return grid_sample(cloth_in, grid, padding_mode="border")
+
+
+def with_warped_cloth(feats: Dict[str, torch.Tensor], warped: torch.Tensor):
+    """The features with the last frame's cloth replaced by ``warped``."""
+    cloth = feats["cloth"].clone()
+    cloth[:, -1] = warped
+    return {**feats, "cloth": cloth}
+
+
+def frame_inputs(sams: SamsModel, feats: Dict[str, torch.Tensor]):
+    """One generator call's eval inputs as the clip loop builds them
+    (SamsModel.loop_inputs) for its last frame, with the previous-frame
+    window still zero: (window, prev_maps, current_maps) in the compute
+    dtype."""
+    window, frame_maps = sams.loop_inputs(feats, train=False)
+    return (window, *frame_maps(sams.n_frames_total - 1))
+
+
+def gen_frame(sams: SamsModel, window, prev_maps, current_maps) -> torch.Tensor:
+    """One generator forward in eval mode, the clip loop's body."""
+    return sams.frame(window, prev_maps, current_maps, train=False)
+
+
+def gen_scan(sams: SamsModel, feats: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The eval clip loop: every frame (B, N, H, W, 3)."""
+    return sams.generate_n_frames(feats, train=False)[2]
+
+
 def make_one_clip(warp: WarpModel, sams: SamsModel):
     """The clip function: raw batch -> all generated frames (B, N, H, W, 3)."""
 
     @torch.no_grad()
     def one_clip(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         feats = sams.features(batch)
-        person = torch.cat([feats["agnostic"][:, -1], feats["densepose"][:, -1]], dim=-1)
-        cloth_in = feats["cloth"][:, -1]
-        grid, _ = warp.gmm(person, cloth_in, train=False)
-        warped = grid_sample(cloth_in, grid, padding_mode="border")
-        cloth = feats["cloth"].clone()
-        cloth[:, -1] = warped
-        feats = {**feats, "cloth": cloth}
-        _, _, all_frames = sams.generate_n_frames(feats, train=False)
-        return all_frames
+        return gen_scan(sams, with_warped_cloth(feats, gmm_warp(warp, feats)))
 
     return one_clip
 

@@ -237,11 +237,12 @@ STATS = ("running_mean", "running_var", ".u", ".sigma")
 
 class JaxSide:
     """A JAX SamsModel at TINY_TRAIN (with attention: TINY_ATTENTION, every
-    gamma drawn nonzero), its initial state, that state copied to numpy
-    before any step (the step may donate its buffers), and the raw batch."""
+    gamma drawn nonzero; ``overrides`` replace options on both sides), its
+    initial state, that state copied to numpy before any step (the step may
+    donate its buffers), and the raw batch."""
 
-    def __init__(self, attention: bool):
-        self.placement = TINY_ATTENTION if attention else {}
+    def __init__(self, attention: bool, **overrides):
+        self.placement = {**(TINY_ATTENTION if attention else {}), **overrides}
         self.opt = _sams_opt(batch_size=BATCH, **TINY_TRAIN, **self.placement)
         self.model = JSamsModel(self.opt)
         state = self.model.init_state(jax.random.PRNGKey(420), STEPS_PER_EPOCH)
