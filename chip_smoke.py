@@ -84,7 +84,7 @@ Phases, each fatal on failure:
      kernel launched; (d) the step times, the peak device memory, and a
      traced exact attention step's device busy time, idle share and
      attention kernel time, beside that kernel's phase 3d time for as many
-     calls;
+     calls, from the trace that writes phase 13's --profile step table;
   7. GMM and TOM training and SAMS's validation and visual steps (after
      phase 6, before phase 3e): (a) one small f32 step of the GMM (128x96,
      ngf 16) and of TOM (64x64, two frames, flow warp, three attention
@@ -183,10 +183,18 @@ Phases, each fatal on failure:
      each (run_tools): (a) serving_stages at batch 16 int8 and batch 4
      bf16, each stage's launches a call exact and the stage functions
      composed against one_clip; (b) every train_ablate config, one window
-     of 2 steps; (c) flop_census of the fp graph within 10% of the
+     of 1 step; (c) flop_census of the fp graph within 10% of the
      analytic count; (d) serving_roof_census at the fp and int8 graphs'
      shapes above 0.01 TFLOP, beside a traced clip of each; (e)
      input_pipeline at 1 and 4 threads against (a)'s int8 clip rate.
+ 13. the JAX bench's inference half, ported (shineon_tpu_torch/bench.py),
+     at full width with its repeats cut (run_bench): (a)
+     bench.measure_inference on phase 12a's clips, batch 16 int8 and batch
+     4 bf16, 2 repeats of 8 chained clips, every launch count at 0 before
+     each: frames/s finite and within its min and max, each kernel's
+     launches a clip exact, the 1-clip window against one_clip; (b)
+     --flops within 10% of the analytic count; (c) both --profile tables
+     written (the bf16 cell's clip table, phase 6's attention step table).
 
 Phase 3d also holds the attention kernel at TOM's shapes: one frame and
 five frames at TOM's batch of 8, each timed, and the small step's shapes
@@ -205,6 +213,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1758,23 +1767,19 @@ def check_small_step(torch):
             raise SystemExit("the small training step on the card disagrees with the CPU")
 
 
-def traced_step(step, state, raw, names, top=5):
-    """One step under torch.profiler (shineon_tpu_torch.bench.traced_step):
-    wall ms, device busy ms, idle share, the device ms and count of the
-    kernels whose name holds one of ``names``, and the ``top`` kernels by
-    device time (name, ms, calls)."""
-    from shineon_tpu_torch.bench import traced_step as trace
-
-    wall, kernels, busy = trace(step, state, raw)
-    mine = [e for e in kernels if any(n in e.key for n in names)]
-    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    return dict(wall_ms=wall, busy_ms=busy, idle_share=1 - busy / wall,
-                kernel_ms=sum(e.self_device_time_total for e in mine) / 1e3,
-                kernel_calls=sum(e.count for e in mine),
-                top=[(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in ranked])
+def step_readings(t, names, top=5):
+    """Readings of marked exact steps (shineon_tpu_torch.bench.step_trace's
+    ``t``): wall ms, device busy ms, idle share, the device ms and launches
+    a step of the kernels whose name holds one of ``names``, and the
+    ``top`` kernels by device time (name, ms, launches)."""
+    mine = [v for name, v in t["ops"].items() if any(n in name for n in names)]
+    ranked = sorted(t["ops"].items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(wall_ms=t["wall"], busy_ms=t["busy"], idle_share=1 - t["busy"] / t["wall"],
+                kernel_ms=sum(ms for ms, _ in mine), kernel_calls=sum(n for _, n in mine),
+                top=[(name[:90], ms, n) for name, (ms, n) in ranked])
 
 
-def run_training(torch, label, counters, card, attention):
+def run_training(torch, label, counters, card, attention, profile_dir):
     """Phase 6b-d: build the full-width training step (256x192, 5 frames,
     widths 2^6..2^10, bf16, batch 4, remat, seeded weights; with
     ``attention`` the clip's ATTENTION_PLACEMENT, every gamma nonzero); with
@@ -1783,10 +1788,10 @@ def run_training(torch, label, counters, card, attention):
     parameters changed, and the launches: attention once a block a frame a
     pass (TRAIN_PASSES), the first exact step on its own too, no serving
     kernel; time the steps and read the peak device memory. With
-    ``attention``, trace one exact step (a trace and its reading take
-    about 28 s; shineon_tpu_torch.bench --trace traces the production
-    step). Returns the readings."""
-    from shineon_tpu_torch.bench import TRAIN_BATCH, build_train
+    ``attention``, trace one marked exact step through bench.profile_train
+    (bench --profile --attention's step table, written into
+    ``profile_dir``). Returns the readings."""
+    from shineon_tpu_torch.bench import TRAIN_BATCH, build_train, profile_train
     from shineon_tpu_torch.networks.attention import SelfAttention
     from shineon_tpu_torch.ops.fused_attention import sagan_attention
     from shineon_tpu_torch.options import ATTENTION_PLACEMENT
@@ -1846,10 +1851,12 @@ def run_training(torch, label, counters, card, attention):
     trace = None
     if attention:
         model.opt.fast_gan_step = False
-        trace = traced_step(model.make_train_step(), state, raw, ATTENTION_KERNELS)
+        trace = step_readings(profile_train(
+            profile_dir, med["exact"], attention=True, steps=1,
+            warmed=(model.make_train_step(), state, raw, n_frames)), ATTENTION_KERNELS)
         log(f"training {label} traced exact step: wall {trace['wall_ms']:.1f} ms, device busy "
             f"{trace['busy_ms']:.1f} ms, idle share {trace['idle_share']:.3f}, attention "
-            f"kernel {trace['kernel_ms']:.3f} ms in {trace['kernel_calls']} calls [{card}]")
+            f"kernel {trace['kernel_ms']:.3f} ms in {trace['kernel_calls']:g} calls [{card}]")
     del model, state, raw, before
     return dict(times=times, median_ms=med, peak_gib=peak, launches=launches,
                 step_launches=per_step, trace=trace)
@@ -1933,7 +1940,7 @@ def run_stage_training(torch, kind, counters, card):
     kernel. Then the step time (shineon_tpu_torch.bench.time_train_steps:
     median, min and max of 3 windows of 8 steps), the peak device memory
     and one traced training step. Returns the readings."""
-    from shineon_tpu_torch.bench import build_train, time_train_steps
+    from shineon_tpu_torch.bench import build_train, step_trace, time_train_steps
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -1978,11 +1985,11 @@ def run_stage_training(torch, kind, counters, card):
     log(f"training {kind} step time (batch {TOM_BATCH}, 256x192, bf16): median {median * 1e3:.2f}"
         f" ms (min {lo * 1e3:.2f}, max {hi * 1e3:.2f}) of 3 windows of 8 steps; peak memory "
         f"{peak:.2f} GiB above the {base / 2**30:.2f} GiB held before [{card}]")
-    trace = traced_step(step, state, raw, ATTENTION_KERNELS)
+    trace = step_readings(step_trace(step, state, raw, 1), ATTENTION_KERNELS)
     log(f"training {kind} traced step: wall {trace['wall_ms']:.2f} ms, device busy "
         f"{trace['busy_ms']:.2f} ms, idle share {trace['idle_share']:.3f}, attention kernel "
-        f"{trace['kernel_ms']:.4f} ms in {trace['kernel_calls']} calls; top device time "
-        + "; ".join(f"{name} {ms:.3f} ms x{n}" for name, ms, n in trace["top"]) + f" [{card}]")
+        f"{trace['kernel_ms']:.4f} ms in {trace['kernel_calls']:g} calls; top device time "
+        + "; ".join(f"{name} {ms:.3f} ms x{n:g}" for name, ms, n in trace["top"]) + f" [{card}]")
     del model, state, step, raw, metrics, val, visuals, before
     return dict(median_ms=median * 1e3, min_ms=lo * 1e3, max_ms=hi * 1e3, peak_gib=peak,
                 launches=vis_launches, step_launches=per_step, trace=trace)
@@ -3288,14 +3295,15 @@ def run_tools(torch, counters, card):
     exact (gen_frame one frame's chain sites and, int8, its int8 convs;
     gen_scan and one_clip the clip's), the stage functions composed within
     the bf16 chain tolerance of one_clip on the same batch; (b) every
-    tools.train_ablate config, one window of 2 steps: finite losses,
+    tools.train_ablate config, one window of 1 step: finite losses,
     no_vgg's VGG term 0, num_D_1 one discriminator scale, no kernel
     launched; (c) tools.flop_census of the fp graph within 10% of the
     analytic count, and of the int8 graph; (d) tools.serving_roof_census at
     both graphs' shapes above TOOL_MIN_TFLOP, each beside a traced clip of
     its graph ((a)'s clips: fp at batch 4, int8 at 16); (e)
     tools.input_pipeline at TOOL_LOADER_THREADS beside (a)'s int8 clip
-    rate. Returns the readings."""
+    rate. Returns the readings and (a)'s clips, {int8: build_inference's
+    result}, for phase 13."""
     from shineon_tpu_torch.ops import fused_spade as fs
     from shineon_tpu_torch.serving import build_inference
     from shineon_tpu_torch.tools import (
@@ -3316,7 +3324,8 @@ def run_tools(torch, counters, card):
         gc.collect()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
-        one_clip, warp, sams, raw, n_frames = build_inference(batch, int8_spade=int8)
+        clips[int8] = build_inference(batch, int8_spade=int8)
+        one_clip, warp, sams, raw, n_frames = clips[int8]
         built_s = time.perf_counter() - t1
         frame = {n: 0 for n in counters}
         if int8:
@@ -3356,8 +3365,7 @@ def run_tools(torch, counters, card):
         if not ok:
             raise SystemExit(f"12a: the {mode} stage timing failed its checks")
         out["stages"][f"{mode} batch {batch}"] = t
-        clips[int8] = (one_clip, raw)
-        del warp, sams, stages, ref, comp
+        del one_clip, warp, sams, raw, stages, ref, comp
     log(f"12a (stage timing): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3365,7 +3373,7 @@ def run_tools(torch, counters, card):
         gc.collect()
         torch.cuda.empty_cache()
         zero_counts(counters)
-        r = train_ablate.measure_config(name, device=DEVICE, steps=2, repeats=1)
+        r = train_ablate.measure_config(name, device=DEVICE, steps=1, repeats=1)
         launched = launch_counts(counters)
         ok = (not any(launched.values()) and r["num_D"] == (1 if name == "num_D_1" else 2)
               and (r["losses"]["loss/G/vgg"] == 0) == (name == "no_vgg"))
@@ -3399,8 +3407,10 @@ def run_tools(torch, counters, card):
     for int8, census in censuses.items():
         mode = "int8" if int8 else "bf16"
         zero_counts(counters)
+        one_clip, _, _, raw, _ = clips[int8]
         rows, summary = serving_roof_census.run(census, DEVICE, TOOL_MIN_TFLOP, iters=1,
-                                                repeats=1, clip=clips[int8])
+                                                repeats=1, clip=(one_clip, raw))
+        del one_clip, raw
         launched = launch_counts(counters)
         i8_rows = [r for r in rows if r["i8_ms"] is not None]
         ok = (bool(rows) and all(r["bf16_ms"] > 0 for r in rows)
@@ -3425,7 +3435,6 @@ def run_tools(torch, counters, card):
         if not ok:
             raise SystemExit(f"12d: the {mode} roof census failed its checks")
         out["roof"][mode] = summary
-    clips.clear()
     log(f"12d (roof census): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -3442,6 +3451,108 @@ def run_tools(torch, counters, card):
         raise SystemExit("12e: the input pipeline failed its checks")
     out["loader"] = loader
     log(f"12e (input pipeline): {time.perf_counter() - t0:.1f} s")
+    return out, clips
+
+
+# phase 13: the JAX bench's inference half (shineon_tpu_torch/bench.py) at
+# full width with its repeats cut, on phase 12a's clips: batch 16 int8 (the
+# JAX bench's configuration) and batch 4 bf16 (this file's clip), then
+# --flops and the --profile tables
+BENCH_CELLS = ((16, True), (BATCH, False))  # (serving batch, int8)
+BENCH_REPEATS = 2
+
+
+def profile_rows(path):
+    """The op rows of a --profile table."""
+    return [line for line in path.read_text().splitlines() if line.startswith("| `")]
+
+
+def run_bench(torch, counters, card, clips, profile_dir):
+    """Phase 13: bench.measure_inference at BENCH_CELLS on ``clips``
+    (phase 12a's, {int8: build_inference's result}), BENCH_REPEATS repeats
+    of bench.ITERS chained clips, every launch count at 0 before each cell:
+    a finite positive median frames/s within its min and max; the launches
+    of one clip exact (kernel 1, or kernel 2 with its pre-pass and kernel 4
+    with its quantize pass) and each at least that many times a timed clip
+    in the run; the 1-clip warm-up window's frame mean against
+    one_clip(raw)'s (its launches after the run are not counted; the
+    window's 1e-12 bump of flow_raw is below f32's resolution), within the
+    bf16 chain tolerance. Then bench.clip_flops_b1 (--flops) within 10% of
+    the analytic count, and both --profile tables in ``profile_dir``, each
+    with rows: the bf16 cell's clip table, and the step table that phase 6
+    wrote from its traced attention step. Returns the readings."""
+    from shineon_tpu_torch import bench
+    from shineon_tpu_torch.ops import fused_spade as fs
+
+    n_sites = sum(site[4] for site in SITES)
+    n_convs = sum(shape[4] for shape in CONVS)
+    timed_clips = 1 + BENCH_REPEATS * (bench.ITERS + 1)
+    out = {"cells": {}}
+    t0 = time.perf_counter()
+    for batch, int8 in BENCH_CELLS:
+        mode = "int8" if int8 else "bf16"
+        frame = {n: 0 for n in counters}
+        if int8:
+            frame.update(fused_multispade_int8=n_sites, multispade_hidden_absmax=n_sites,
+                         int8_conv3x3=n_convs, int8_quantize=n_convs)
+        else:
+            frame["fused_multispade"] = n_sites
+        one_clip, _, _, raw, n_frames = clips[int8]
+        clip = {n: v * n_frames for n, v in frame.items()}
+        zero_counts(counters)
+        t1 = time.perf_counter()
+        r = bench.measure_inference(batch, int8=int8, repeats=BENCH_REPEATS, built=clips[int8],
+                                    profile_dir=None if int8 else profile_dir)
+        measured_s = time.perf_counter() - t1
+        total = launch_counts(counters)
+        with torch.no_grad():
+            ref = float(one_clip(raw).float().mean())
+        del one_clip, raw
+        err = fs.error_ratio(torch.tensor([r["infer_warmup_mean"]]), torch.tensor([ref]))
+        ok = (0 < r["infer_fps_min"] <= r["infer_fps"] <= r["infer_fps_max"] < float("inf")
+              and r["infer_clip_launches"] == clip and r["mode"] == mode
+              and all(total[n] >= v * timed_clips for n, v in clip.items())
+              and err <= fs.KERNEL_TOLERANCE[torch.bfloat16])
+        log(f"13 bench {mode} batch {batch}: {r['infer_fps']:.2f} frames/s (min "
+            f"{r['infer_fps_min']:.2f}, max {r['infer_fps_max']:.2f}), clip "
+            f"{r['infer_clip_s'] * 1e3:.3f} ms of {[round(v * 1e3, 3) for v in r['infer_clip_s_all']]}"
+            f", MFU {r['infer_mfu']}, busy {r['infer_busy_ms']:.3f} ms, idle "
+            f"{r['infer_idle']:.3f} (traced {r['infer_traced_ms']:.3f} ms a clip); "
+            f"{BENCH_REPEATS} repeats of {bench.ITERS} chained clips, measured in "
+            f"{measured_s:.1f} s [{card}]")
+        log(f"13 launches a clip {r['infer_clip_launches']} (expected {clip}), in the run "
+            f"{total}; 1-clip window mean {r['infer_warmup_mean']!r} against one_clip "
+            f"{ref!r}: {err:.3g} (limit {fs.KERNEL_TOLERANCE[torch.bfloat16]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"13: the bench's {mode} batch {batch} cell failed its checks")
+        out["cells"][f"{mode} batch {batch}"] = r
+    clips.clear()
+    log(f"13a (the bench's clips): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    zero_counts(counters)
+    flops = bench.clip_flops_b1()
+    ok = abs(flops["ratio"] - 1) < 0.10 and not any(launch_counts(counters).values())
+    log(f"13b --flops (CPU plain path): gen_clip_flops_b1 {flops['gen_clip_flops_b1'] / 1e12:.4f}"
+        f" TFLOP ({flops['n_frames']} generator forwards of "
+        f"{flops['generator_flops_b1'] / 1e12:.4f}, GMM convs "
+        f"{flops['gmm_conv_flops_b1'] / 1e9:.3f} GFLOP) against the analytic "
+        f"{flops['analytic_clip_flops_b1'] / 1e12:.4f}: {flops['ratio']:.4f} "
+        f"{'ok' if ok else 'FAIL'} ({time.perf_counter() - t0:.1f} s)")
+    if not ok:
+        raise SystemExit("13b: --flops disagrees with the analytic count by over 10%")
+    out["flops"] = flops
+
+    tables = {name: profile_rows(Path(profile_dir) / name)
+              for name in ("PROFILE_INFER.md", "PROFILE.md")}
+    ok = all(0 < len(rows) <= bench.PROFILE_TOP for rows in tables.values())
+    for name, rows in tables.items():
+        log(f"13c --profile {name} ({len(rows)} rows) [{card}]")
+        for row in rows:
+            log(f"13c   {row}")
+    if not ok:
+        raise SystemExit("13c: a --profile table is missing or empty")
     return out
 
 
@@ -3532,7 +3643,9 @@ def main() -> int:
     # phase 6, the training step, after the clips are timed
     t0 = time.perf_counter()
     check_small_step(torch)
-    training = {label: run_training(torch, label, q_counters, card, attention)
+    # the --profile tables of phase 13: the step's from phase 6's attention trace
+    profile_dir = tempfile.TemporaryDirectory(prefix="smoke_profile_")
+    training = {label: run_training(torch, label, q_counters, card, attention, profile_dir.name)
                 for label, attention in (("production", False), ("attention", True))}
     # kernel 3 in the traced attention step against its serving time at the
     # same shapes (phase 3d), for as many calls
@@ -3540,7 +3653,7 @@ def main() -> int:
     serving_equiv = sum(t["device_ms"] * t["per_frame"] * n_frames for t in a_timings.values()
                         ) * TRAIN_PASSES["exact"]
     log(f"attention kernel in the traced exact training step: {at_step['trace']['kernel_ms']:.3f}"
-        f" ms in {at_step['trace']['kernel_calls']} calls, against {serving_equiv:.3f} ms for "
+        f" ms in {at_step['trace']['kernel_calls']:g} calls, against {serving_equiv:.3f} ms for "
         f"as many calls at the serving timings of phase 3d [{card}]")
     log(f"phase 6 (training): {time.perf_counter() - t0:.1f} s")
 
@@ -3552,7 +3665,7 @@ def main() -> int:
     tom = stages["unet_mask"]
     tom_equiv = sum(t["device_ms"] * t["per_frame"] for t in t_timings.values())
     log(f"attention kernel in the traced TOM training step: {tom['trace']['kernel_ms']:.4f} ms in "
-        f"{tom['trace']['kernel_calls']} calls, against {tom_equiv:.4f} ms for as many calls at "
+        f"{tom['trace']['kernel_calls']:g} calls, against {tom_equiv:.4f} ms for as many calls at "
         f"the timings of phase 3d [{card}]")
     sams_val = {
         "production": run_sams_val(torch, "production", q_counters, card,
@@ -3606,10 +3719,18 @@ def main() -> int:
 
     # phase 12: the measurement tools at full width
     t0 = time.perf_counter()
-    measured = run_tools(torch, q_counters, card)
+    measured, tool_clips = run_tools(torch, q_counters, card)
     stage_clips = {mode: measured["stages"][cell]["one_clip_launches"]
                    for mode, cell in (("bf16", f"bf16 batch {BATCH}"), ("int8", "int8 batch 16"))}
     log(f"phase 12 (the measurement tools): {time.perf_counter() - t0:.1f} s")
+
+    # phase 13: the bench's inference half at full width
+    t0 = time.perf_counter()
+    benched = run_bench(torch, q_counters, card, tool_clips, profile_dir.name)
+    profile_dir.cleanup()
+    bench_clips = {mode: benched["cells"][cell]["infer_clip_launches"]
+                   for mode, cell in (("bf16", f"bf16 batch {BATCH}"), ("int8", "int8 batch 16"))}
+    log(f"phase 13 (the bench's inference half): {time.perf_counter() - t0:.1f} s")
 
     # the int8 models' own count of int8 convs, against the list above
     log(f"int8 convs in the built generators: {built}, with attention {a_built} "
@@ -3706,6 +3827,8 @@ def main() -> int:
         "lightning_test_launches": lightning["launches"],
         # phase 12a: one_clip of the stage timing tool, bf16 at batch 4
         "stages_tool_clip_launches": stage_clips["bf16"]["fused_multispade"],
+        # phase 13: a clip of the bench's inference half, bf16 at batch 4
+        "bench_clip_launches": bench_clips["bf16"]["fused_multispade"],
     }, {
         "name": "fused_multispade_int8",
         "route": "cuda",
@@ -3737,6 +3860,9 @@ def main() -> int:
             "multispade_hidden_absmax"],
         # phase 12a: one_clip of the stage timing tool, int8 at batch 16
         "stages_tool_clip_launches": stage_clips["int8"]["fused_multispade_int8"],
+        # phase 13: a clip of the bench's inference half, int8 at batch 16
+        "bench_clip_launches": bench_clips["int8"]["fused_multispade_int8"],
+        "bench_clip_prepass_launches": bench_clips["int8"]["multispade_hidden_absmax"],
     }, {
         "name": "int8_conv3x3",
         "route": "cuda",
@@ -3763,6 +3889,7 @@ def main() -> int:
         "clip_kernel_ms": per_clip(c_timings)[0],
         "qa_int8_export_launches": qa["launches"]["export_int8"]["int8_conv3x3"],
         "stages_tool_clip_launches": stage_clips["int8"]["int8_conv3x3"],
+        "bench_clip_launches": bench_clips["int8"]["int8_conv3x3"],
     }, {
         "name": "int8_quantize",
         "route": "cuda",
@@ -3781,6 +3908,7 @@ def main() -> int:
         "clip_kernel_ms": qz_clip,
         "qa_int8_export_launches": qa["launches"]["export_int8"]["int8_quantize"],
         "stages_tool_clip_launches": stage_clips["int8"]["int8_quantize"],
+        "bench_clip_launches": bench_clips["int8"]["int8_quantize"],
     }, {
         "name": "sagan_attention",
         "route": "cuda",

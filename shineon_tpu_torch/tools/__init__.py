@@ -140,20 +140,33 @@ def call_means(calls, reps: int, groups: Dict[str, Optional[tuple]]) -> Optional
     return out
 
 
+def op_means(calls) -> Dict[str, tuple]:
+    """{kernel name: (mean device ms, mean launches) a call} over ``calls``
+    (:func:`traced_calls`)."""
+    ops: Dict[str, list] = {}
+    for call in calls:
+        for e in call:
+            op = ops.setdefault(e.name, [0.0, 0])
+            op[0] += e.time_range.elapsed_us() / 1e3
+            op[1] += 1
+    return {name: (ms / len(calls), n / len(calls)) for name, (ms, n) in ops.items()}
+
+
 def device_times(fn, groups: Dict[str, Optional[tuple]], reps: int = 5,
                  marker: Optional[Callable] = None, owns: Optional[Callable] = None,
-                 extra: Optional[int] = None) -> Dict[str, float]:
+                 extra: Optional[int] = None, ops: bool = False) -> dict:
     """Device ms a call of ``fn`` for each group of kernel names (the
     summed time of the kernels whose name holds one of them; None: every
     kernel), the mean over the last ``reps`` marked calls of a trace taken
     after a warm-up call (:func:`traced_calls`, with its ``marker``,
-    ``owns`` and ``extra``), and under "wall" the host ms a call of the
-    traced window. The sums divide by the calls the trace holds, each found
-    by its marker: a sum over a whole trace over ``reps`` reads low where
-    the profiler dropped a session's first events. A trace whose marked
-    calls are fewer than ``reps``, or in which a group has no kernel or a
-    kernel count that differs between calls, is taken again, up to five
-    times in all."""
+    ``owns`` and ``extra``), under "wall" the host ms a call of the traced
+    window, and with ``ops`` under "ops" each kernel's device ms and
+    launches a call over the same calls (:func:`op_means`). The sums divide
+    by the calls the trace holds, each found by its marker: a sum over a
+    whole trace over ``reps`` reads low where the profiler dropped a
+    session's first events. A trace whose marked calls are fewer than
+    ``reps``, or in which a group has no kernel or a kernel count that
+    differs between calls, is taken again, up to five times in all."""
     import torch
 
     fn()
@@ -162,7 +175,7 @@ def device_times(fn, groups: Dict[str, Optional[tuple]], reps: int = 5,
         calls, wall_ms = traced_calls(fn, reps, marker, owns, extra)
         times = call_means(calls, reps, groups)
         if times is not None:
-            return {**times, "wall": wall_ms}
+            return {**times, "wall": wall_ms, **({"ops": op_means(calls)} if ops else {})}
         print(f"the trace of {sorted(groups)} lost events: {len(calls)} marked calls "
               f"(attempt {attempt} of 5)", file=sys.stderr, flush=True)
     raise RuntimeError(f"the profiler lost events of {sorted(groups)} five times")

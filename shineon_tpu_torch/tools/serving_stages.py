@@ -81,6 +81,19 @@ def bumped(t: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     return t + (acc * 1e-12).to(t.dtype)
 
 
+def bumped_flow(raw: Dict[str, torch.Tensor], acc: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The raw batch with its ``flow_raw`` bumped by ``acc``: the chain of
+    the features and one_clip stages, and of the bench's clips."""
+    return {**raw, "flow_raw": bumped(raw["flow_raw"], acc)}
+
+
+def clip_mode(sams, int8: bool, attention: bool) -> str:
+    """The clip's mode: int8, else its compute dtype (bf16 or f32), with
+    "+attention" when it has attention blocks."""
+    mode = "int8" if int8 else "bf16" if sams.compute_dtype == torch.bfloat16 else "f32"
+    return mode + ("+attention" if attention else "")
+
+
 def build_stages(warp, sams, raw) -> Dict[str, tuple]:
     """Each stage as (call, first input, perturb(input, acc) -> next input),
     the JAX tool's chains: features and one_clip perturb the raw flow,
@@ -89,18 +102,14 @@ def build_stages(warp, sams, raw) -> Dict[str, tuple]:
     with torch.no_grad():
         feats = sams.features(raw)
     window, prev_maps, current_maps = frame_inputs(sams, feats)
-
-    def raw_flow(b, acc):
-        return {**b, "flow_raw": bumped(b["flow_raw"], acc)}
-
     return {
-        "features": (sams.features, raw, raw_flow),
+        "features": (sams.features, raw, bumped_flow),
         "gmm_warp": (lambda f: gmm_warp(warp, f), feats,
                      lambda f, acc: {**f, "cloth": bumped(f["cloth"][:, -1:], acc)}),
         "gen_frame": (lambda w: gen_frame(sams, w, prev_maps, current_maps), window, bumped),
         "gen_scan": (lambda f: gen_scan(sams, f), feats,
                      lambda f, acc: {**f, "flow": bumped(f["flow"], acc)}),
-        "one_clip": (make_one_clip(warp, sams), raw, raw_flow),
+        "one_clip": (make_one_clip(warp, sams), raw, bumped_flow),
     }
 
 
@@ -153,7 +162,8 @@ def slope_s(stage, iters: int, device, repeats: int = REPEATS) -> float:
 def busy_ms(stage, device) -> tuple:
     """The device's busy ms a call of ``stage`` in a trace of chained calls
     (tools.device_times: the last TRACE_CALLS marked calls after as many
-    others), and the host ms a call of the traced window."""
+    others), the host ms a call of the traced window, and each kernel's
+    device ms and launches a call there (tools.op_means)."""
     acc = [torch.zeros((), dtype=torch.float32, device=device)]
     call, x0, perturb = stage
 
@@ -161,10 +171,10 @@ def busy_ms(stage, device) -> tuple:
     def one():
         acc[0] = tree_mean(call(perturb(x0, acc[0])))
 
-    t = device_times(one, {"busy": None}, reps=TRACE_CALLS, extra=TRACE_CALLS)
+    t = device_times(one, {"busy": None}, reps=TRACE_CALLS, extra=TRACE_CALLS, ops=True)
     if not math.isfinite(float(acc[0])):
         raise RuntimeError(f"a chained stage gave {float(acc[0])}")
-    return t["busy"], t["wall"]
+    return t["busy"], t["wall"], t["ops"]
 
 
 def stage_launches(stage, device) -> Dict[str, int]:
@@ -188,7 +198,7 @@ def measure_stages(stages: Dict[str, tuple], n_frames: int, batch: int, device,
         n = half if name in LONG_STAGES else iters
         t[f"{name}_ms"] = slope_s(stage, n, device, repeats) * 1e3
         if device.type == "cuda":
-            busy, wall = busy_ms(stage, device)
+            busy, wall, _ = busy_ms(stage, device)
             t[f"{name}_busy_ms"], t[f"{name}_traced_ms"] = busy, wall
             t[f"{name}_idle"] = 1 - busy / t[f"{name}_ms"]
             t[f"{name}_traced_idle"] = 1 - busy / wall
@@ -212,11 +222,10 @@ def run(batch: int = SERVING_BATCH, iters: int = 20, int8: bool = False,
     placement = ATTENTION_PLACEMENT if attention else {}
     _, warp, sams, raw, n_frames = build_inference(batch, device, int8_spade=int8, **placement)
     device = raw["flow_raw"].device
-    mode = "int8" if int8 else "bf16" if sams.compute_dtype == torch.bfloat16 else "f32"
     t = measure_stages(build_stages(warp, sams, raw), n_frames, batch, device, iters)
     t.update(device=(torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"),
              card=card_line() if device.type == "cuda" else None,
-             mode=mode + ("+attention" if attention else ""), batch=batch, n_frames=n_frames,
+             mode=clip_mode(sams, int8, attention), batch=batch, n_frames=n_frames,
              iters=iters, repeats=REPEATS)
     return t
 

@@ -1,4 +1,5 @@
-"""Card-only tests of the measurement tools (shineon_tpu_torch/tools). They
+"""Card-only tests of the measurement tools (shineon_tpu_torch/tools) and the
+bench's inference half (shineon_tpu_torch/bench.py). They
 import neither JAX nor the JAX package:
 
     python -m pytest tests/test_torch_measure_cuda.py -m gpu -q
@@ -65,3 +66,27 @@ def test_roof_census_int8_call_agrees_with_cudnn():
     assert ((out - ref).abs() <= tol * (ref.abs() + ref.pow(2).mean().sqrt())).all()
     t = roof.card_timer("cuda", iters=1, repeats=1)(kh, kw, cin, cout, B, H, W)
     assert 0 < t["i8_conv_ms"] < t["i8_ms"] and t["bf16_ms"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_bench_inference_launches_a_clip(int8):
+    """The bench's inference half at test_torch_cuda.py's small depth: each
+    serving kernel's launches in one clip, a finite positive frames/s
+    within its min and max, and the device's busy time and idle share."""
+    _cuda_or_skip()
+    from shineon_tpu_torch import bench
+
+    r = bench.measure_inference(2, int8=int8, iters=2, repeats=1, **SMALL)
+    n_frames = r["n_frames"]
+    want = {k: 0 for k in r["infer_clip_launches"]}
+    if int8:
+        want["fused_multispade_int8"] = want["multispade_hidden_absmax"] = (
+            n_frames * SITES_PER_FRAME)
+        want["int8_conv3x3"] = want["int8_quantize"] = n_frames * INT8_CONVS_PER_FRAME
+    else:
+        want["fused_multispade"] = n_frames * SITES_PER_FRAME
+    assert r["infer_clip_launches"] == want
+    assert r["mode"] == ("int8" if int8 else "bf16")
+    assert 0 < r["infer_fps_min"] <= r["infer_fps"] <= r["infer_fps_max"] < float("inf")
+    assert r["infer_busy_ms"] > 0 and r["infer_idle"] < 1

@@ -235,6 +235,21 @@ def test_call_means_sums_each_group_a_call_and_refuses_short_traces():
     assert call_means(calls, 2, {"attention": ("attention_wgmma",)}) is None
 
 
+def test_op_means_gives_each_kernel_a_call():
+    """tools.op_means (the --profile tables' reading of the same marked
+    calls): each kernel name's device ms and launches a call, the means
+    over the calls, a kernel absent from a call counted 0 there."""
+    from shineon_tpu_torch.tools import op_means
+
+    calls = [[_Event("chain_kernel_bf16", 100), _Event("fprop_conv", 30),
+              _Event("fprop_conv", 10)],
+             [_Event("chain_kernel_bf16", 300), _Event("fprop_conv", 50)]]
+    ops = op_means(calls)
+    assert set(ops) == {"chain_kernel_bf16", "fprop_conv"}
+    assert ops["chain_kernel_bf16"] == pytest.approx((0.2, 1))
+    assert ops["fprop_conv"] == pytest.approx((0.045, 1.5))
+
+
 def test_measure_stages_on_cpu_reports_the_jax_fields(clip):
     """measure_stages on explicit CPU tensors with a cheap stand-in for
     every stage: the JAX tool's fields, derived as there, every launch
