@@ -1,0 +1,16 @@
+"""host_ms.spade_chain.offline: the host's time in the SPADE sites' chain
+wrappers (networks/sams/spade.py::fused_chain), in the cells that report
+frames_per_s, ms: the mean over the first half of the traced hand-ins of
+the summed host time of their ``spade.chain`` spans
+(host_ms.one_clip.sync.py::host_ms). Layer: kernels
+(csrc/fused_multispade.cu SPADE chains)."""
+
+from pathlib import Path
+
+from benchmark import registry
+
+_spans = registry.metric("host_ms.one_clip.sync", Path(__file__).resolve().parents[1])
+
+
+def read(ctx):
+    return _spans.host_ms(ctx, "spade.chain")

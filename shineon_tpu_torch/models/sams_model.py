@@ -35,6 +35,7 @@ from typing import Dict
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from shineon_tpu_torch import tracing
 from shineon_tpu_torch.datasets.channels import RGB_CHANNELS, channels_for
 from shineon_tpu_torch.datasets.n_frames_interface import fold_frames_into_channels
 from shineon_tpu_torch.datasets.preprocess import preprocess_batch
@@ -283,27 +284,29 @@ class SamsModel(BaseModel):
         window, frame_maps = self.loop_inputs(feats, train)
 
         if N == 1:
-            _, current_maps = frame_maps(0)
-            out = self.frame(None, None, current_maps, train)
-            fake = out[..., :RGB_CHANNELS]
-            if opt.flow_warp:
-                wmask = out[..., RGB_CHANNELS:]
-                warped = resample2d(torch.zeros_like(fake), flows[:, 0])
-                fake = (1 - wmask) * warped + wmask * fake
+            with tracing.span("sams.frame"):
+                _, current_maps = frame_maps(0)
+                out = self.frame(None, None, current_maps, train)
+                fake = out[..., :RGB_CHANNELS]
+                if opt.flow_warp:
+                    wmask = out[..., RGB_CHANNELS:]
+                    warped = resample2d(torch.zeros_like(fake), flows[:, 0])
+                    fake = (1 - wmask) * warped + wmask * fake
             return fake, current_maps, fake[:, None]
 
         fakes = []
         for t in range(start_idx, N):
-            prev_maps, current_maps = frame_maps(t)
-            out = self.frame(window.detach(), prev_maps, current_maps, train)
-            fake = out[..., :RGB_CHANNELS]
-            if opt.flow_warp:
-                wmask = out[..., RGB_CHANNELS:]
-                # the reference warps buffer[t-1], the window's newest slot
-                warped = resample2d(window[:, -1], flows[:, t])
-                fake = (1 - wmask) * warped + wmask * fake
-            window = torch.cat([window[:, 1:], fake[:, None].to(window.dtype)], dim=1)
-            fakes.append(fake)
+            with tracing.span("sams.frame"):
+                prev_maps, current_maps = frame_maps(t)
+                out = self.frame(window.detach(), prev_maps, current_maps, train)
+                fake = out[..., :RGB_CHANNELS]
+                if opt.flow_warp:
+                    wmask = out[..., RGB_CHANNELS:]
+                    # the reference warps buffer[t-1], the window's newest slot
+                    warped = resample2d(window[:, -1], flows[:, t])
+                    fake = (1 - wmask) * warped + wmask * fake
+                window = torch.cat([window[:, 1:], fake[:, None].to(window.dtype)], dim=1)
+                fakes.append(fake)
         gen_frames = torch.stack(fakes, dim=1)
         if start_idx:
             gen_frames = torch.cat(

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from shineon_tpu_torch import tracing
 from shineon_tpu_torch.networks.activation import (
     get_activation_fn,
     get_resblock_activation_fn,
@@ -128,20 +129,21 @@ def fused_chain(spades, x, segmaps):
     SPADEs were built with ``int8``. Outside autograd the chain's weights
     are packed once into the kernel's layout and kept on its first SPADE
     until a weight changes (on the card: on the CPU the chain takes its
-    plain version, which reads the OIHW weights)."""
-    per_label = [s.fused_args(x, m) for s, m in zip(spades, segmaps)]
-    abs_, segs, wshs, bshs, wgbs, bgbs = zip(*per_label)
-    quantized = spades[0].int8
-    packed = None
-    if x.is_cuda and not torch.is_grad_enabled():
-        packed = spades[0]._packed.get(
-            [p for s in spades for p in s.parameters()], (x.dtype, quantized),
-            lambda: pack_weights(wshs, bshs, wgbs, bgbs, x.dtype, quantized),
+    plain version, which reads the OIHW weights). A span, ``spade.chain``."""
+    with tracing.span("spade.chain"):
+        per_label = [s.fused_args(x, m) for s, m in zip(spades, segmaps)]
+        abs_, segs, wshs, bshs, wgbs, bgbs = zip(*per_label)
+        quantized = spades[0].int8
+        packed = None
+        if x.is_cuda and not torch.is_grad_enabled():
+            packed = spades[0]._packed.get(
+                [p for s in spades for p in s.parameters()], (x.dtype, quantized),
+                lambda: pack_weights(wshs, bshs, wgbs, bgbs, x.dtype, quantized),
+            )
+        return fused_multispade_modulate(
+            x, torch.stack(abs_, dim=1), segs, wshs, bshs, wgbs, bgbs,
+            act_name=spades[0].activation, packed=packed, quantized=quantized,
         )
-    return fused_multispade_modulate(
-        x, torch.stack(abs_, dim=1), segs, wshs, bshs, wgbs, bgbs,
-        act_name=spades[0].activation, packed=packed, quantized=quantized,
-    )
 
 
 class AnySpadeResBlock(nn.Module):
@@ -186,14 +188,15 @@ class AnySpadeResBlock(nn.Module):
         return module(h, seg, train=train)
 
     def forward(self, x, seg, train: bool = True, update_stats: bool = False):
-        if self.learned_shortcut:
-            x_s = self._conv(self.conv_s, self._spade(self.norm_s, x, seg, train), train,
-                             update_stats)
-        else:
-            x_s = x
-        dx = self._spade(self.spade_0, x, seg, train)
-        dx = self._conv(self.conv_0, self.actvn(dx), train, update_stats)
-        dx = self._spade(self.spade_1, dx, seg, train)
-        dx = self._conv(self.conv_1, self.actvn(dx), train, update_stats)
-        return x_s + dx
+        with tracing.span("sams.resblock"):
+            if self.learned_shortcut:
+                x_s = self._conv(self.conv_s, self._spade(self.norm_s, x, seg, train), train,
+                                 update_stats)
+            else:
+                x_s = x
+            dx = self._spade(self.spade_0, x, seg, train)
+            dx = self._conv(self.conv_0, self.actvn(dx), train, update_stats)
+            dx = self._spade(self.spade_1, dx, seg, train)
+            dx = self._conv(self.conv_1, self.actvn(dx), train, update_stats)
+            return x_s + dx
 

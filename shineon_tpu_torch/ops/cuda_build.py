@@ -19,6 +19,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from shineon_tpu_torch import tracing
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -76,11 +78,13 @@ def build(name: str) -> str:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
+    """The loaded shared library of ``csrc/<name>.cu``, built if needed;
+    the build and load a set-up span, ``setup.kernel_load``."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            build(name)
-            lib = ctypes.CDLL(str(library_path(name)))
+            with tracing.setup("setup.kernel_load"):
+                build(name)
+                lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib

@@ -38,6 +38,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from shineon_tpu_torch import tracing
+
 KERNEL_SOURCE = "int8_conv3x3"
 CHANNEL_TILE = 64  # the f32 parity kernel takes Cin and Cout in multiples of this
 
@@ -344,7 +346,8 @@ def conv3x3_int8(x: torch.Tensor, qw: QuantizedWeight, bias: Optional[torch.Tens
     version on a CPU tensor. Forward only (serving)."""
     if x.device.type == "cpu":
         return conv3x3_int8_plain(x, qw, bias, dtype)
-    return _launch(x.contiguous(), qw, bias, dtype)
+    with tracing.span("int8.conv3x3"):
+        return _launch(x.contiguous(), qw, bias, dtype)
 
 
 conv3x3_int8.launches = 0

@@ -18,6 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from shineon_tpu_torch import tracing
 from shineon_tpu_torch.models.sams_model import SamsModel
 from shineon_tpu_torch.models.warp_model import WarpModel
 from shineon_tpu_torch.ops import grid_sample
@@ -102,16 +103,23 @@ def gen_frame(sams: SamsModel, window, prev_maps, current_maps) -> torch.Tensor:
 
 def gen_scan(sams: SamsModel, feats: Dict[str, torch.Tensor]) -> torch.Tensor:
     """The eval clip loop: every frame (B, N, H, W, 3)."""
-    return sams.generate_n_frames(feats, train=False)[2]
+    with tracing.span("serving.gen_scan"):
+        return sams.generate_n_frames(feats, train=False)[2]
 
 
 def make_one_clip(warp: WarpModel, sams: SamsModel):
-    """The clip function: raw batch -> all generated frames (B, N, H, W, 3)."""
+    """The clip function: raw batch -> all generated frames (B, N, H, W, 3).
+    Each call is a request of the port's spans (shineon_tpu_torch/tracing.py),
+    its stages spans inside it."""
 
     @torch.no_grad()
     def one_clip(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        feats = sams.features(batch)
-        return gen_scan(sams, with_warped_cloth(feats, gmm_warp(warp, feats)))
+        with tracing.request():
+            with tracing.span("serving.features"):
+                feats = sams.features(batch)
+            with tracing.span("serving.gmm_warp"):
+                feats = with_warped_cloth(feats, gmm_warp(warp, feats))
+            return gen_scan(sams, feats)
 
     return one_clip
 
@@ -121,10 +129,11 @@ def warm_up(sams: SamsModel, batch: Dict[str, torch.Tensor], rollouts: int = WAR
     """Train-mode rollouts that update the generator's running statistics
     and spectral ``u``: at random init the running stats are meaningless and
     the bf16 eval clip overflows without them (bench.py:189-204). With
-    trained weights this is a no-op."""
-    feats = sams.features(batch)
-    for _ in range(rollouts):
-        sams.generate_n_frames(feats, train=True)
+    trained weights this is a no-op. A set-up span, ``setup.warm_up``."""
+    with tracing.setup("setup.warm_up"):
+        feats = sams.features(batch)
+        for _ in range(rollouts):
+            sams.generate_n_frames(feats, train=True)
 
 
 def build_models(batch_size: int, device="cuda", seed: int = 420, **overrides):

@@ -1,7 +1,7 @@
 """Entry points of the port's tools (run with ``python -m``), and what the
 measurement tools share: the card's line, the device guard of their command
-lines, the serving kernels' launch counters and device time by
-torch.profiler."""
+lines, the serving kernels' launch counters (kept in
+``shineon_tpu_torch.tracing``) and device time by torch.profiler."""
 
 from __future__ import annotations
 
@@ -11,6 +11,19 @@ import subprocess
 import sys
 import time
 from typing import Callable, Dict, Optional
+
+_FROM_TRACING = ("serving_counters", "launch_counts")
+
+
+def __getattr__(name: str):
+    """``serving_counters`` and ``launch_counts``, whose home is
+    shineon_tpu_torch/tracing.py, imported on first use: chip_smoke.py loads
+    this file by its path beside another checkout's package."""
+    if name in _FROM_TRACING:
+        from shineon_tpu_torch import tracing
+
+        return getattr(tracing, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def card_line() -> Optional[str]:
@@ -41,26 +54,6 @@ def sync(device) -> None:
 
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def serving_counters() -> Dict[str, tuple]:
-    """Every serving kernel's launch counter as (wrapper, attribute):
-    kernel 1 (the full-precision chain), kernel 2 and its pre-pass, kernel
-    4 and its quantize pass, kernel 3 (attention)."""
-    from shineon_tpu_torch.ops import fused_attention, fused_spade, int8_conv
-
-    fmm = fused_spade.fused_multispade_modulate
-    return {"fused_multispade": (fmm, "launches"),
-            "fused_multispade_int8": (fmm, "int8_launches"),
-            "multispade_hidden_absmax": (fmm, "absmax_launches"),
-            "int8_conv3x3": (int8_conv.conv3x3_int8, "launches"),
-            "int8_quantize": (int8_conv.quantize_int8, "launches"),
-            "sagan_attention": (fused_attention.sagan_attention, "launches")}
-
-
-def launch_counts() -> Dict[str, int]:
-    """Every serving kernel's launch count now (:func:`serving_counters`)."""
-    return {n: getattr(owner, attr) for n, (owner, attr) in serving_counters().items()}
 
 
 @functools.lru_cache(maxsize=1)
