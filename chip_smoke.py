@@ -3313,7 +3313,9 @@ def run_tools(torch, counters, card):
         serving_stages,
         train_ablate,
     )
+    from shineon_tpu_torch.tracing import PLAN_COUNTERS
 
+    counters = {n: c for n, c in counters.items() if n not in PLAN_COUNTERS}
     n_sites = sum(site[4] for site in SITES)
     n_convs = sum(shape[4] for shape in CONVS)
     out = {"stages": {}, "ablation": {}, "census": {}, "roof": {}}
@@ -3343,7 +3345,7 @@ def run_tools(torch, counters, card):
         t = serving_stages.measure_stages(stages, n_frames, batch, DEVICE, TOOL_ITERS, repeats=1)
         measured_s = time.perf_counter() - t1
         total = launch_counts(counters)
-        got = {s: t[f"{s}_launches"] for s in serving_stages.STAGES}
+        got = {s: {n: t[f"{s}_launches"][n] for n in counters} for s in serving_stages.STAGES}
         with torch.no_grad():
             ref = one_clip(raw).float()
             comp = serving_stages.compose_stages(stages).float()
@@ -3477,13 +3479,18 @@ def run_bench(torch, counters, card, clips, profile_dir):
     in the run; the 1-clip warm-up window's frame mean against
     one_clip(raw)'s (its launches after the run are not counted; the
     window's 1e-12 bump of flow_raw is below f32's resolution), within the
-    bf16 chain tolerance. Then bench.clip_flops_b1 (--flops) within 10% of
+    bf16 chain tolerance; the SPADE sites' plan builds and hits, and their
+    segmap builds and hits, each the clip's sites in all (the plan counters
+    are left out of ``counters``, here and in phase 12). Then
+    bench.clip_flops_b1 (--flops) within 10% of
     the analytic count, and both --profile tables in ``profile_dir``, each
     with rows: the bf16 cell's clip table, and the step table that phase 6
     wrote from its traced attention step. Returns the readings."""
     from shineon_tpu_torch import bench
     from shineon_tpu_torch.ops import fused_spade as fs
+    from shineon_tpu_torch.tracing import PLAN_COUNTERS
 
+    counters = {n: c for n, c in counters.items() if n not in PLAN_COUNTERS}
     n_sites = sum(site[4] for site in SITES)
     n_convs = sum(shape[4] for shape in CONVS)
     timed_clips = 1 + BENCH_REPEATS * (bench.ITERS + 1)
@@ -3509,8 +3516,12 @@ def run_bench(torch, counters, card, clips, profile_dir):
             ref = float(one_clip(raw).float().mean())
         del one_clip, raw
         err = fs.error_ratio(torch.tensor([r["infer_warmup_mean"]]), torch.tensor([ref]))
+        launched = r["infer_clip_launches"]
+        plans = {n: launched[n] for n in PLAN_COUNTERS}
         ok = (0 < r["infer_fps_min"] <= r["infer_fps"] <= r["infer_fps_max"] < float("inf")
-              and r["infer_clip_launches"] == clip and r["mode"] == mode
+              and {n: launched[n] for n in counters} == clip and r["mode"] == mode
+              and plans["plan_builds"] + plans["plan_hits"] == n_sites * n_frames
+              and plans["segmap_builds"] + plans["segmap_hits"] == n_sites * n_frames
               and all(total[n] >= v * timed_clips for n, v in clip.items())
               and err <= fs.KERNEL_TOLERANCE[torch.bfloat16])
         log(f"13 bench {mode} batch {batch}: {r['infer_fps']:.2f} frames/s (min "
@@ -3520,7 +3531,8 @@ def run_bench(torch, counters, card, clips, profile_dir):
             f"{r['infer_idle']:.3f} (traced {r['infer_traced_ms']:.3f} ms a clip); "
             f"{BENCH_REPEATS} repeats of {bench.ITERS} chained clips, measured in "
             f"{measured_s:.1f} s [{card}]")
-        log(f"13 launches a clip {r['infer_clip_launches']} (expected {clip}), in the run "
+        log(f"13 launches a clip {r['infer_clip_launches']} (expected {clip}; plan builds "
+            f"and hits, segmap builds and hits each {n_sites * n_frames} in all), in the run "
             f"{total}; 1-clip window mean {r['infer_warmup_mean']!r} against one_clip "
             f"{ref!r}: {err:.3g} (limit {fs.KERNEL_TOLERANCE[torch.bfloat16]}) "
             f"{'ok' if ok else 'FAIL'}")
@@ -3575,6 +3587,7 @@ def main() -> int:
     from shineon_tpu_torch.ops import probes as pr
     from shineon_tpu_torch.serving import build_inference
     from shineon_tpu_torch.tools import conv_probe, serving_counters
+    from shineon_tpu_torch.tracing import PLAN_COUNTERS
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3612,7 +3625,7 @@ def main() -> int:
     n_att_sites = sum(site[5] for site in SITES)
     n_convs = sum(shape[4] for shape in CONVS)
     n_att = sum(shape[3] for shape in ATTENTION_SHAPES)
-    q_counters = serving_counters()
+    q_counters = {n: c for n, c in serving_counters().items() if n not in PLAN_COUNTERS}
     fp_counters = {n: q_counters[n] for n in ("fused_multispade", "sagan_attention")}
     q_expected = {"fused_multispade": 0, "fused_multispade_int8": n_sites,
                   "multispade_hidden_absmax": n_sites, "int8_conv3x3": n_convs,

@@ -12,6 +12,7 @@ mode): every fused chain is quantized, and every resblock conv that
 from __future__ import annotations
 
 import re
+import weakref
 from typing import Optional
 
 import torch
@@ -28,7 +29,12 @@ from shineon_tpu_torch.networks.normalization import (
     SyncBatchNorm,
     instance_norm,
 )
-from shineon_tpu_torch.ops.fused_spade import fused_multispade_modulate, pack_weights
+from shineon_tpu_torch.ops.fused_spade import (
+    fused_multispade_modulate,
+    kernel_segmap,
+    pack_weights,
+    plan_chain,
+)
 
 
 def int8_conv_profitable(ks: int, cin: int, cout: int, min_channels: int = 64) -> bool:
@@ -70,7 +76,8 @@ class SPADE(nn.Module):
     the mlp_shared conv when a parent computed it). ``fused_args`` returns
     the chain arguments ``(ab, seg, wsh, bsh, wgb, bgb)`` of this label for
     the kernel; ``forward_fused`` runs the kernel on this label alone (see
-    :func:`fused_chain`), quantized when built with ``int8``.
+    :func:`fused_chain`), quantized when built with ``int8``. A chain's
+    first SPADE keeps its packed weights and its launch plan.
     """
 
     def __init__(self, norm_nc: int, label_nc: int, config_text: str = "spadeinstance3x3",
@@ -86,6 +93,7 @@ class SPADE(nn.Module):
         self.mlp_gamma = Conv2d(nhidden, norm_nc, ks, padding=pad, dtype=dtype)
         self.mlp_beta = Conv2d(nhidden, norm_nc, ks, padding=pad, dtype=dtype)
         self._packed = EvalCache()
+        self._plan = None  # (key, the tensors it was made from, ChainPlan): chain_plan
 
     def _normalize(self, x, train, return_affine=False):
         if self.norm_type == "instance":
@@ -108,11 +116,26 @@ class SPADE(nn.Module):
         b = torch.cat([self.mlp_gamma.bias, self.mlp_beta.bias], dim=0)
         return w, b
 
-    def fused_args(self, x, segmap):
-        """Eval: the norm folded with running (or instance) statistics."""
+    def state_tensors(self):
+        """Every parameter and buffer the eval chain reads: the three convs'
+        and the norm's running statistics (read from the modules' own
+        tables, several times faster than ``parameters()``)."""
+        mods = (self.mlp_shared, self.mlp_gamma, self.mlp_beta)
+        if self.norm_type != "instance":
+            mods += (self.norm,)
+        return [t for m in mods for t in (*m._parameters.values(), *m._buffers.values())
+                if t is not None]
+
+    def folded_norm(self, x):
+        """Eval: the norm folded with running (or instance) statistics, as
+        (B, 2C) f32 [a | b] with norm(x) = x * a + b."""
         B, C = x.shape[0], x.shape[-1]
         a, b = self._normalize(x, train=False, return_affine=True)
-        ab = torch.cat([a.expand(B, C), b.expand(B, C)], dim=-1).float()
+        return torch.cat([a.expand(B, C), b.expand(B, C)], dim=-1).float()
+
+    def fused_args(self, x, segmap):
+        """Eval: the norm folded with running (or instance) statistics."""
+        ab = self.folded_norm(x)
         seg = resize_nearest(segmap, x.shape[-3], x.shape[-2]).to(x.dtype)
         wgb, bgb = self.gb_params()
         return ab, seg, self.mlp_shared.weight, self.mlp_shared.bias, wgb, bgb
@@ -122,20 +145,100 @@ class SPADE(nn.Module):
         return fused_chain([self], x, [segmap])
 
 
+def chain_plan(spades, x):
+    """The launch plan of the chain of ``spades`` for x's shape, dtype and
+    device (:func:`~shineon_tpu_torch.ops.fused_spade.plan_chain`): packed
+    weights, the norms folded with their running statistics, the checked
+    operands. Kept on the first SPADE and made anew when a parameter or
+    buffer of the chain is replaced or modified in place (data pointer or
+    version counter, as ``EvalCache``), or x's shape, dtype or device
+    changes. None for a chain with an instance norm, whose fold depends on
+    x. Counts ``fused_chain.plan_builds`` or ``plan_hits``."""
+    if any(s.norm_type == "instance" for s in spades):
+        return None
+    first = spades[0]
+    state = [t for s in spades for t in s.state_tensors()]
+    key = (tuple((t.data_ptr(), t._version) for t in state), tuple(x.shape), x.dtype,
+           x.device, first.int8, first.activation)
+    kept = first._plan
+    if kept is not None and kept[0] == key:
+        fused_chain.plan_hits += 1
+        return kept[2]
+
+    def pack():
+        wgbs, bgbs = zip(*(s.gb_params() for s in spades))
+        return pack_weights([s.mlp_shared.weight for s in spades],
+                            [s.mlp_shared.bias for s in spades], wgbs, bgbs, x.dtype,
+                            first.int8)
+
+    packed = first._packed.get([p for s in spades for p in s.parameters()],
+                               (x.dtype, first.int8), pack)
+    ab = torch.stack([s.folded_norm(x) for s in spades], dim=1)
+    plan = plan_chain(x, ab, packed, first.activation)
+    # the plan holds its tensors: no new tensor can take a freed one's address
+    first._plan = (key, state, plan)
+    fused_chain.plan_builds += 1
+    return plan
+
+
+class SegmapMemo:
+    """The chains' segmap operands (``kernel_segmap`` of the labelmaps
+    resized to a site's resolution) by their labelmaps, resolution and
+    dtype: the sites of a frame at one resolution share one. An entry holds
+    a weak reference to each labelmap and its version counter, so it
+    matches only the same live tensors unmodified; an entry whose labelmap
+    is gone is dropped at the next build. Counts ``fused_chain.segmap_builds``
+    or ``segmap_hits``."""
+
+    def __init__(self, size: int = 64):
+        self.size = size  # entries kept at most, the oldest dropped first
+        self._entries = {}  # key -> (weak references, versions, operand)
+
+    def get(self, segmaps, h: int, w: int, dtype) -> torch.Tensor:
+        key = (tuple(map(id, segmaps)), h, w, dtype)
+        versions = tuple(m._version for m in segmaps)
+        entry = self._entries.get(key)
+        if (entry is not None and entry[1] == versions
+                and all(r() is m for r, m in zip(entry[0], segmaps))):
+            fused_chain.segmap_hits += 1
+            return entry[2]
+        seg = kernel_segmap([resize_nearest(m, h, w).to(dtype) for m in segmaps], dtype)
+        for k in [k for k, e in self._entries.items() if any(r() is None for r in e[0])]:
+            del self._entries[k]
+        self._entries[key] = (tuple(weakref.ref(m) for m in segmaps), versions, seg)
+        while len(self._entries) > self.size:
+            del self._entries[next(iter(self._entries))]
+        fused_chain.segmap_builds += 1
+        return seg
+
+
+_segmaps = SegmapMemo()
+
+
 def fused_chain(spades, x, segmaps):
     """Eval: the SPADEs applied to x in turn as ONE kernel call, each norm
     folded with its running statistics (instance statistics only in a chain
     of one: they depend on the chain's running value), quantized if the
-    SPADEs were built with ``int8``. Outside autograd the chain's weights
-    are packed once into the kernel's layout and kept on its first SPADE
-    until a weight changes (on the card: on the CPU the chain takes its
-    plain version, which reads the OIHW weights). A span, ``spade.chain``."""
+    SPADEs were built with ``int8``. On the card outside autograd a chain
+    of running-statistics norms launches from its cached plan
+    (:func:`chain_plan`) on a shared segmap operand (:class:`SegmapMemo`);
+    otherwise the chain's weights are packed once and kept on its first
+    SPADE until a weight changes (on the card: on the CPU the chain takes
+    its plain version, which reads the OIHW weights), and the call goes
+    through the autograd Function. A span, ``spade.chain``."""
     with tracing.span("spade.chain"):
+        cached = x.is_cuda and not torch.is_grad_enabled()
+        plan = chain_plan(spades, x) if cached else None
+        if plan is not None:
+            seg = _segmaps.get(segmaps, x.shape[-3], x.shape[-2], x.dtype)
+            # through the wrapper, whose (x, ab, segs) a patched stand-in
+            # such as benchmark/faults.py's no_modulation still reads
+            return fused_multispade_modulate(x, plan.ab, segmaps, plan=plan, seg=seg)
         per_label = [s.fused_args(x, m) for s, m in zip(spades, segmaps)]
         abs_, segs, wshs, bshs, wgbs, bgbs = zip(*per_label)
         quantized = spades[0].int8
         packed = None
-        if x.is_cuda and not torch.is_grad_enabled():
+        if cached:
             packed = spades[0]._packed.get(
                 [p for s in spades for p in s.parameters()], (x.dtype, quantized),
                 lambda: pack_weights(wshs, bshs, wgbs, bgbs, x.dtype, quantized),
@@ -144,6 +247,12 @@ def fused_chain(spades, x, segmaps):
             x, torch.stack(abs_, dim=1), segs, wshs, bshs, wgbs, bgbs,
             act_name=spades[0].activation, packed=packed, quantized=quantized,
         )
+
+
+fused_chain.plan_builds = 0
+fused_chain.plan_hits = 0
+fused_chain.segmap_builds = 0
+fused_chain.segmap_hits = 0
 
 
 class AnySpadeResBlock(nn.Module):

@@ -23,6 +23,11 @@ where (a_l, b_l) is the label's norm folded to per-channel coefficients.
   quantized chain's pre-pass, which takes each label's hidden abs-max).
 * Gradients go through :class:`FusedMultiSpade`, whose backward recomputes
   through the full-precision plain version (serving never needs it).
+* :func:`plan_chain` checks and keeps everything a launch takes but x and
+  the segmap operand (a :class:`ChainPlan`); :func:`launch_plan` launches
+  from it after checking only those two. The wrapper's uncached launch is
+  the two in turn; a SPADE site at eval keeps its plan
+  (``networks/sams/spade.py::chain_plan``) and passes it as ``plan``.
 
 Weights use the port's layout: OIHW ``wsh`` (128, cs, 3, 3) and ``wgb``
 (2C, 128, 3, 3) with gamma's C output channels first.
@@ -349,10 +354,27 @@ def pad_channels(x: torch.Tensor, ab: torch.Tensor, Cp: int):
             _pad_gamma_beta(ab.transpose(0, 2), Cp).transpose(0, 2).contiguous())
 
 
-def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
-    """Validate and launch the CUDA kernel (quantized: the pre-pass, then
-    the quantized chain) on the current stream, on x and ab zero-padded to
-    the packed weights' channels."""
+class ChainPlan(NamedTuple):
+    """A chain's launch but for x and the segmap operand, checked once
+    (:func:`plan_chain`) and launched as often as wanted
+    (:func:`launch_plan`). At eval a SPADE site keeps one while its weights
+    and running statistics are unchanged (``networks/sams/spade.py``)."""
+
+    shape: tuple  # x's (B, H, W, C)
+    dtype: torch.dtype
+    device: torch.device
+    Cp: int  # padded_channels(C)
+    seg_shape: tuple  # the segmap operand's (B, H, W, channels), in dtype
+    ab: torch.Tensor  # (B, L, 2Cp) f32, each half zero-padded from C to Cp
+    packed: PackedWeights
+    act_name: str
+
+
+def plan_chain(x, ab, packed: PackedWeights, act_name: str) -> ChainPlan:
+    """Validate a chain's operands but the segmap against x's shape, dtype
+    and device (x's values are not read), and keep them as a
+    :class:`ChainPlan` with ``ab`` zero-padded to the packed weights'
+    channels. Needs no card: only :func:`launch_plan` does."""
     quantized = packed.sgb is not None
     _check(act_name in ACTIVATIONS, f"activation {act_name!r} (one of {ACTIVATIONS})")
     _check(x.dim() == 4, "x must be (B, H, W, C)")
@@ -364,13 +386,13 @@ def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
     _check(all(c >= 1 for c in packed.cs), f"segmap channels {packed.cs} (at least 1 a label)")
     _check(tuple(ab.shape) == (B, L, 2 * C), f"ab has shape {tuple(ab.shape)}, expected "
            f"{(B, L, 2 * C)}")
-    x, ab = pad_channels(x, ab, Cp)
+    if C != Cp:
+        ab = _pad_gamma_beta(ab.transpose(0, 2), Cp).transpose(0, 2).contiguous()
     wsh_shape, wgb_shape = _packed_shapes(x.dtype, packed.cs, Cp, quantized)
     seg_c = (SEG_CHANNELS * sum(segments(c) for c in packed.cs) if x.dtype == torch.bfloat16
              else sum(packed.cs))
     expect = {
         "ab": (ab, (B, L, 2 * Cp), torch.float32),
-        "seg": (seg, (B, H, W, seg_c), x.dtype),
         "wsh": (packed.wsh, wsh_shape, x.dtype),
         "bsh": (packed.bsh, (L, NHID), torch.float32),
         "wgb": (packed.wgb, wgb_shape, torch.int8 if quantized else x.dtype),
@@ -378,34 +400,70 @@ def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
     }
     if quantized:
         expect["sgb"] = (packed.sgb, (L, 2 * Cp), torch.float32)
-    tensors = {"x": x}
     for name, (t, shape, dtype) in expect.items():
         _check(tuple(t.shape) == shape, f"{name} has shape {tuple(t.shape)}, expected {shape}")
         _check(t.dtype == dtype, f"{name} has dtype {t.dtype}, expected {dtype}")
-        tensors[name] = t
-    for name, t in tensors.items():
+    for name, (t, _, _) in expect.items():
         _check(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
         _check(t.is_contiguous(), f"{name} must be contiguous")
+    return ChainPlan(tuple(x.shape), x.dtype, x.device, Cp, (B, H, W, seg_c), ab, packed,
+                     act_name)
 
+
+def launch_plan(plan: ChainPlan, x, seg) -> torch.Tensor:
+    """Launch the CUDA kernel (quantized: the pre-pass, then the quantized
+    chain) on the current stream, on x and the segmap operand ``seg``
+    (:func:`kernel_segmap`) with the plan's other operands. Checks what a
+    plan leaves open: x's and seg's shape, dtype, device and layout."""
+    x = x.contiguous()
+    if tuple(x.shape) != plan.shape or x.dtype != plan.dtype or x.device != plan.device:
+        _check(False, f"x is {tuple(x.shape)} {x.dtype} on {x.device}, the plan's "
+                      f"{plan.shape} {plan.dtype} on {plan.device}")
+    if tuple(seg.shape) != plan.seg_shape:
+        _check(False, f"seg has shape {tuple(seg.shape)}, expected {plan.seg_shape}")
+    if seg.dtype != plan.dtype:
+        _check(False, f"seg has dtype {seg.dtype}, expected {plan.dtype}")
+    if seg.device != plan.device:
+        _check(False, f"seg is on {seg.device}, x on {plan.device}")
+    if not seg.is_contiguous():
+        _check(False, "seg must be contiguous")
+    B, H, W, C = plan.shape
+    Cp, packed = plan.Cp, plan.packed
+    if C != Cp:
+        x = F.pad(x, (0, Cp - C))
     y = torch.empty_like(x)
     lib, call = _library()
-    cs = (ctypes.c_int * L)(*packed.cs)
-    is_bf16 = int(x.dtype == torch.bfloat16)
-    act = ACTIVATIONS.index(act_name)
-    if not quantized:
-        call(lib.multispade_chain_forward, "fused_multispade", x.device, is_bf16, act,
-             x.data_ptr(), ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(),
+    is_bf16 = int(plan.dtype == torch.bfloat16)
+    act = ACTIVATIONS.index(plan.act_name)
+    L = len(packed.cs)
+    if packed.sgb is None:
+        call(lib.multispade_chain_forward, "fused_multispade", plan.device, is_bf16, act,
+             x.data_ptr(), plan.ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(),
              packed.bsh.data_ptr(), packed.wgb.data_ptr(), packed.bgb.data_ptr(), y.data_ptr(),
-             B, H, W, Cp, L, cs)
+             B, H, W, Cp, L, _cs_array(packed.cs))
         fused_multispade_modulate.launches += 1
-        return y if C == Cp else y[..., :C].contiguous()
-    absmax = hidden_absmax(seg, packed, act_name)
-    call(lib.multispade_chain_forward_int8, "fused_multispade_int8", x.device, is_bf16, act,
-         x.data_ptr(), ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(),
-         packed.bsh.data_ptr(), packed.wgb.data_ptr(), packed.sgb.data_ptr(),
-         packed.bgb.data_ptr(), absmax.data_ptr(), y.data_ptr(), B, H, W, Cp, L, cs)
-    fused_multispade_modulate.int8_launches += 1
+    else:
+        absmax = hidden_absmax(seg, packed, plan.act_name)
+        call(lib.multispade_chain_forward_int8, "fused_multispade_int8", plan.device, is_bf16,
+             act, x.data_ptr(), plan.ab.data_ptr(), seg.data_ptr(), packed.wsh.data_ptr(),
+             packed.bsh.data_ptr(), packed.wgb.data_ptr(), packed.sgb.data_ptr(),
+             packed.bgb.data_ptr(), absmax.data_ptr(), y.data_ptr(), B, H, W, Cp, L,
+             _cs_array(packed.cs))
+        fused_multispade_modulate.int8_launches += 1
     return y if C == Cp else y[..., :C].contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _cs_array(cs: tuple):
+    """The labels' segmap channels as the kernels' ctypes int array (read,
+    never written, by a launch)."""
+    return (ctypes.c_int * len(cs))(*cs)
+
+
+def _launch(x, ab, seg, packed: PackedWeights, act_name: str) -> torch.Tensor:
+    """Validate and launch the CUDA kernel on x and ab zero-padded to the
+    packed weights' channels: :func:`plan_chain`, then :func:`launch_plan`."""
+    return launch_plan(plan_chain(x, ab, packed, act_name), x, seg)
 
 
 @functools.lru_cache(maxsize=None)
@@ -430,8 +488,11 @@ def _library():
     lib.multispade_chain_error_string.argtypes = [ctypes.c_int]
 
     def call(fn, what, device, *args):
-        with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if device.index == torch.cuda.current_device():
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             msg = lib.multispade_chain_error_string(err).decode()
             raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
@@ -452,7 +513,7 @@ def hidden_absmax(seg: torch.Tensor, packed: PackedWeights, act_name: str = "rel
     call(lib.multispade_hidden_absmax, "multispade_hidden_absmax", seg.device,
          int(seg.dtype == torch.bfloat16), ACTIVATIONS.index(act_name), seg.data_ptr(),
          packed.wsh.data_ptr(), packed.bsh.data_ptr(), absmax.data_ptr(), B, H, W, L,
-         (ctypes.c_int * L)(*packed.cs))
+         _cs_array(packed.cs))
     fused_multispade_modulate.absmax_launches += 1
     return absmax
 
@@ -501,13 +562,16 @@ def fused_multispade_modulate(
     x: torch.Tensor,
     ab: torch.Tensor,
     segs: Sequence[torch.Tensor],
-    wshs: Sequence[torch.Tensor],
-    bshs: Sequence[torch.Tensor],
-    wgbs: Sequence[torch.Tensor],
-    bgbs: Sequence[torch.Tensor],
+    wshs: Sequence[torch.Tensor] = (),
+    bshs: Sequence[torch.Tensor] = (),
+    wgbs: Sequence[torch.Tensor] = (),
+    bgbs: Sequence[torch.Tensor] = (),
     act_name: str = "relu",
     packed: PackedWeights | None = None,
     quantized: bool = False,
+    *,
+    plan: ChainPlan | None = None,
+    seg: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Apply the sequential multi-label SPADE modulation chain, fused.
 
@@ -516,7 +580,15 @@ def fused_multispade_modulate(
     :func:`pack_weights`, with the same ``quantized``) so a caller serving
     many frames packs once. ``quantized`` runs the [gamma | beta] conv in
     int8 (:func:`multispade_modulate_plain_int8`), the int8 serving mode.
+
+    With ``plan`` (:func:`plan_chain`; ``ab`` is the plan's) the call
+    launches at once on the card, outside autograd (:func:`launch_plan`):
+    ``seg`` is the segmap operand (:func:`kernel_segmap` of the labels'
+    segmaps at x's resolution), ``segs`` gives only the number of labels,
+    and the weight arguments are not read.
     """
+    if plan is not None:
+        return launch_plan(plan, x, seg)
     L = len(segs)
     return FusedMultiSpade.apply(
         act_name, quantized, packed, L, x, ab, *segs, *wshs, *bshs, *wgbs, *bgbs

@@ -58,6 +58,22 @@ Counters
 The hand-written kernels' wrappers count their launches in attributes
 (``fused_multispade_modulate.launches`` and the others):
 :func:`serving_counters` names each, :func:`launch_counts` reads them.
+Beside them, and read the same way, the SPADE sites' launch plans and
+segmap operands at eval on the card
+(``networks/sams/spade.py::fused_chain``, :data:`PLAN_COUNTERS`):
+
+================= =====================================================
+``plan_builds``   a site's launch plan made: its first call, or a
+                  parameter, running statistic or x's shape changed
+``plan_hits``     a site launched from its kept plan (after warm-up: every
+                  site of a hand-in, 150 at the serving clip)
+``segmap_builds`` a segmap operand made for a frame's labelmaps at one
+                  resolution (9 a frame at the serving clip)
+``segmap_hits``   a site that took a segmap operand already made
+================= =====================================================
+
+A chain with an instance norm, the CPU and autograd take neither plan nor
+memo and count none of the four.
 """
 
 from __future__ import annotations
@@ -216,10 +232,15 @@ def write_chrome_trace(path: Optional[str]) -> None:
         json.dump({"traceEvents": events, "displayTimeUnit": "ms"}, f)
 
 
+PLAN_COUNTERS = ("plan_builds", "plan_hits", "segmap_builds", "segmap_hits")
+
+
 def serving_counters() -> Dict[str, tuple]:
     """Every serving kernel's launch counter as (wrapper, attribute):
     kernel 1 (the full-precision chain), kernel 2 and its pre-pass, kernel
-    4 and its quantize pass, kernel 3 (attention)."""
+    4 and its quantize pass, kernel 3 (attention); then the SPADE sites'
+    :data:`PLAN_COUNTERS` on ``fused_chain``."""
+    from shineon_tpu_torch.networks.sams import spade
     from shineon_tpu_torch.ops import fused_attention, fused_spade, int8_conv
 
     fmm = fused_spade.fused_multispade_modulate
@@ -228,11 +249,13 @@ def serving_counters() -> Dict[str, tuple]:
             "multispade_hidden_absmax": (fmm, "absmax_launches"),
             "int8_conv3x3": (int8_conv.conv3x3_int8, "launches"),
             "int8_quantize": (int8_conv.quantize_int8, "launches"),
-            "sagan_attention": (fused_attention.sagan_attention, "launches")}
+            "sagan_attention": (fused_attention.sagan_attention, "launches"),
+            **{name: (spade.fused_chain, name) for name in PLAN_COUNTERS}}
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every serving kernel's launch count now (:func:`serving_counters`)."""
+    """Every serving kernel's launch count and the plan counters now
+    (:func:`serving_counters`)."""
     return {n: getattr(owner, attr) for n, (owner, attr) in serving_counters().items()}
 
 

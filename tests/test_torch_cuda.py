@@ -71,6 +71,83 @@ def test_build_inference_cuda_int8_launches_every_kernel():
                         n_frames * INT8_CONVS_PER_FRAME]
 
 
+# (H, W, C, segmap channels) of a 4-label decoder site (the current frame's
+# labels) and a 1-label encoder site of the serving clip
+PLANNED_SITES = {"decoder_4_labels": (64, 48, 256, (4, 3, 3, 2)),
+                 "encoder_1_label": (128, 96, 128, (8,))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("site", sorted(PLANNED_SITES))
+def test_cuda_planned_chain_equals_uncached_launch(site, int8):
+    """At a 4-label decoder site and a 1-label encoder site, bf16 and int8:
+    fused_chain through its kept plan and shared segmap operand returns the
+    same tensor, bit for bit, as fused_multispade_modulate's uncached
+    launch on the same operands, with the same launches; its second call
+    makes no plan and no segmap operand."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.networks.sams import spade as tspade
+    from shineon_tpu_torch.ops import fused_spade as fs
+
+    H, W, C, cs_list = PLANNED_SITES[site]
+    g = torch.Generator().manual_seed(11)
+    spades = [tspade.SPADE(C, c, "spadesyncbatch3x3", dtype=torch.bfloat16, int8=int8)
+              for c in cs_list]
+    with torch.no_grad():
+        for s in spades:
+            for t in (*s.parameters(), *s.buffers()):
+                t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.5)
+            s.cuda()
+    x = torch.randn(2, H, W, C, generator=g).to(torch.bfloat16).cuda()
+    maps = [torch.randn(2, 256, 192, c, generator=g).cuda() for c in cs_list]
+    fc, fmm = tspade.fused_chain, fs.fused_multispade_modulate
+    counts = lambda: (fc.plan_builds, fc.plan_hits, fc.segmap_builds, fc.segmap_hits,  # noqa: E731
+                      fmm.launches, fmm.int8_launches, fmm.absmax_launches)
+    with torch.no_grad():
+        c0 = counts()
+        first = tspade.fused_chain(spades, x, maps)
+        c1 = counts()
+        second = tspade.fused_chain(spades, x, maps)
+        c2 = counts()
+        ab, segs, wshs, bshs, wgbs, bgbs = zip(*(s.fused_args(x, m) for s, m in zip(spades, maps)))
+        ref = fmm(x, torch.stack(ab, dim=1), segs, wshs, bshs, wgbs, bgbs, quantized=int8)
+        c3 = counts()
+    torch.cuda.synchronize()
+    assert torch.equal(first, ref) and torch.equal(second, ref)
+    launched = (0, 1, 1) if int8 else (1, 0, 0)
+    assert [b - a for a, b in zip(c0, c1)] == [1, 0, 1, 0, *launched]
+    assert [b - a for a, b in zip(c1, c2)] == [0, 1, 0, 1, *launched]
+    assert [b - a for a, b in zip(c2, c3)] == [0, 0, 0, 0, *launched]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_cuda_second_hand_in_makes_no_plan(int8):
+    """A small clip's second hand-in launches every SPADE site from its kept
+    plan: no plan made, one plan hit a site, and a segmap operand made
+    once a frame for each labelmap and resolution (3 a frame here: the
+    encoder block's labelmap at 128x96, the current frame's at 64x48 in
+    the middle block and at 128x96 in the decoder block)."""
+    _cuda_or_skip()
+    from shineon_tpu_torch.networks.sams import spade as tspade
+    from shineon_tpu_torch.serving import build_inference
+
+    one_clip, warp, sams, raw, n_frames = build_inference(2, int8_spade=int8, **SMALL)
+    fc = tspade.fused_chain
+    counts = lambda: (fc.plan_builds, fc.plan_hits, fc.segmap_builds, fc.segmap_hits)  # noqa: E731
+    c0 = counts()
+    one_clip(raw)
+    c1 = counts()
+    frames = one_clip(raw)
+    c2 = counts()
+    torch.cuda.synchronize()
+    assert torch.isfinite(frames.float()).all()
+    sites = n_frames * SITES_PER_FRAME
+    assert c1[0] - c0[0] == SITES_PER_FRAME and c1[0] - c0[0] + c1[1] - c0[1] == sites
+    assert [b - a for a, b in zip(c1, c2)] == [0, sites, 3 * n_frames, sites - 3 * n_frames]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_quantized_chain_matches_plain(dtype):

@@ -9,6 +9,7 @@ Without a CUDA device they skip."""
 import pytest
 import torch
 
+from shineon_tpu_torch.tracing import PLAN_COUNTERS
 from test_torch_cuda import INT8_CONVS_PER_FRAME, SITES_PER_FRAME, SMALL, _cuda_or_skip
 
 
@@ -27,6 +28,7 @@ def test_stage_launches_a_call(int8):
     chain = "fused_multispade_int8" if int8 else "fused_multispade"
     for name, stage in stages.items():
         got = serving_stages.stage_launches(stage, raw["flow_raw"].device)
+        plans = {k: got.pop(k) for k in PLAN_COUNTERS}
         frames = {"features": 0, "gmm_warp": 0, "gen_frame": 1}.get(name, n_frames)
         want = {k: 0 for k in got}
         want[chain] = frames * SITES_PER_FRAME
@@ -34,6 +36,9 @@ def test_stage_launches_a_call(int8):
             want["multispade_hidden_absmax"] = frames * SITES_PER_FRAME
             want["int8_conv3x3"] = want["int8_quantize"] = frames * INT8_CONVS_PER_FRAME
         assert got == want, name
+        # every site launches from a plan, made once (its first call) or kept
+        assert plans["plan_builds"] + plans["plan_hits"] == want[chain], name
+        assert plans["segmap_builds"] + plans["segmap_hits"] == want[chain], name
 
 
 @pytest.mark.gpu
@@ -79,14 +84,17 @@ def test_bench_inference_launches_a_clip(int8):
 
     r = bench.measure_inference(2, int8=int8, iters=2, repeats=1, **SMALL)
     n_frames = r["n_frames"]
-    want = {k: 0 for k in r["infer_clip_launches"]}
+    launched = dict(r["infer_clip_launches"])
+    plans = {k: launched.pop(k) for k in PLAN_COUNTERS}
+    want = {k: 0 for k in launched}
     if int8:
         want["fused_multispade_int8"] = want["multispade_hidden_absmax"] = (
             n_frames * SITES_PER_FRAME)
         want["int8_conv3x3"] = want["int8_quantize"] = n_frames * INT8_CONVS_PER_FRAME
     else:
         want["fused_multispade"] = n_frames * SITES_PER_FRAME
-    assert r["infer_clip_launches"] == want
+    assert launched == want
+    assert plans["plan_builds"] + plans["plan_hits"] == n_frames * SITES_PER_FRAME
     assert r["mode"] == ("int8" if int8 else "bf16")
     assert 0 < r["infer_fps_min"] <= r["infer_fps"] <= r["infer_fps_max"] < float("inf")
     assert r["infer_busy_ms"] > 0 and r["infer_idle"] < 1

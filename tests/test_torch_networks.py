@@ -22,6 +22,7 @@ from shineon_tpu_torch.networks.sams import spade as tspade
 from shineon_tpu_torch.networks.sams.multispade import MultiSpade
 from shineon_tpu_torch.networks.sams.sams_generator import SamsGenerator
 from shineon_tpu_torch.networks.sams.spade import SPADE, AnySpadeResBlock
+from shineon_tpu_torch.ops import fused_spade as tfs
 
 LABELS = {"agnostic": 4, "cloth": 3, "densepose": 3, "flow": 2}
 
@@ -269,3 +270,174 @@ def test_gmm_128x96():
         grid, theta = tm(_t(person), _t(cloth), train=False)
     _assert_rel(theta.numpy(), theta_ref, 1e-4)
     _assert_rel(grid.numpy(), grid_ref, 1e-4)
+
+
+# The SPADE sites' launch plans and segmap operands (spade.chain_plan,
+# spade.SegmapMemo). On the card at eval fused_chain launches from them; the
+# plan's parts are built from CPU tensors here, as they are there.
+
+def _chain_case(L, C, dtype=torch.float32, int8=False, config="spadesyncbatch3x3", seed=0):
+    """L SPADEs over LABELS' first L labels with seeded weights and running
+    statistics (variances 0.5-1), x (2, 6, 5, C) and segmaps at twice its
+    size."""
+    g = torch.Generator().manual_seed(seed)
+    labels = list(LABELS.values())[:L]
+    spades = [SPADE(C, c, config_text=config, int8=int8) for c in labels]
+    with torch.no_grad():
+        for s in spades:
+            for t in (*s.parameters(), *s.buffers()):
+                t.copy_(torch.rand(t.shape, generator=g) * 0.5 + 0.5)
+    x = torch.randn(2, 6, 5, C, generator=g).to(dtype)
+    maps = [torch.randn(2, 12, 10, c, generator=g) for c in labels]
+    return spades, x, maps
+
+
+def _plan_counts():
+    fc = tspade.fused_chain
+    return fc.plan_builds, fc.plan_hits, fc.segmap_builds, fc.segmap_hits
+
+
+def _diff(after, before):
+    return tuple(a - b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L,C", [(1, 64), (4, 32)])
+def test_chain_plan_folds_as_fused_args(L, C, dtype, int8):
+    """A site's plan: its ab equals fused_args' fold bit for bit (zero-padded
+    to the kernel's 64-channel tile), its weights the chain's packed as the
+    uncached path packs them, its shapes x's and the segmap operand's."""
+    spades, x, maps = _chain_case(L, C, dtype, int8)
+    with torch.no_grad():
+        plan = tspade.chain_plan(spades, x)
+        args = [s.fused_args(x, m) for s, m in zip(spades, maps)]
+        packed = tfs.pack_weights([a[2] for a in args], [a[3] for a in args],
+                                  [a[4] for a in args], [a[5] for a in args], dtype, int8)
+    ab = torch.stack([a[0] for a in args], dim=1)
+    want = torch.zeros(2, L, 2 * 64)
+    want[..., :C], want[..., 64:64 + C] = ab[..., :C], ab[..., C:]
+    assert plan.ab.dtype == torch.float32 and torch.equal(plan.ab, want)
+    for mine, theirs in zip(plan.packed, packed):
+        assert (mine == theirs) if not isinstance(mine, torch.Tensor) else torch.equal(mine, theirs)
+    seg = tfs.kernel_segmap([a[1] for a in args], dtype)
+    assert plan.shape == tuple(x.shape) and plan.seg_shape == tuple(seg.shape)
+    assert (plan.dtype, plan.Cp, plan.act_name) == (dtype, 64, "relu")
+
+
+@pytest.mark.parametrize("change", ["none", "train_forward", "weight_edit", "weight_replaced",
+                                    "batch"])
+def test_chain_plan_is_kept_until_its_state_changes(change):
+    """A second call takes the kept plan; a train-mode forward (running
+    statistics updated in place), an in-place weight edit, a replaced weight
+    or another batch size makes it anew, equal to a plan made from
+    scratch. plan_builds and plan_hits count each."""
+    spades, x, maps = _chain_case(4, 64)
+    before = _plan_counts()
+    with torch.no_grad():
+        first = tspade.chain_plan(spades, x)
+        assert tspade.chain_plan(spades, x) is first
+        assert _diff(_plan_counts(), before) == (1, 1, 0, 0)
+        if change == "train_forward":
+            spades[2](x, maps[2], train=True)
+        elif change == "weight_edit":
+            spades[3].mlp_beta.weight.mul_(2)
+        elif change == "weight_replaced":
+            spades[1].mlp_shared.weight = torch.nn.Parameter(spades[1].mlp_shared.weight * 2)
+        elif change == "batch":
+            x = x[:1]
+        plan = tspade.chain_plan(spades, x)
+        rebuilt = change != "none"
+        assert (plan is not first) == rebuilt
+        assert _diff(_plan_counts(), before) == (1 + rebuilt, 2 - rebuilt, 0, 0)
+        spades[0]._plan = None
+        spades[0]._packed = tspade.EvalCache()
+        fresh = tspade.chain_plan(spades, x)
+    assert torch.equal(plan.ab, fresh.ab) and plan.shape == fresh.shape
+    for mine, theirs in zip(plan.packed[1:], fresh.packed[1:]):
+        assert (mine is None and theirs is None) or torch.equal(mine, theirs)
+    moved = {"train_forward": lambda p: p.ab, "weight_edit": lambda p: p.packed.wgb,
+             "weight_replaced": lambda p: p.packed.wsh}.get(change)
+    if moved is not None:
+        assert not torch.equal(moved(first), moved(plan))
+
+
+@pytest.mark.parametrize("L", [1, 4])
+def test_chain_plan_never_kept_for_instance_norm(L):
+    """An instance-norm chain's fold depends on x: no plan, nothing kept,
+    nothing counted."""
+    spades, x, _ = _chain_case(L, 64, config="spadeinstance3x3")
+    before = _plan_counts()
+    with torch.no_grad():
+        assert tspade.chain_plan(spades, x) is None
+    assert spades[0]._plan is None and _plan_counts() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segmap_memo_matches_only_the_same_unmodified_tensors(dtype):
+    """The memo's operand equals kernel_segmap of the resized labelmaps bit
+    for bit; the same tensors at the same resolution hit; another
+    resolution, new tensors of the same shape and values, and an in-place
+    edit of a source each build; an entry whose labelmap is gone is dropped
+    at the next build, and at most ``size`` entries are kept."""
+    memo = tspade.SegmapMemo(size=3)
+    _, _, maps = _chain_case(4, 64)
+    before = _plan_counts()
+    seg = memo.get(maps, 6, 5, dtype)
+    want = tfs.kernel_segmap([tspade.resize_nearest(m, 6, 5).to(dtype) for m in maps], dtype)
+    assert seg.dtype == dtype and torch.equal(seg, want)
+    assert memo.get(maps, 6, 5, dtype) is seg
+    assert memo.get(maps, 12, 10, dtype) is not seg
+    copies = [m.clone() for m in maps]
+    assert memo.get(copies, 6, 5, dtype) is not seg
+    maps[1].add_(1.0)
+    edited = memo.get(maps, 6, 5, dtype)
+    assert edited is not seg and not torch.equal(edited, seg)
+    assert memo.get(maps, 6, 5, dtype) is edited
+    assert _diff(_plan_counts(), before) == (0, 0, 4, 2)
+    assert len(memo._entries) == 3
+    del copies
+    memo.get(maps, 3, 3, dtype)
+    assert len(memo._entries) == 3 and all(r() is not None
+                                           for e in memo._entries.values() for r in e[0])
+    memo.get(maps, 2, 2, dtype)
+    assert len(memo._entries) == 3 and memo.get(maps, 12, 10, dtype) is not None
+    assert _diff(_plan_counts(), before) == (0, 0, 7, 2)
+
+
+@pytest.mark.parametrize("L", [1, 4])
+def test_fused_chain_on_the_cpu_takes_no_plan(L):
+    """On the CPU the chain takes its plain version, as before: no plan, no
+    memo, nothing counted."""
+    spades, x, maps = _chain_case(L, 64)
+    before = _plan_counts()
+    with torch.no_grad():
+        out = tspade.fused_chain(spades, x, maps)
+        args = [s.fused_args(x, m) for s, m in zip(spades, maps)]
+        ab, segs, wshs, bshs, wgbs, bgbs = zip(*args)
+        ref = tfs.multispade_modulate_plain(x, torch.stack(ab, dim=1), segs, wshs, bshs, wgbs,
+                                            bgbs)
+    assert torch.equal(out, ref)
+    assert _plan_counts() == before and spades[0]._plan is None
+
+
+@pytest.mark.parametrize("bad", ["x_shape", "x_dtype", "seg_shape", "seg_dtype", "seg_layout"])
+def test_launch_plan_checks_x_and_the_segmap(bad):
+    """A planned launch refuses x or a segmap operand that does not fit its
+    plan, before it reaches the card."""
+    spades, x, maps = _chain_case(4, 64, torch.bfloat16)
+    with torch.no_grad():
+        plan = tspade.chain_plan(spades, x)
+    seg = tspade.SegmapMemo().get(maps, 6, 5, torch.bfloat16)
+    if bad == "x_shape":
+        x = x[:, :5]
+    elif bad == "x_dtype":
+        x = x.float()
+    elif bad == "seg_shape":
+        seg = seg[:, :5].contiguous()
+    elif bad == "seg_dtype":
+        seg = seg.float()
+    else:
+        seg = seg.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="x is" if bad.startswith("x") else "seg"):
+        tfs.fused_multispade_modulate(x, plan.ab, maps, plan=plan, seg=seg)
